@@ -1,0 +1,403 @@
+// Fast-SCL subtree decode of one codeword (one batch column), shared by the
+// CUDA kernel (scl_subtree.cu, nvcc for sm_90a) and a host build
+// (scl_subtree_host.cpp, g++) that the CPU tests hold against the plain
+// PyTorch version.
+//
+// Contract (polar_torch/models/polar/cuda_scl.py, scl_subtree): given the
+// stage-b LLRs a [2^b, L, bs], the path metrics pm [L, bs] and a static op
+// schedule (kind, stage, lo) of one 2^b-leaf subtree, return the subtree's
+// per-path codeword cw [2^b, L, bs] int32, the parent map P [L, bs] (output
+// logical path -> input path) and the updated path metrics.
+//
+// Design:
+// * every array is batch-minor [row, L, bs], so neighbouring threads
+//   (neighbouring codewords) touch neighbouring addresses;
+// * workspaces live in global scratch with the compact stage layout
+//   (stage s at row 2^s - 1): lloc f32 LLR segments and uloc int8 partial
+//   sums, stages 0..b-1; stage b is read straight from the input a;
+// * forks copy no workspace rows. Each stage has a path pointer (logical
+//   path -> physical row slot), packed as L <= 8 nibbles in one uint32;
+//   a fork composes the pointers that are still live (liveness rules of
+//   _lptr_live / _uptr_live) and every read goes through its stage pointer;
+// * top-L of 2L candidates is L rounds of minimum, ties to the lower
+//   candidate index; rate-1 / SPC reliability order ties to the lower row.
+#pragma once
+
+#include <math.h>
+#include <stdint.h>
+
+#ifdef __CUDACC__
+#define PT_HD __host__ __device__
+#define PT_INLINE __forceinline__
+#else
+#define PT_HD
+#define PT_INLINE inline
+#endif
+
+namespace polar_torch {
+
+// op kinds of the schedule table [n_ops, 3] = (kind, stage, lo)
+enum OpKind { OP_Z = 0, OP_R = 1, OP_O = 2, OP_S = 3, OP_F = 4, OP_I = 5 };
+
+constexpr int kMaxB = 12;          // subtree depth limit (n <= 4096)
+constexpr int kMaxL = 8;           // nibble-packed path pointers
+constexpr uint32_t kIdent = 0x76543210u;
+
+struct SubtreeArgs {
+  const float* a;          // [2^b, L, bs], column stride 1
+  long long a_row_stride;  // elements
+  long long a_l_stride;    // elements (0 for a broadcast over paths)
+  const float* pm_in;      // [L, bs]
+  const int32_t* sched;    // [n_ops, 3]
+  int n_ops;
+  int32_t* cw;             // [2^b, L, bs]
+  int32_t* p_out;          // [L, bs]
+  float* pm_out;           // [L, bs]
+  float* lloc;             // [2^b - 1, L, bs] scratch
+  int8_t* uloc;            // [2^b - 1, L, bs] scratch
+  int b;
+  int bs;
+  float llr_max;
+  int exact;               // 1: exact boxplus f, 0: min-sum f
+};
+
+PT_HD PT_INLINE int nib(uint32_t p, int l) { return (p >> (4 * l)) & 0xF; }
+
+// new[l] = p[parent[l]]
+template <int L>
+PT_HD PT_INLINE uint32_t compose(uint32_t p, uint32_t parent) {
+  uint32_t r = 0;
+#pragma unroll
+  for (int l = 0; l < L; ++l) r |= (uint32_t)nib(p, nib(parent, l)) << (4 * l);
+  return r;
+}
+
+// bit l of the result = bit parent[l] of m (a per-path flag follows its path)
+template <int L>
+PT_HD PT_INLINE uint32_t permute_bits(uint32_t m, uint32_t parent) {
+  uint32_t r = 0;
+#pragma unroll
+  for (int l = 0; l < L; ++l) r |= ((m >> nib(parent, l)) & 1u) << l;
+  return r;
+}
+
+PT_HD PT_INLINE int ctz(int i) {
+  int c = 0;
+  while (!(i & 1)) { i >>= 1; ++c; }
+  return c;
+}
+
+PT_HD PT_INLINE int cto(int i) {
+  int c = 0;
+  while (i & 1) { i >>= 1; ++c; }
+  return c;
+}
+
+// lloc stage s still has a pending g-read after a fork ending at leaf i_end
+PT_HD PT_INLINE bool lptr_live(int s, int i_end) {
+  return s >= 1 && ((i_end >> (s - 1)) & 1) == 0;
+}
+
+// uloc stage s still has a pending combine after a fork of a node at stage
+// s_node ending at leaf i_end
+PT_HD PT_INLINE bool uptr_live(int s, int i_end, int s_node) {
+  return s >= s_node && ((i_end >> s) & 1) == 1;
+}
+
+PT_HD PT_INLINE float clipf(float x, float m) { return fminf(fmaxf(x, -m), m); }
+
+// log(1 + e^x)
+PT_HD PT_INLINE float softplus(float x) {
+  return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
+}
+
+PT_HD PT_INLINE float logaddexp(float x, float y) {
+  return fmaxf(x, y) + log1pf(expf(-fabsf(x - y)));
+}
+
+PT_HD PT_INLINE float sgn(float x) { return (float)((x > 0.0f) - (x < 0.0f)); }
+
+PT_HD PT_INLINE float f_op(float x, float y, float m, int exact) {
+  x = clipf(x, m);
+  y = clipf(y, m);
+  if (exact) return logaddexp(0.0f, x + y) - logaddexp(x, y);
+  return sgn(x) * sgn(y) * fminf(fabsf(x), fabsf(y));
+}
+
+// (1 - 2u) x + y; the product is exact, so the select is bit-identical
+PT_HD PT_INLINE float g_op(float x, float y, int u) { return u ? y - x : y + x; }
+
+// one codeword's view of the [row, L, bs] arrays
+template <int L>
+struct Column {
+  const SubtreeArgs& A;
+  int col;
+
+  PT_HD PT_INLINE size_t at(int row, int p) const {
+    return ((size_t)row * L + p) * (size_t)A.bs + col;
+  }
+  // stage-s LLR element j of physical path slot p (stage b is the input)
+  PT_HD PT_INLINE float lread(int s, int j, int p) const {
+    if (s == A.b)
+      return A.a[(long long)j * A.a_row_stride + (long long)p * A.a_l_stride + col];
+    return A.lloc[at((1 << s) - 1 + j, p)];
+  }
+  PT_HD PT_INLINE void lwrite(int s, int j, int p, float v) const {
+    A.lloc[at((1 << s) - 1 + j, p)] = v;
+  }
+  PT_HD PT_INLINE int uread(int s, int j, int p) const {
+    return A.uloc[at((1 << s) - 1 + j, p)];
+  }
+};
+
+// top-L of the 2L candidates: L rounds of minimum, ties to the lower index
+template <int L>
+PT_HD PT_INLINE void top_l(const float* cand, float* pm, int* sel) {
+  uint32_t taken = 0;
+#pragma unroll
+  for (int r = 0; r < L; ++r) {
+    int bi = -1;
+    float best = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 2 * L; ++c) {
+      if (!((taken >> c) & 1u) && (bi < 0 || cand[c] < best)) {
+        best = cand[c];
+        bi = c;
+      }
+    }
+    pm[r] = best;
+    sel[r] = bi;
+    taken |= 1u << bi;
+  }
+}
+
+template <int L>
+PT_HD void subtree_column(const SubtreeArgs& A, int col) {
+  const Column<L> C{A, col};
+  const int b = A.b;
+  const float m = A.llr_max;
+  float pm[L];
+  for (int l = 0; l < L; ++l) pm[l] = A.pm_in[(size_t)l * A.bs + col];
+  uint32_t lptr[kMaxB + 1];   // stages 0..b (b = input)
+  uint32_t uptr[kMaxB];       // stages 0..b-1
+  for (int s = 0; s <= b; ++s) lptr[s] = kIdent;
+  for (int s = 0; s < b; ++s) uptr[s] = kIdent;
+  uint32_t P = kIdent;
+
+  float cand[2 * L];
+  int sel[L];
+  // rate-1 / SPC node state: reliability order per node-entry path
+  float svals[kMaxL][kMaxL];
+  int srows[kMaxL][kMaxL];
+  uint32_t flips[kMaxL];
+
+  for (int op = 0; op < A.n_ops; ++op) {
+    const int kind = A.sched[3 * op];
+    const int s_nd = A.sched[3 * op + 1];
+    const int lo = A.sched[3 * op + 2];
+    const int w = 1 << s_nd;
+    const int i_end = lo + w - 1;
+
+    // ---- descent to the node root; the root value is stored at its own
+    // stage (stage b when the node is the whole subtree) ----
+    int s_top;
+    if (lo == 0) {
+      s_top = b;
+    } else {
+      const int d = ctz(lo);
+      const int h = 1 << d;
+      for (int l = 0; l < L; ++l) {
+        const int p = nib(lptr[d + 1], l);
+        const int q = nib(uptr[d], l);
+        for (int j = 0; j < h; ++j)
+          C.lwrite(d, j, l, g_op(C.lread(d + 1, j, p), C.lread(d + 1, j + h, p),
+                                 C.uread(d, j, q)));
+      }
+      lptr[d] = kIdent;
+      s_top = d;
+    }
+    for (int s = s_top; s > s_nd; --s) {
+      const int h = 1 << (s - 1);
+      for (int l = 0; l < L; ++l) {
+        const int p = nib(lptr[s], l);
+        for (int j = 0; j < h; ++j)
+          C.lwrite(s - 1, j, l, f_op(C.lread(s, j, p), C.lread(s, j + h, p), m, A.exact));
+      }
+      lptr[s - 1] = kIdent;
+    }
+    // node values of node-entry path q: C.lread(s_nd, j, nib(node_ptr, q))
+    const uint32_t node_ptr = lptr[s_nd];
+
+    // ---- node ----
+    // the node's partial sums go to the tail of the rise destination
+    const int r = cto(i_end);
+    const int R = r < b ? r : b;
+    const int Wd = 1 << R;
+    const int tail = Wd - w;
+    int8_t* udst = A.uloc;
+    int32_t* cdst = A.cw;
+    auto put = [&](int row, int l, int v) {
+      if (r >= b) cdst[C.at(row, l)] = v;
+      else udst[C.at((1 << r) - 1 + row, l)] = (int8_t)v;
+    };
+    auto get = [&](int row, int l) -> int {
+      return r >= b ? (int)cdst[C.at(row, l)] : (int)udst[C.at((1 << r) - 1 + row, l)];
+    };
+
+    bool forked = false;
+    uint32_t qn = kIdent;   // node-local composition of the node's forks
+    if (kind == OP_F || kind == OP_Z) {
+      // frozen leaf / rate-0 node: bulk PM update, all-zero partial sums
+      for (int l = 0; l < L; ++l) {
+        const int p = nib(node_ptr, l);
+        float acc = 0.0f;
+        for (int j = 0; j < w; ++j) acc += softplus(-clipf(C.lread(s_nd, j, p), m));
+        pm[l] = pm[l] + acc;
+        for (int j = 0; j < w; ++j) put(tail + j, l, 0);
+      }
+    } else if (kind == OP_R || kind == OP_I) {
+      // repetition node / info leaf: one fork for the (repeated) bit
+      for (int l = 0; l < L; ++l) {
+        const int p = nib(node_ptr, l);
+        if (kind == OP_I) {
+          const float v = clipf(C.lread(s_nd, 0, p), m);
+          cand[l] = pm[l] + softplus(-v);
+          cand[L + l] = pm[l] + softplus(v);
+        } else {
+          float s0 = 0.0f, s1 = 0.0f;
+          for (int j = 0; j < w; ++j) {
+            const float v = clipf(C.lread(s_nd, j, p), m);
+            s0 += softplus(-v);
+            s1 += softplus(v);
+          }
+          cand[l] = pm[l] + s0;
+          cand[L + l] = pm[l] + s1;
+        }
+      }
+      top_l<L>(cand, pm, sel);
+      uint32_t par = 0;
+      for (int l = 0; l < L; ++l) par |= (uint32_t)(sel[l] % L) << (4 * l);
+      qn = par;
+      forked = true;
+      for (int l = 0; l < L; ++l) {
+        const int bit = sel[l] / L;
+        for (int j = 0; j < w; ++j) put(tail + j, l, bit);
+      }
+    } else {
+      // rate-1 ('o') or single-parity-check ('s') node, decoded at its top:
+      // hard decisions plus theta sequential least-reliable-flip forks
+      const bool spc = kind == OP_S;
+      const int theta = spc ? (L < w ? L : w) : (L - 1 < w ? L - 1 : w);
+      const bool small = !spc && w <= L - 1;   // row-order forks, no sort
+      uint32_t e = 0;                          // SPC toggle state per path
+      for (int l = 0; l < L; ++l) {
+        const int p = nib(node_ptr, l);
+        float acc = 0.0f;
+        int par = 0;
+        for (int j = 0; j < w; ++j) {
+          const float v = clipf(C.lread(s_nd, j, p), m);
+          acc += softplus(-fabsf(v));
+          par ^= v < 0.0f;
+        }
+        if (!small) {
+          // ascending (|a|, row) order: the t-th pick is the least pair
+          // strictly after the previous pick
+          float pv = -1.0f;
+          int pr = -1;
+          for (int t = 0; t < theta; ++t) {
+            int br = -1;
+            float bv = 0.0f;
+            for (int j = 0; j < w; ++j) {
+              const float v = fabsf(clipf(C.lread(s_nd, j, p), m));
+              const bool after = v > pv || (v == pv && j > pr);
+              if (after && (br < 0 || v < bv)) {
+                bv = v;
+                br = j;
+              }
+            }
+            svals[t][l] = bv;
+            srows[t][l] = br;
+            pv = bv;
+            pr = br;
+          }
+        }
+        if (spc) {
+          pm[l] = (pm[l] + acc) + (par ? svals[0][l] : 0.0f);
+          e |= (uint32_t)par << l;
+        } else {
+          pm[l] = pm[l] + acc;
+        }
+      }
+      for (int t = spc ? 1 : 0; t < theta; ++t) {
+        for (int l = 0; l < L; ++l) {
+          const int q = nib(qn, l);
+          float pen;
+          if (small) {
+            pen = fabsf(clipf(C.lread(s_nd, t, nib(node_ptr, q)), m));
+          } else if (spc) {
+            const float v0 = svals[0][q];
+            pen = ((e >> l) & 1u) ? svals[t][q] - v0 : svals[t][q] + v0;
+          } else {
+            pen = svals[t][q];
+          }
+          cand[l] = pm[l];
+          cand[L + l] = pm[l] + pen;
+        }
+        top_l<L>(cand, pm, sel);
+        uint32_t par = 0, flip = 0;
+        for (int l = 0; l < L; ++l) {
+          par |= (uint32_t)(sel[l] % L) << (4 * l);
+          flip |= (uint32_t)(sel[l] / L) << l;
+        }
+        qn = compose<L>(qn, par);
+        for (int u = spc ? 1 : 0; u < t; ++u) flips[u] = permute_bits<L>(flips[u], par);
+        flips[t] = flip;
+        if (spc) e = permute_bits<L>(e, par) ^ flip;
+        for (int s = 0; s <= b; ++s)
+          if (lptr_live(s, i_end)) lptr[s] = compose<L>(lptr[s], par);
+        for (int s = 0; s < b; ++s)
+          if (uptr_live(s, i_end, s_nd)) uptr[s] = compose<L>(uptr[s], par);
+        P = compose<L>(P, par);
+      }
+      // codeword of output path l: node-entry path q's hard decisions with
+      // the surviving flips applied (rows read through the final q)
+      for (int l = 0; l < L; ++l) {
+        const int q = nib(qn, l);
+        const int p = nib(node_ptr, q);
+        for (int j = 0; j < w; ++j) {
+          int c = C.lread(s_nd, j, p) < 0.0f;
+          for (int t = spc ? 1 : 0; t < theta; ++t) {
+            const int row = small ? t : srows[t][q];
+            c ^= (row == j) & (int)((flips[t] >> l) & 1u);
+          }
+          if (spc) c ^= (srows[0][q] == j) & (int)((e >> l) & 1u);
+          put(tail + j, l, c);
+        }
+      }
+    }
+    if (forked) {
+      for (int s = 0; s <= b; ++s)
+        if (lptr_live(s, i_end)) lptr[s] = compose<L>(lptr[s], qn);
+      for (int s = 0; s < b; ++s)
+        if (uptr_live(s, i_end, s_nd)) uptr[s] = compose<L>(uptr[s], qn);
+      P = compose<L>(P, qn);
+    }
+
+    // ---- rise: combine partial sums upward into the destination ----
+    for (int s = s_nd; s < R; ++s) {
+      const int h = 1 << s;
+      const int base = Wd - 2 * h;
+      for (int l = 0; l < L; ++l) {
+        const int q = nib(uptr[s], l);
+        for (int j = 0; j < h; ++j) put(base + j, l, C.uread(s, j, q) ^ get(base + h + j, l));
+      }
+    }
+    if (r < b) uptr[r] = kIdent;
+  }
+  for (int l = 0; l < L; ++l) {
+    A.p_out[(size_t)l * A.bs + col] = nib(P, l);
+    A.pm_out[(size_t)l * A.bs + col] = pm[l];
+  }
+}
+
+}  // namespace polar_torch

@@ -1,0 +1,30 @@
+"""Host-side polar code construction (frozen-set selection), pure NumPy."""
+
+import numpy as np
+
+from polar_torch.models.polar.nr_reliability import NR_RELIABILITY_SEQUENCE
+
+
+def generate_5g_ranking(k: int, n: int, sort: bool = True,
+                        strict: bool = True):
+    """Frozen and info positions from the 5G NR reliability table
+    (TS 38.212 Tab. 5.3.1.2-1): the ``n - k`` least reliable of the ``n``
+    lowest-index channels are frozen. Returns ``[frozen_pos, info_pos]``;
+    with ``sort=False`` both are in ascending-reliability order."""
+    if strict and not (32 <= n <= 1024 and k <= 1024 and n >= k
+                       and n & (n - 1) == 0):
+        raise ValueError(f"invalid 5G code k={k}, n={n}: need 32 <= n <= "
+                         f"1024 a power of 2 and k <= n")
+    seq = NR_RELIABILITY_SEQUENCE
+    ranking_n = seq[seq < n][:n]
+    frozen_pos = np.array(ranking_n[: n - k], dtype=np.int64)
+    info_pos = np.array(ranking_n[n - k:], dtype=np.int64)
+    if sort:
+        frozen_pos = np.sort(frozen_pos)
+        info_pos = np.sort(info_pos)
+    return [frozen_pos, info_pos]
+
+
+def info_positions(frozen_pos, n: int) -> np.ndarray:
+    """Complement of ``frozen_pos`` in ``range(n)``."""
+    return np.setdiff1d(np.arange(n), np.asarray(frozen_pos, dtype=np.int64))

@@ -1,0 +1,278 @@
+"""The two-level fast-SCL sweep.
+
+The decode tree is cut at stage ``b``. Every 2^b-leaf subtree is one call of
+the subtree kernel (``cuda_scl.scl_subtree``); the stages above ``b`` run
+here as tensor code:
+
+* the outer descent (f/g from the channel LLRs down to the next subtree),
+  and the rise (partial-sum combines back up);
+* upper nodes, i.e. rate-0 ('z'), repetition ('r'), rate-1 ('o') and SPC
+  ('s') nodes that span whole subtrees, at their true stage;
+* lazy path pointers per upper stage: a fork composes the live pointers
+  (``_lptr_live`` / ``_uptr_live``) instead of copying segments;
+* survivor backtracking through the parent maps, then ``polar_transform``.
+
+The node schedule is Hashemi's fast-SSCL pruning: rate-0 nodes keep a bulk
+path-metric update, repetition nodes one fork, and (``rate1=True``) rate-1
+and SPC nodes theta least-reliable-flip forks at the node top. With
+``b = S`` the whole tree is one subtree call.
+"""
+
+import numpy as np
+import torch
+
+from polar_torch.models.polar.cuda_scl import (
+    SubtreeSchedule, _ctz, _cto, _flip_forks, _lptr_live, _rep_fork,
+    _take_paths, _uptr_live, scl_subtree)
+from polar_torch.ops.butterfly import polar_transform
+from polar_torch.ops.fg import F_FUNCTIONS, _clip, g as g_op, softplus
+
+# SPC ('s') nodes are off unless a threshold stage is given
+SPC_MIN_STAGE_OFF = 99
+# subtree depth b when none is given: the fastest of b = 5..10 for the
+# k=512 n=1024 SCL-8 chain on an H100 (the depth survey of chip_smoke.py)
+DEFAULT_LOWER_STAGES = 6
+
+
+def resolve_lower_stages(S: int, lower_stages=None) -> int:
+    """Subtree depth b of a 2^S-leaf tree: ``lower_stages`` (default
+    ``DEFAULT_LOWER_STAGES``) clamped to [1, S]."""
+    b = DEFAULT_LOWER_STAGES if lower_stages is None else int(lower_stages)
+    return max(1, min(b, S))
+
+
+def fast_schedule(frozen_mask, rep: bool = True, rate1: bool = False,
+                  spc_min_stage=None):
+    """Fast-SCL pruned node schedule in leaf order:
+
+        ('z', s, lo)  rate-0 node covering [lo, lo + 2^s)
+        ('r', s, lo)  repetition node (all frozen but the last leaf)
+        ('o', s, lo)  rate-1 node (no frozen leaf), with ``rate1=True``
+        ('s', s, lo)  SPC node (only the first leaf frozen), with
+                      ``rate1=True`` and s >= ``spc_min_stage`` (>= 1)
+        ('f', 0, lo)  frozen leaf
+        ('i', 0, lo)  info leaf
+
+    ``rep=False`` emits rate-0 prunes only. ``spc_min_stage=None`` keeps SPC
+    nodes off."""
+    mask = np.asarray(frozen_mask, dtype=bool)
+    n = len(mask)
+    spc_min = max(1, SPC_MIN_STAGE_OFF if spc_min_stage is None
+                  else int(spc_min_stage))
+    ops = []
+
+    def rec(s, lo):
+        seg = mask[lo:lo + (1 << s)]
+        if s >= 1 and seg.all():
+            ops.append(("z", s, lo))
+        elif rep and s >= 1 and not seg[-1] and seg[:-1].all():
+            ops.append(("r", s, lo))
+        elif rate1 and s >= 1 and not seg.any():
+            ops.append(("o", s, lo))
+        elif rate1 and s >= spc_min and seg[0] and not seg[1:].any():
+            ops.append(("s", s, lo))
+        elif s == 0:
+            ops.append(("f" if seg[0] else "i", 0, lo))
+        else:
+            rec(s - 1, lo)
+            rec(s - 1, lo + (1 << (s - 1)))
+
+    rec(int(np.log2(n)), 0)
+    return ops
+
+
+def split_fast_schedule(frozen_mask, b, rate1: bool = False,
+                        spc_min_stage=None):
+    """Cut the fast schedule at the subtree boundary 2^b. Returns
+    ``(units, has_upper_rep)``: ``units`` in leaf order are
+    ``('sub', j, ops_j)`` (subtree ``j``, ``lo`` local to it) or
+    ``(kind, s, j0, q)``, an upper node at stage ``s > b`` covering the
+    ``q = 2^(s-b)`` subtrees from ``j0``."""
+    units, has_upper_rep = [], False
+    cur_j, cur_ops = None, []
+
+    def flush():
+        nonlocal cur_j, cur_ops
+        if cur_j is not None:
+            units.append(("sub", cur_j, tuple(cur_ops)))
+            cur_j, cur_ops = None, []
+
+    for kind, s, lo in fast_schedule(frozen_mask, rate1=rate1,
+                                     spc_min_stage=spc_min_stage):
+        if s > b:
+            flush()
+            has_upper_rep |= kind == "r"
+            units.append((kind, s, lo >> b, 1 << (s - b)))
+        else:
+            j = lo >> b
+            if j != cur_j:
+                flush()
+                cur_j = j
+            cur_ops.append((kind, s, lo - (j << b)))
+    flush()
+    return units, has_upper_rep
+
+
+def sum_rows(x):
+    """One reduction over the rows (dim 0): upper nodes are wide, and no
+    kernel computes them, so no summation order has to be matched."""
+    return x.sum(dim=0)
+
+
+def plan_fast_sweep(frozen_mask, b, device, rate1: bool = False,
+                    spc_min_stage=None):
+    """``split_fast_schedule``'s units with each subtree's op list encoded
+    once as a ``SubtreeSchedule`` on ``device``."""
+    units, _ = split_fast_schedule(frozen_mask, b, rate1=rate1,
+                                   spc_min_stage=spc_min_stage)
+    return [("sub", u[1], SubtreeSchedule(u[2], device)) if u[0] == "sub"
+            else u for u in units]
+
+
+def scl_sweep_hybrid_fast(llr_ch, frozen_mask, list_size: int,
+                          mode: str = "minsum", llr_max: float = 30.0,
+                          lower_stages=None, rate1: bool = False,
+                          spc_min_stage=None, plan=None,
+                          subtree=scl_subtree):
+    """Two-level fast-SCL sweep. ``llr_ch``: [n, bs] channel LLRs
+    (positive means bit 0). Returns ``(u [n, L, bs] int8, pm [L, bs])``.
+
+    ``lower_stages`` is the subtree depth b (see ``resolve_lower_stages``;
+    b = S runs the whole tree as one subtree call). ``plan`` is ``plan_fast_sweep``'s result for the same mask, b,
+    ``rate1`` and ``spc_min_stage``, computed here when omitted.
+    ``subtree`` decodes one subtree (``cuda_scl.scl_subtree`` or a function
+    with its signature)."""
+    n, bs = llr_ch.shape
+    S = int(np.log2(n))
+    L = int(list_size)
+    b = resolve_lower_stages(S, lower_stages)
+    dev = llr_ch.device
+    f = F_FUNCTIONS[mode]
+    w_sub = 1 << b
+    m = n >> b
+    top = S - b
+    if plan is None:
+        plan = plan_fast_sweep(frozen_mask, b, dev, rate1=rate1,
+                               spc_min_stage=spc_min_stage)
+    llr_bc = llr_ch.to(torch.float32)[:, None, :].expand(n, L, bs)
+
+    # upper-stage state: lbs[t] holds super-stage t+1 (real stage b+1+t),
+    # u0s[t] super-stage t; pointers are None (identity) or an index map
+    lbs = [None] * max(top - 1, 0)
+    u0s = [None] * top
+    lptr = [None] * max(top - 1, 0)
+    uptr = [None] * top
+    pm = torch.full((L, bs), llr_max, dtype=torch.float32, device=dev)
+    pm[0] = 0.0
+
+    def read(seg, ptr):
+        return seg if ptr is None else _take_paths(seg, ptr)
+
+    def compose(ptr, parent):
+        return parent if ptr is None else _take_paths(ptr, parent)
+
+    def compose_live(parent, j_end: int, sg_nd: int):
+        """Re-index the live upper pointers by a fork's parent selection;
+        dead ones are rewritten before their next read and stay as they
+        are."""
+        for t in range(len(lptr)):
+            if _lptr_live(t + 1, j_end):
+                lptr[t] = compose(lptr[t], parent)
+        for t in range(top):
+            if _uptr_live(t, j_end, sg_nd):
+                uptr[t] = compose(uptr[t], parent)
+
+    def store(sg, cur):
+        """Keep super-stage ``sg`` (>= 1) for its pending g-read."""
+        lbs[sg - 1] = cur
+        lptr[sg - 1] = None
+
+    def descend(j0: int, sg_nd: int):
+        """LLRs of the unit starting at subtree ``j0``, down to super-stage
+        ``sg_nd``: [2^(b+sg_nd), L, bs]."""
+        if j0 == 0:
+            cur, sg_from = llr_bc, top
+        else:
+            d = _ctz(j0)
+            a = llr_bc if d + 1 == top else read(lbs[d], lptr[d])
+            h = 1 << (b + d)
+            cur = g_op(a[:h], a[h:], read(u0s[d], uptr[d]))
+            if d > sg_nd:
+                store(d, cur)
+            sg_from = d
+        for sg in range(sg_from, sg_nd, -1):
+            h = 1 << (b + sg - 1)
+            cur = f(cur[:h], cur[h:], llr_max)
+            if sg - 1 > sg_nd:
+                store(sg - 1, cur)
+        return cur
+
+    def rise(node_sums, j_end: int, sg_nd: int):
+        """Combine partial sums upward through cto(j_end) super-stages."""
+        r = _cto(j_end)
+        cur_u = node_sums
+        for sg in range(sg_nd, min(r, top)):
+            cur_u = torch.cat([read(u0s[sg], uptr[sg]) ^ cur_u, cur_u], dim=0)
+        if r < top:
+            u0s[r] = cur_u
+            uptr[r] = None
+
+    # ---- the outer sweep over schedule units ----
+    cws = [None] * m
+    ps = [None] * m
+    for unit in plan:
+        if unit[0] == "sub":
+            _, j, sched = unit
+            a = descend(j, 0)
+            cw32, Pj, pm = subtree(a, pm, sched, b=b, llr_max=llr_max,
+                                   mode=mode)
+            Pj = Pj.to(torch.int64)
+            compose_live(Pj, j, 0)
+            cws[j] = cw32.to(torch.int8)
+            ps[j] = Pj
+            rise(cws[j], j, 0)
+            continue
+        kind, s_real, j0, q = unit
+        sg_nd = s_real - b
+        j_end = j0 + q - 1
+        cur = descend(j0, sg_nd)                  # [2^s_real, L, bs]
+        fork = lambda parent: compose_live(parent, j_end, sg_nd)
+        if kind == "z":
+            # rate-0 spanning q subtrees: bulk path-metric update
+            pm = pm + sum_rows(softplus(-_clip(cur, llr_max)))
+            node_sums = torch.zeros((1 << s_real, L, bs), dtype=torch.int8,
+                                    device=dev)
+            for jj in range(j0, j_end + 1):
+                cws[jj] = node_sums[:w_sub]
+                ps[jj] = None
+        elif kind in ("o", "s"):
+            pm, node_sums, qn = _flip_forks(pm, cur, llr_max, kind == "s",
+                                            fork, sum_rows)
+            # emissions are stage-b codewords: undo the node's combine
+            # levels along the chunk axis; the composed parent map rides
+            # the first covered subtree
+            em = polar_transform(node_sums.reshape(q, w_sub, L, bs), axis=0)
+            for jj in range(j0, j_end + 1):
+                cws[jj] = em[jj - j0]
+                ps[jj] = qn if jj == j0 else None
+        else:
+            # repetition spanning q subtrees: one fork
+            pm, parent, bit = _rep_fork(pm, cur, llr_max, sum_rows)
+            fork(parent)
+            node_sums = bit[None].expand(1 << s_real, L, bs)
+            for jj in range(j0, j_end + 1):
+                cws[jj] = node_sums[:w_sub]
+                # the fork's parent map rides the first covered subtree
+                ps[jj] = parent if jj == j0 else None
+        rise(node_sums, j_end, sg_nd)
+
+    # ---- survivor backtracking (label None is the identity) ----
+    label = None
+    for j in range(m - 1, -1, -1):
+        if label is not None:
+            cws[j] = _take_paths(cws[j], label)
+        if ps[j] is not None:
+            label = ps[j] if label is None else _take_paths(ps[j], label)
+    cw = torch.stack(cws, dim=0)                  # [m, 2^b, L, bs]
+    u = polar_transform(cw, axis=1)
+    return u.reshape(n, L, bs), pm

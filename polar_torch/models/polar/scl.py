@@ -1,0 +1,104 @@
+"""Successive-cancellation list (SCL) polar decoder: the fast-SCL sweep.
+
+Path metrics follow Balatsoukas-Stimming et al. (Eq. 10) with clipped
+softplus updates and the initial metrics ``[0, llr_max, ...]``; the best L
+of 2L candidates survive each fork. The decode runs the two-level fast
+sweep of ``scan_core.scl_sweep_hybrid_fast`` for every n, with its 2^b-leaf
+subtrees on the CUDA kernel (``cuda_scl``) when the input is on the card.
+"""
+
+import numpy as np
+import torch
+
+from polar_torch._device import resolve_device
+from polar_torch.models.polar.construction import info_positions
+from polar_torch.models.polar.cuda_scl import LIST_SIZES
+from polar_torch.models.polar.scan_core import (
+    plan_fast_sweep, resolve_lower_stages, scl_sweep_hybrid_fast)
+from polar_torch.ops.fg import F_FUNCTIONS
+
+
+class PolarSCLDecoder:
+    """SCL decoder. ``__call__(llr_logits[..., n]) -> u_hat[..., k]``;
+    logits are positive for bit 1.
+
+    ``fast_rate1`` adds rate-1 node shortcuts to the rate-0/repetition
+    pruning, and ``spc_min_stage`` SPC nodes from that stage up (off when
+    None). ``lower_stages`` is the subtree depth b
+    (``scan_core.resolve_lower_stages``): one kernel call per 2^b-leaf
+    subtree."""
+
+    def __init__(self, frozen_pos, n: int, list_size: int = 8,
+                 crc_degree=None, use_hybrid_sc: bool = False,
+                 use_fast_scl: bool = True, mode: str = "minsum",
+                 llr_max: float = 30.0, pc_pos=None,
+                 fast_rate1: bool = False, spc_min_stage=None,
+                 lower_stages=None, output_dtype=torch.float32,
+                 device=None):
+        if fast_rate1 and not use_fast_scl:
+            raise ValueError("fast_rate1=True needs use_fast_scl=True")
+        later = {
+            "crc_degree": (crc_degree is not None, "ROADMAP Queue 1 item 9"),
+            "pc_pos": (pc_pos is not None, "ROADMAP Queue 1 item 10"),
+            "use_hybrid_sc": (use_hybrid_sc, "ROADMAP Queue 1 item 11"),
+            "use_fast_scl=False": (not use_fast_scl,
+                                   "ROADMAP Queue 1 item 18"),
+            "list_size > 8": (list_size > 8, "ROADMAP Queue 1 item 12"),
+            "a frozen set given as a tensor": (
+                isinstance(frozen_pos, torch.Tensor),
+                "ROADMAP Queue 2 item 5"),
+        }
+        for what, (asked, item) in later.items():
+            if asked:
+                raise NotImplementedError(
+                    f"PolarSCLDecoder: {what} is not ported yet ({item})")
+        n = int(n)
+        if n < 2 or n & (n - 1):
+            raise ValueError("n must be a power of 2, at least 2")
+        if list_size not in LIST_SIZES:
+            raise ValueError(f"list_size must be one of {LIST_SIZES}")
+        if mode not in F_FUNCTIONS:
+            raise ValueError(f"unknown mode {mode!r}")
+        self.n = n
+        self.device = resolve_device(device)
+        self.frozen_pos = np.asarray(frozen_pos, dtype=np.int64)
+        self.info_pos = info_positions(self.frozen_pos, n)
+        self.k = n - len(self.frozen_pos)
+        self.list_size = int(list_size)
+        self.mode = mode
+        self.llr_max = float(llr_max)
+        self.fast_rate1 = bool(fast_rate1)
+        self.spc_min_stage = spc_min_stage
+        self.output_dtype = output_dtype
+        self.lower_stages = resolve_lower_stages(n.bit_length() - 1,
+                                                 lower_stages)
+        self._frozen_mask = np.zeros(n, dtype=bool)
+        self._frozen_mask[self.frozen_pos] = True
+        self._plan = plan_fast_sweep(self._frozen_mask, self.lower_stages,
+                                     self.device, rate1=self.fast_rate1,
+                                     spc_min_stage=spc_min_stage)
+        self._info_idx = torch.from_numpy(self.info_pos).to(self.device)
+
+    def decode(self, llr_logits):
+        """[bs, n] logits -> [bs, k] decisions of the best path."""
+        llr_ch = (-llr_logits.to(torch.float32)).t().contiguous()  # [n, bs]
+        u_all, pm = scl_sweep_hybrid_fast(
+            llr_ch, self._frozen_mask, self.list_size, mode=self.mode,
+            llr_max=self.llr_max, lower_stages=self.lower_stages,
+            rate1=self.fast_rate1, spc_min_stage=self.spc_min_stage,
+            plan=self._plan)
+        u_info = u_all[self._info_idx]                      # [k, L, bs]
+        sel = torch.argmin(pm, dim=0)                       # [bs]
+        u_sel = torch.gather(u_info, 1, sel[None, None, :].expand(
+            u_info.shape[0], 1, -1))[:, 0]
+        return u_sel.t().to(self.output_dtype)
+
+    def __call__(self, inputs):
+        if inputs.shape[-1] != self.n or inputs.dim() < 2:
+            raise ValueError(f"inputs must be [..., n={self.n}]")
+        if inputs.device != self.device:
+            raise ValueError(f"inputs on {inputs.device}, decoder on "
+                             f"{self.device}")
+        lead = inputs.shape[:-1]
+        return self.decode(inputs.reshape(-1, self.n)).reshape(
+            lead + (self.k,))

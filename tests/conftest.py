@@ -45,6 +45,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "slow: long cold-compile cases, opt-in via -m 'tpu and slow'")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card (polar_torch kernels); skips without one")
 
 
 # Quick-lane registry (POLAR_TPU_TEST_QUICK=1): the measured slowest tests

@@ -1,0 +1,105 @@
+"""polar_torch on the card: the SCL subtree kernel against its plain version
+on the same CUDA inputs, and the decoder on the card against the decoder on
+the CPU. Every test here needs a CUDA card and skips without one.
+
+The file imports no JAX, so it also runs where JAX is not installed:
+
+    python -m pytest --noconftest -q tests/test_torch_gpu.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from polar_torch.models.polar.construction import generate_5g_ranking
+from polar_torch.models.polar.cuda_scl import (
+    SubtreeSchedule, scl_subtree, scl_subtree_plain)
+from polar_torch.models.polar.scan_core import split_fast_schedule
+from polar_torch.models.polar.scl import PolarSCLDecoder
+
+from _torch_parity import BLOCK_AGREEMENT, assert_blocks_agree
+
+LLR_MAX = 30.0
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _mask_5g(k, n):
+    mask = np.zeros(n, bool)
+    mask[generate_5g_ranking(k, n)[0]] = True
+    return mask
+
+
+def _random_mask(n, seed):
+    rng = np.random.default_rng(seed)
+    return rng.random(n) < rng.uniform(0.2, 0.8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["5g_n64_b3", "random_b4_spc",
+                                  "5g_n1024_b6", "5g_n1024_b10"])
+@pytest.mark.parametrize("L", [2, 8])
+def test_kernel_equals_plain_on_card(cuda, case, L):
+    mask, b, spc = {
+        "5g_n64_b3": (_mask_5g(32, 64), 3, None),
+        "random_b4_spc": (_random_mask(128, 1), 4, 2),
+        "5g_n1024_b6": (_mask_5g(512, 1024), 6, None),
+        "5g_n1024_b10": (_mask_5g(512, 1024), 10, None),
+    }[case]
+    units, _ = split_fast_schedule(mask, b, rate1=True, spc_min_stage=spc)
+    rng = np.random.default_rng(b + L)
+    for u in (u for u in units if u[0] == "sub"):
+        ops = u[2]
+        a = torch.from_numpy(rng.normal(0, 3, (1 << b, L, 1024)).astype(
+            np.float32)).to(cuda)
+        pm = torch.from_numpy(rng.exponential(2.0, (L, 1024)).astype(
+            np.float32)).to(cuda)
+        before = scl_subtree.launches
+        got = scl_subtree(a, pm, SubtreeSchedule(ops, cuda), b=b,
+                          llr_max=LLR_MAX, mode="minsum")
+        torch.cuda.synchronize()
+        assert scl_subtree.launches == before + 1
+        assert all(x.device == a.device for x in got)
+        want = scl_subtree_plain(a, pm, ops, b=b, llr_max=LLR_MAX,
+                                 mode="minsum")
+        assert_blocks_agree(
+            tuple(x.cpu().numpy() for x in want[:2]),
+            tuple(x.cpu().numpy() for x in got[:2]),
+            want[2].cpu().numpy(), got[2].cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_wrapper_rejects_bad_cuda_inputs(cuda):
+    sched = SubtreeSchedule((("i", 0, 0), ("i", 0, 1)), cuda)
+    pm = torch.zeros(8, 4, device=cuda)
+    with pytest.raises(TypeError):
+        scl_subtree(torch.zeros(2, 8, 4, dtype=torch.float64, device=cuda),
+                    pm, sched, b=1, llr_max=LLR_MAX, mode="minsum")
+    with pytest.raises(ValueError):       # schedule table on the CPU
+        scl_subtree(torch.zeros(2, 8, 4, device=cuda), pm,
+                    SubtreeSchedule((("i", 0, 0), ("i", 0, 1)), "cpu"),
+                    b=1, llr_max=LLR_MAX, mode="minsum")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [3, 8])
+def test_decoder_on_card_equals_cpu(cuda, b):
+    n, k, bs = 256, 128, 2048
+    frozen, _ = generate_5g_ranking(k, n)
+    rng = np.random.default_rng(b)
+    c = rng.integers(0, 2, (bs, n))
+    logits = torch.from_numpy(
+        (-(2.0 / 0.64) * ((1.0 - 2.0 * c) + rng.normal(0, 0.8, (bs, n))))
+        .astype(np.float32))
+    kw = dict(list_size=8, fast_rate1=True, lower_stages=b)
+    want = PolarSCLDecoder(frozen, n, device="cpu", **kw)(logits)
+    before = scl_subtree.launches
+    got = PolarSCLDecoder(frozen, n, device=cuda, **kw)(logits.to(cuda))
+    assert scl_subtree.launches > before
+    agree = (got.cpu() == want).all(dim=1).float().mean().item()
+    assert agree >= BLOCK_AGREEMENT

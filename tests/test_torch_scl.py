@@ -1,0 +1,154 @@
+"""The polar_torch fast-SCL decoder and chain against polar_tpu: the golden
+decoder fixtures bit for bit, the decoder's options, the state carried
+across, and the package's independence from JAX."""
+
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from polar_tpu.models.polar.construction import (
+    generate_5g_ranking as j_generate_5g_ranking)
+from polar_tpu.models.polar.encode import PolarEncoder as JPolarEncoder
+from polar_tpu.models.polar.scl import PolarSCLDecoder as JPolarSCLDecoder
+
+from polar_torch import from_numpy_state
+from polar_torch.models.polar.construction import generate_5g_ranking
+from polar_torch.models.polar.scl import PolarSCLDecoder
+from polar_torch.sim import count_block_errors
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("b", [None, 3])
+@pytest.mark.parametrize("list_size", [4, 8])
+@pytest.mark.parametrize("n", [64, 256])
+def test_decoder_equals_golden_fixture(decoders_fix, n, list_size, b):
+    frozen = decoders_fix[f"n{n}_frozen_pos"]
+    llr = decoders_fix[f"n{n}_llr"]
+    dec = PolarSCLDecoder(frozen, n, list_size=list_size, mode="exact",
+                          lower_stages=b, device="cpu")
+    got = dec(torch.from_numpy(llr)).numpy()
+    np.testing.assert_array_equal(
+        got, decoders_fix[f"n{n}_scl{list_size}_exact"])
+
+
+def _llr_ch(n, bs, seed):
+    """Channel LLRs (positive means bit 0) of random codewords of BPSK
+    over AWGN at about 2 dB."""
+    rng = np.random.default_rng(seed)
+    c = rng.integers(0, 2, (n, bs))
+    y = (1.0 - 2.0 * c) + rng.normal(0, 0.8, (n, bs))
+    return (2.0 * y / 0.64).astype(np.float32)
+
+
+def test_decoder_equals_jax_decoder_rate1():
+    n, k = 128, 64
+    frozen, _ = generate_5g_ranking(k, n)
+    logits = -_llr_ch(n, 64, 7).T
+    want = JPolarSCLDecoder(frozen, n, list_size=8, mode="minsum",
+                            schedule="unrolled", use_fast_scl=True,
+                            fast_rate1=True)(jnp.asarray(logits))
+    got = PolarSCLDecoder(frozen, n, list_size=8, fast_rate1=True,
+                          device="cpu")(torch.from_numpy(logits))
+    assert got.shape == (64, k) and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("kwargs,item", [
+    ({"crc_degree": "CRC11"}, "Queue 1 item 9"),
+    ({"pc_pos": [3]}, "Queue 1 item 10"),
+    ({"use_hybrid_sc": True}, "Queue 1 item 11"),
+    ({"use_fast_scl": False}, "Queue 1 item 18"),
+    ({"list_size": 16}, "Queue 1 item 12"),
+])
+def test_decoder_raises_for_later_slices(kwargs, item):
+    frozen, _ = generate_5g_ranking(32, 64)
+    with pytest.raises(NotImplementedError, match=item):
+        PolarSCLDecoder(frozen, 64, device="cpu", **kwargs)
+
+
+def test_decoder_raises_for_traced_frozen_set_and_bad_options():
+    frozen, _ = generate_5g_ranking(32, 64)
+    with pytest.raises(NotImplementedError, match="Queue 2 item 5"):
+        PolarSCLDecoder(torch.from_numpy(frozen), 64, device="cpu")
+    with pytest.raises(ValueError):   # the reference drops this silently
+        PolarSCLDecoder(frozen, 64, use_fast_scl=False, fast_rate1=True,
+                        device="cpu")
+    with pytest.raises(ValueError):
+        PolarSCLDecoder(frozen, 64, list_size=3, device="cpu")
+
+
+def test_entry_points_default_to_the_card():
+    frozen, _ = generate_5g_ranking(32, 64)
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PolarSCLDecoder(frozen, 64)
+
+
+def test_from_numpy_state_equals_jax_chain():
+    """The JAX objects' attributes build the port's chain; both encode and
+    decode the same code to the same bits."""
+    n, k = 128, 64
+    frozen, _ = j_generate_5g_ranking(k, n)
+    j_enc = JPolarEncoder(frozen, n)
+    j_dec = JPolarSCLDecoder(frozen, n, list_size=8, mode="minsum",
+                             schedule="unrolled", use_fast_scl=True,
+                             fast_rate1=True)
+    model = from_numpy_state(dict(
+        frozen_pos=np.asarray(j_dec.frozen_pos), n=j_dec.n, k=j_dec.k,
+        list_size=j_dec.list_size, mode=j_dec.mode, llr_max=j_dec.llr_max,
+        fast_rate1=j_dec.fast_rate1, spc_min_stage=None), device="cpu")
+    assert model.decoder.fast_rate1 and model.k == k
+    u = np.random.default_rng(4).integers(0, 2, (32, k)).astype(np.float32)
+    c = model.encoder(torch.from_numpy(u)).numpy()
+    np.testing.assert_array_equal(c, np.asarray(j_enc(jnp.asarray(u))))
+    logits = -_llr_ch(n, 32, 8).T
+    np.testing.assert_array_equal(
+        model.decoder(torch.from_numpy(logits)).numpy(),
+        np.asarray(j_dec(jnp.asarray(logits))))
+
+
+def test_chain_decodes_at_high_snr():
+    frozen, _ = generate_5g_ranking(64, 128)
+    model = from_numpy_state(dict(
+        frozen_pos=frozen, n=128, k=64, list_size=8, mode="minsum",
+        llr_max=30.0, fast_rate1=True, spc_min_stage=None), device="cpu")
+    bits, bits_hat = model.step(torch.Generator().manual_seed(0), 256, 5.0)
+    assert bits_hat.shape == (256, 64) and bits_hat.dtype == torch.float32
+    assert count_block_errors(bits, bits_hat).item() == 0
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, polar_torch\n"
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'polar_tpu'))]\n"
+            "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                   check=True)
+
+
+def _port_sources():
+    root = os.path.join(REPO, "polar_torch")
+    for dirpath, _, files in os.walk(root):
+        for fn in files:
+            if fn.endswith(".py"):
+                yield os.path.join(dirpath, fn)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_port_sources_import_no_jax_and_read_no_tpu_env():
+    imports = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|polar_tpu)\b",
+                         re.M)
+    for path in _port_sources():
+        with open(path) as fh:
+            text = fh.read()
+        assert not imports.search(text), path
+        assert "POLAR_TPU_" not in text, path

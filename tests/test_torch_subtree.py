@@ -1,0 +1,212 @@
+"""The SCL subtree of polar_torch: the plain PyTorch version against the
+Pallas kernel of polar_tpu (interpret mode), and the host build of the
+CUDA kernel's routine against the plain version. The kernel itself is
+tested on the card in ``test_torch_gpu.py``."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from polar_tpu.models.polar import pallas_scl as jps
+from polar_tpu.models.polar.pallas_scl import subtree_pallas
+
+from polar_torch.models.polar import cuda_scl
+from polar_torch.models.polar.construction import generate_5g_ranking
+from polar_torch.models.polar.cuda_scl import (
+    KIND_CODES, SubtreeSchedule, scl_subtree, scl_subtree_host,
+    scl_subtree_plain)
+from polar_torch.models.polar.scan_core import split_fast_schedule
+
+from _torch_parity import PM_RTOL, assert_blocks_agree, block_agreement
+
+LLR_MAX = 30.0
+
+
+def _mask_5g(k, n):
+    frozen, _ = generate_5g_ranking(k, n)
+    mask = np.zeros(n, bool)
+    mask[frozen] = True
+    return mask
+
+
+def _random_mask(n, seed):
+    rng = np.random.default_rng(seed)
+    return rng.random(n) < rng.uniform(0.2, 0.8)
+
+
+def _inputs(b, L, bs, seed):
+    rng = np.random.default_rng(seed)
+    a = rng.normal(0, 3, (1 << b, L, bs)).astype(np.float32)
+    pm = rng.exponential(2.0, (L, bs)).astype(np.float32)
+    return a, pm
+
+
+def _sub_units(mask, b, rate1, spc=None):
+    units, _ = split_fast_schedule(mask, b, rate1=rate1, spc_min_stage=spc)
+    return [u[2] for u in units if u[0] == "sub"]
+
+
+# (mask, b, L, mode, rate1, spc, units to run): interpret mode costs about
+# a second per unit, so each case runs a few distinct units
+PALLAS_CASES = {
+    "5g_k32_n64_b3": (_mask_5g(32, 64), 3, 8, "minsum", True, None, 4),
+    "5g_k128_n256_b4": (_mask_5g(128, 256), 4, 8, "minsum", True, None, 3),
+    "random_b4_spc": (_random_mask(64, 3), 4, 8, "minsum", True, 2, 3),
+    "random_b3_L4_exact": (_random_mask(64, 4), 3, 4, "exact", True, None,
+                           3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PALLAS_CASES))
+def test_plain_subtree_equals_pallas_interpret(case):
+    mask, b, L, mode, rate1, spc, count = PALLAS_CASES[case]
+    # the Pallas kernel takes its schedule as given; only the sweep reads
+    # the SPC threshold from the environment
+    units = _sub_units(mask, b, rate1, spc)
+    units = sorted(set(units), key=lambda ops: (-len(ops), ops))[:count]
+    for i, ops in enumerate(units):
+        a, pm = _inputs(b, L, 128, seed=100 * i + b)
+        cw_j, p_j, pm_j = subtree_pallas(
+            jnp.asarray(a), None, jnp.asarray(pm), b=b, L=L, llr_max=LLR_MAX,
+            mode=mode, interpret=True, sched_static=ops)
+        cw_t, p_t, pm_t = scl_subtree_plain(
+            torch.from_numpy(a), torch.from_numpy(pm), ops, b=b,
+            llr_max=LLR_MAX, mode=mode)
+        assert cw_t.dtype == torch.int32 and p_t.dtype == torch.int32
+        assert_blocks_agree((np.asarray(cw_j), np.asarray(p_j)),
+                            (cw_t.numpy(), p_t.numpy()), np.asarray(pm_j),
+                            pm_t.numpy())
+
+
+def _near_tie_blocks(monkeypatch):
+    """Record, for the plain version's forks, which blocks pick between
+    two candidates whose path metrics lie within ``PM_RTOL`` of each other.
+    Returns ``(calls, close_call)``: ``close_call(bs)`` after each plain
+    call appends that call's [bs] bool mask of such blocks to ``calls``."""
+    forks, calls = [], []
+    top_l = cuda_scl._top_l
+
+    def recording_top_l(pmc, L):
+        vals, idx = top_l(pmc, L)
+        srt = torch.sort(pmc, dim=0).values
+        forks.append((srt[L] - srt[L - 1]).abs()
+                     <= PM_RTOL * srt[L].abs().clamp_min(1.0))
+        return vals, idx
+
+    def close_call(bs):
+        calls.append(torch.stack(forks).any(dim=0) if forks
+                     else torch.zeros(bs, dtype=torch.bool))
+        forks.clear()
+
+    monkeypatch.setattr(cuda_scl, "_top_l", recording_top_l)
+    return calls, close_call
+
+
+@pytest.mark.parametrize("mode", ["minsum", "exact"])
+@pytest.mark.parametrize("L", [1, 2, 4, 8])
+def test_host_build_equals_plain(mode, L, monkeypatch):
+    cases = [(_mask_5g(32, 64), 3, True, None),
+             (_mask_5g(128, 256), 5, True, None),
+             (_mask_5g(128, 256), 8, False, None),
+             (_random_mask(128, L), 4, True, 2),
+             (_random_mask(128, L + 1), 7, True, 3)]
+    near_tie, close_call = _near_tie_blocks(monkeypatch)
+    plain, host = [], []
+    for c, (mask, b, rate1, spc) in enumerate(cases):
+        for i, ops in enumerate(_sub_units(mask, b, rate1, spc)):
+            a, pm = _inputs(b, L, 128, seed=1000 * c + i)
+            sched = SubtreeSchedule(ops, "cpu")
+            a_t, pm_t = torch.from_numpy(a), torch.from_numpy(pm)
+            plain.append(scl_subtree_plain(a_t, pm_t, ops, b=b,
+                                           llr_max=LLR_MAX, mode=mode))
+            close_call(128)
+            host.append(scl_subtree_host(a_t, pm_t, sched, b=b,
+                                         llr_max=LLR_MAX, mode=mode))
+    plain = [tuple(x.numpy() for x in out) for out in plain]
+    host = [tuple(x.numpy() for x in out) for out in host]
+    if mode == "minsum":
+        # min-sum f/g are exact: only path-metric ulps may differ
+        for (cw_p, p_p, pm_p), (cw_h, p_h, pm_h) in zip(plain, host):
+            np.testing.assert_array_equal(cw_h, cw_p)
+            np.testing.assert_array_equal(p_h, p_p)
+            np.testing.assert_allclose(pm_h, pm_p, rtol=PM_RTOL)
+        return
+    # the exact boxplus rounds differently (log1pf/expf against
+    # torch.logaddexp), so a decision may flip where two candidates'
+    # path metrics nearly tie; every other block must agree exactly
+    n_diff = 0
+    for (cw_p, p_p, pm_p), (cw_h, p_h, pm_h), tie in zip(plain, host,
+                                                        near_tie):
+        _, rel, bad = block_agreement((cw_p, p_p), (cw_h, p_h), pm_p, pm_h)
+        assert rel <= PM_RTOL
+        assert not (bad & ~tie.numpy()).any(), (
+            f"blocks {np.flatnonzero(bad & ~tie.numpy()).tolist()} differ "
+            "with no near-tie fork")
+        n_diff += int(bad.sum())
+    assert n_diff <= 0.01 * sum(len(t) for t in near_tie)
+
+
+def test_host_build_reads_broadcast_input():
+    """The whole-tree call passes the channel LLRs broadcast over the paths
+    (path stride 0); the routine must read them the same as a copy."""
+    mask = _mask_5g(128, 256)
+    (ops,) = _sub_units(mask, 8, True)
+    rng = np.random.default_rng(5)
+    llr = torch.from_numpy(rng.normal(0, 2, (256, 40)).astype(np.float32))
+    a = llr[:, None, :].expand(256, 8, 40)
+    pm = torch.full((8, 40), LLR_MAX)
+    pm[0] = 0.0
+    sched = SubtreeSchedule(ops, "cpu")
+    got = scl_subtree_host(a, pm, sched, b=8, llr_max=LLR_MAX, mode="minsum")
+    want = scl_subtree_host(a.contiguous(), pm, sched, b=8, llr_max=LLR_MAX,
+                            mode="minsum")
+    for x, y in zip(got, want):
+        np.testing.assert_array_equal(x.numpy(), y.numpy())
+
+
+def test_wrapper_runs_plain_version_on_cpu():
+    ops = _sub_units(_mask_5g(32, 64), 3, True)[1]
+    a, pm = _inputs(3, 8, 16, seed=3)
+    before = scl_subtree.launches
+    got = scl_subtree(torch.from_numpy(a), torch.from_numpy(pm),
+                      SubtreeSchedule(ops, "cpu"), b=3, llr_max=LLR_MAX,
+                      mode="minsum")
+    want = scl_subtree_plain(torch.from_numpy(a), torch.from_numpy(pm), ops,
+                             b=3, llr_max=LLR_MAX, mode="minsum")
+    assert scl_subtree.launches == before
+    for x, y in zip(got, want):
+        np.testing.assert_array_equal(x.numpy(), y.numpy())
+
+
+def test_schedule_table_encoding():
+    ops = (("z", 2, 0), ("r", 1, 4), ("o", 1, 6), ("s", 3, 8), ("f", 0, 16),
+           ("i", 0, 17))
+    table = SubtreeSchedule(ops, "cpu").table
+    assert table.dtype == torch.int32 and table.shape == (6, 3)
+    assert table[:, 0].tolist() == [KIND_CODES[k] for k, _, _ in ops]
+    assert table[:, 1:].tolist() == [[s, lo] for _, s, lo in ops]
+
+
+def test_liveness_rules_equal_reference():
+    for i_end in range(256):
+        for s in range(10):
+            assert cuda_scl._lptr_live(s, i_end) == jps._lptr_live(s, i_end)
+            for s_node in range(4):
+                assert (cuda_scl._uptr_live(s, i_end, s_node)
+                        == jps._uptr_live(s, i_end, s_node))
+
+
+def test_native_call_rejects_bad_inputs():
+    sched = SubtreeSchedule((("i", 0, 0), ("i", 0, 1)), "cpu")
+    pm = torch.zeros(8, 4)
+    with pytest.raises(ValueError):       # 3 rows are not 2^b
+        scl_subtree_host(torch.zeros(3, 8, 4), pm, sched, b=1,
+                         llr_max=LLR_MAX, mode="minsum")
+    with pytest.raises(ValueError):       # list size 3
+        scl_subtree_host(torch.zeros(2, 3, 4), torch.zeros(3, 4), sched,
+                         b=1, llr_max=LLR_MAX, mode="minsum")
+    with pytest.raises(TypeError):
+        scl_subtree_host(torch.zeros(2, 8, 4, dtype=torch.float64), pm,
+                         sched, b=1, llr_max=LLR_MAX, mode="minsum")
+
