@@ -1,10 +1,17 @@
 """polar_torch: the PyTorch and CUDA port of polar_tpu.
 
-This slice carries the SCL-8 fast-SCL chain: binary source -> polar encoder
-on a 5G-ranked code -> QPSK mapper -> AWGN -> exact demapper -> fast-SCL
-list decoder (rate-0, repetition, rate-1 and optional SPC nodes) -> error
-counters. The decoder's subtree runs in a hand-written CUDA kernel on the
-card (``models/polar/cuda_scl.py``, ``csrc/scl_subtree.cu``).
+It carries two paths:
+
+* the SCL-8 fast-SCL chain: binary source -> polar encoder on a 5G-ranked
+  code -> QPSK mapper -> AWGN -> exact demapper -> fast-SCL list decoder
+  (rate-0, repetition, rate-1 and optional SPC nodes) -> error counters;
+* the CLI sweep (``python -m polar_torch.main``): BER/BLER curves of the SC
+  decoder against the SCL decoder (the plain sweep from n = 256 up) through
+  the Monte-Carlo harness ``sim_ber`` and ``PlotBER``.
+
+The decoders' subtrees run in hand-written CUDA kernels on the card
+(``models/polar/cuda_scl.py`` with ``csrc/scl_subtree.cu`` for SCL,
+``models/polar/cuda_sc.py`` with ``csrc/sc_subtree.cu`` for SC).
 
 Entry points run on ``device="cuda"`` by default and raise when no card is
 present; pass ``device="cpu"`` to run the plain PyTorch versions.
@@ -15,17 +22,22 @@ from polar_torch.ops.source import binary_source
 from polar_torch.ops.mapping import (Constellation, Demapper, Mapper,
                                      SymbolLogits2LLRs)
 from polar_torch.ops.channels import AWGN, complex_normal
-from polar_torch.models.polar.construction import (generate_5g_ranking,
-                                                   info_positions)
+from polar_torch.models.polar.construction import (
+    ARIKAN_F2, generate_5g_ranking, get_kern_frozen_bits, info_positions)
 from polar_torch.models.polar.encode import PolarEncoder
+from polar_torch.models.polar.sc import PolarSCDecoder
 from polar_torch.models.polar.scl import PolarSCLDecoder
 from polar_torch.models.systems import SystemAWGNModel
-from polar_torch.sim import count_block_errors, count_errors
+from polar_torch.sim import count_block_errors, count_errors, sim_ber
+from polar_torch.plotting import PlotBER
+from polar_torch.config import PolarConfig
 from polar_torch.convert import from_numpy_state
 
 __all__ = [
     "ebnodb2no", "binary_source", "Constellation", "Demapper", "Mapper",
-    "SymbolLogits2LLRs", "AWGN", "complex_normal", "generate_5g_ranking",
-    "info_positions", "PolarEncoder", "PolarSCLDecoder", "SystemAWGNModel",
-    "count_block_errors", "count_errors", "from_numpy_state",
+    "SymbolLogits2LLRs", "AWGN", "complex_normal", "ARIKAN_F2",
+    "generate_5g_ranking", "get_kern_frozen_bits", "info_positions",
+    "PolarEncoder", "PolarSCDecoder", "PolarSCLDecoder", "SystemAWGNModel",
+    "count_block_errors", "count_errors", "sim_ber", "PlotBER",
+    "PolarConfig", "from_numpy_state",
 ]

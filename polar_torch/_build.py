@@ -54,8 +54,10 @@ def _library_path(name: str, route: str) -> str:
     h = hashlib.sha256(route.encode())
     flags = NVCC_FLAGS if route == "cuda" else GXX_FLAGS
     h.update(" ".join(flags).encode())
+    # the kernel's own sources and every header (shared ones included)
     for fn in sorted(os.listdir(CSRC)):
-        if fn.startswith(name) and fn.endswith((".cu", ".cuh", ".cpp")):
+        if fn.endswith(".cuh") or (fn.startswith(name + ".")
+                                   or fn.startswith(name + "_host.")):
             with open(os.path.join(CSRC, fn), "rb") as fh:
                 h.update(fn.encode() + fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{route}_{h.hexdigest()[:16]}.so")

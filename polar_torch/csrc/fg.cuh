@@ -1,0 +1,59 @@
+// LLR updates and tree-index helpers shared by the per-codeword routines of
+// the subtree kernels (scl_subtree.cuh, sc_subtree.cuh). Each routine is
+// __host__ __device__ code: nvcc builds it for the card, g++ for the CPU
+// tests. Mirrors polar_torch/ops/fg.py.
+#pragma once
+
+#include <math.h>
+#include <stdint.h>
+
+#ifdef __CUDACC__
+#define PT_HD __host__ __device__
+#define PT_INLINE __forceinline__
+#else
+#define PT_HD
+#define PT_INLINE inline
+#endif
+
+namespace polar_torch {
+
+// trailing zeros of i > 0
+PT_HD PT_INLINE int ctz(int i) {
+  int c = 0;
+  while (!(i & 1)) { i >>= 1; ++c; }
+  return c;
+}
+
+// trailing ones of i
+PT_HD PT_INLINE int cto(int i) {
+  int c = 0;
+  while (i & 1) { i >>= 1; ++c; }
+  return c;
+}
+
+PT_HD PT_INLINE float clipf(float x, float m) { return fminf(fmaxf(x, -m), m); }
+
+// log(1 + e^x)
+PT_HD PT_INLINE float softplus(float x) {
+  return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
+}
+
+PT_HD PT_INLINE float logaddexp(float x, float y) {
+  return fmaxf(x, y) + log1pf(expf(-fabsf(x - y)));
+}
+
+PT_HD PT_INLINE float sgn(float x) { return (float)((x > 0.0f) - (x < 0.0f)); }
+
+// check-node update after clipping to +-m: exact boxplus or min-sum
+PT_HD PT_INLINE float f_op(float x, float y, float m, int exact) {
+  x = clipf(x, m);
+  y = clipf(y, m);
+  if (exact) return logaddexp(0.0f, x + y) - logaddexp(x, y);
+  return sgn(x) * sgn(y) * fminf(fabsf(x), fabsf(y));
+}
+
+// (1 - 2u) x + y; the product is exact, so the select is bit-identical
+// (and no multiply is left for the compiler to contract into an FMA)
+PT_HD PT_INLINE float g_op(float x, float y, int u) { return u ? y - x : y + x; }
+
+}  // namespace polar_torch

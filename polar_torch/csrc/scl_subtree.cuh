@@ -23,16 +23,7 @@
 //   candidate index; rate-1 / SPC reliability order ties to the lower row.
 #pragma once
 
-#include <math.h>
-#include <stdint.h>
-
-#ifdef __CUDACC__
-#define PT_HD __host__ __device__
-#define PT_INLINE __forceinline__
-#else
-#define PT_HD
-#define PT_INLINE inline
-#endif
+#include "fg.cuh"
 
 namespace polar_torch {
 
@@ -81,18 +72,6 @@ PT_HD PT_INLINE uint32_t permute_bits(uint32_t m, uint32_t parent) {
   return r;
 }
 
-PT_HD PT_INLINE int ctz(int i) {
-  int c = 0;
-  while (!(i & 1)) { i >>= 1; ++c; }
-  return c;
-}
-
-PT_HD PT_INLINE int cto(int i) {
-  int c = 0;
-  while (i & 1) { i >>= 1; ++c; }
-  return c;
-}
-
 // lloc stage s still has a pending g-read after a fork ending at leaf i_end
 PT_HD PT_INLINE bool lptr_live(int s, int i_end) {
   return s >= 1 && ((i_end >> (s - 1)) & 1) == 0;
@@ -103,29 +82,6 @@ PT_HD PT_INLINE bool lptr_live(int s, int i_end) {
 PT_HD PT_INLINE bool uptr_live(int s, int i_end, int s_node) {
   return s >= s_node && ((i_end >> s) & 1) == 1;
 }
-
-PT_HD PT_INLINE float clipf(float x, float m) { return fminf(fmaxf(x, -m), m); }
-
-// log(1 + e^x)
-PT_HD PT_INLINE float softplus(float x) {
-  return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
-}
-
-PT_HD PT_INLINE float logaddexp(float x, float y) {
-  return fmaxf(x, y) + log1pf(expf(-fabsf(x - y)));
-}
-
-PT_HD PT_INLINE float sgn(float x) { return (float)((x > 0.0f) - (x < 0.0f)); }
-
-PT_HD PT_INLINE float f_op(float x, float y, float m, int exact) {
-  x = clipf(x, m);
-  y = clipf(y, m);
-  if (exact) return logaddexp(0.0f, x + y) - logaddexp(x, y);
-  return sgn(x) * sgn(y) * fminf(fabsf(x), fabsf(y));
-}
-
-// (1 - 2u) x + y; the product is exact, so the select is bit-identical
-PT_HD PT_INLINE float g_op(float x, float y, int u) { return u ? y - x : y + x; }
 
 // one codeword's view of the [row, L, bs] arrays
 template <int L>

@@ -1,0 +1,136 @@
+"""CLI entry point: BER/BLER sweep of SC against SCL polar decoding over
+AWGN, on the card unless ``--device cpu``.
+
+    python -m polar_torch.main --k 512 --n 1024 --construction 5g --bs 8192
+
+Always simulates SC; adds SCL-<list_size> when ``scl`` is in ``--algos``
+(the default). Frozen sets come from the lowest-row-weight construction
+(``--construction rm``, the default) or the 5G NR reliability table
+(``--construction 5g``). ``sweep`` runs the decoders and returns the
+curves; ``main`` also draws them to a PNG (needs matplotlib).
+"""
+
+import os
+
+import numpy as np
+
+from polar_torch.config import PolarConfig, parse_config
+from polar_torch.models.polar.construction import (
+    ARIKAN_F2, generate_5g_ranking, get_kern_frozen_bits)
+from polar_torch.models.polar.encode import PolarEncoder
+from polar_torch.models.polar.sc import PolarSCDecoder
+from polar_torch.models.polar.scl import PolarSCLDecoder
+from polar_torch.models.systems import SystemAWGNModel
+from polar_torch.plotting import PlotBER
+from polar_torch.utils.profiling import complexity_line, decode_complexity
+
+
+def gen_code(c: PolarConfig, name: str, mode: str = "sc"):
+    """``[SystemAWGNModel, name]`` for the configured code with an SC
+    (``mode="sc"``) or SCL (``mode="scl"``) decoder."""
+    if c.n < 2 or c.n & (c.n - 1):
+        raise ValueError("n must be a power of 2")
+    kern_name = (c.kern or "F2").upper()
+    if kern_name != "F2":
+        raise NotImplementedError(f"--kern {kern_name} (dense-G encoder and "
+                                  "OSD) is not ported yet (ROADMAP Queue 1 "
+                                  "item 14)")
+    if c.construction == "rm":
+        _, _, frozen_pos = get_kern_frozen_bits(c.n, c.n - c.k, ARIKAN_F2)
+    elif c.construction == "5g":
+        frozen_pos, _ = generate_5g_ranking(c.k, c.n)
+    elif c.construction in ("rm-ref", "ga"):
+        raise NotImplementedError(f"--construction {c.construction} is not "
+                                  "ported yet (ROADMAP Queue 1 item 14)")
+    else:
+        raise ValueError(f"unknown construction {c.construction!r}")
+    f_mode = "minsum" if c.mode in ("max", "minsum") else "exact"
+    enc = PolarEncoder(frozen_pos, c.n, device=c.device)
+    if mode == "sc":
+        dec = PolarSCDecoder(frozen_pos, c.n, mode=f_mode, device=c.device)
+    elif mode == "scl":
+        dec = PolarSCLDecoder(frozen_pos, c.n, c.list_size, mode=f_mode,
+                              use_fast_scl=c.fast_scl, device=c.device)
+    elif mode == "bp":
+        raise NotImplementedError("the BP decoder is not ported yet "
+                                  "(ROADMAP Queue 1 item 13)")
+    else:
+        raise ValueError(f"unknown decode mode {mode!r}")
+    return [SystemAWGNModel(c.n, c.k, enc, dec), name]
+
+
+def sweep(c: PolarConfig, ebno_dbs=None, jsonl_path=None) -> PlotBER:
+    """Simulate SC (and SCL-<L> when ``scl`` is in ``c.algos``) over
+    ``ebno_dbs`` (default ``arange(0, c.snr_end, 0.5)``), printing each
+    decoder's complexity line and progress table. ``jsonl_path`` collects
+    one JSON line per point and decoder, in that order. Returns the
+    curves."""
+    if c.num_devices > 1:
+        raise NotImplementedError("num_devices > 1 (data-parallel sweep) is "
+                                  "not ported yet (ROADMAP Queue 1 item 16)")
+    if "bp" in c.algos:
+        raise NotImplementedError("the BP decoder is not ported yet "
+                                  "(ROADMAP Queue 1 item 13)")
+    if ebno_dbs is None:
+        ebno_dbs = np.arange(0, c.snr_end, 0.5)
+    codes_under_test = [gen_code(c, "SC", mode="sc")]
+    if "scl" in c.algos:
+        codes_under_test.append(gen_code(c, f"SCL-{c.list_size}",
+                                         mode="scl"))
+    ber_plot = PlotBER(f"Performance of Short Len Codes (k={c.k}, n={c.n})")
+    for model, name in codes_under_test:
+        print("\nRunning: " + name)
+        dec = model.decoder
+        L = c.list_size if name.startswith("SCL") else 1
+        fast = bool(getattr(dec, "use_fast_scl", False)) and L > 1
+        print(complexity_line(name, decode_complexity(
+            c.n, c.k, L, fast=fast, frozen_mask=dec._frozen_mask,
+            rate1=bool(getattr(dec, "fast_rate1", False)))))
+        ber_plot.simulate(
+            model, ebno_dbs=ebno_dbs, batch_size=c.bs,
+            target_block_errs=c.target_block_errs, legend=name,
+            soft_estimates=False, max_mc_iter=c.mc_iter, add_bler=True,
+            seed=c.seed, jsonl_path=jsonl_path)
+    return ber_plot
+
+
+def render(c: PolarConfig, ber_plot: PlotBER) -> str:
+    """Draw the BLER curves of ``ber_plot`` to a PNG in ``c.plot_dir``;
+    returns its path."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    plt.subplots(figsize=(16, 12))
+    plt.xticks(fontsize=18)
+    plt.yticks(fontsize=18)
+    plt.title(f"SC vs scl (k={c.k},n={c.n})", fontsize=25)
+    plt.grid(which="both")
+    plt.xlabel(r"$E_b/N_0$ (dB)", fontsize=25)
+    plt.ylabel(r"BLER", fontsize=25)
+    for i, legend in enumerate(ber_plot.legend):
+        if "BLER" in legend:
+            linestyle = "--" if legend.startswith("SC") and \
+                not legend.startswith("SCL") else "-"
+            plt.semilogy(ber_plot.snr[i], ber_plot.ber[i], c=f"C{i}",
+                         label=legend, linewidth=2, linestyle=linestyle)
+    plt.legend(fontsize=20)
+    plt.xlim([0, 4.5])
+    os.makedirs(c.plot_dir, exist_ok=True)
+    out = os.path.join(c.plot_dir, f"sc_mc_iter={c.mc_iter}_bs={c.bs}.png")
+    plt.savefig(out)
+    plt.close()
+    return out
+
+
+def main(c: PolarConfig = None):
+    if c is None:
+        c = parse_config()
+    print(c.algos, type(c.algos))
+    out = render(c, sweep(c))
+    print(f"saved plot to {out}")
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,5 @@
-"""Host-side polar code construction (frozen-set selection), pure NumPy."""
+"""Host-side polar code construction (frozen-set selection), pure NumPy:
+the 5G NR reliability table and the lowest-row-weight (RM-style) rule."""
 
 import numpy as np
 
@@ -28,3 +29,30 @@ def generate_5g_ranking(k: int, n: int, sort: bool = True,
 def info_positions(frozen_pos, n: int) -> np.ndarray:
     """Complement of ``frozen_pos`` in ``range(n)``."""
     return np.setdiff1d(np.arange(n), np.asarray(frozen_pos, dtype=np.int64))
+
+
+def gen_arikan(base, layers: int) -> np.ndarray:
+    """Kronecker power ``base^{(x) layers}``."""
+    base = np.asarray(base, dtype=np.int64)
+    m = base.copy()
+    for _ in range(layers - 1):
+        m = np.kron(base, m)
+    return m
+
+
+ARIKAN_F2 = np.array([[1, 0], [1, 1]], dtype=np.int64)
+
+
+def get_kern_frozen_bits(n: int, f_num: int, kern=ARIKAN_F2):
+    """Freeze the ``f_num`` lowest-row-weight rows of ``kern^{(x) s}``
+    (the CLI's ``--construction rm``). Ties go to the lower position
+    (stable argsort). Returns ``(G, row_weights, frozen_pos)``."""
+    kern = np.asarray(kern, dtype=np.int64)
+    base = kern.shape[0]
+    n_stages = int(round(np.log(n) / np.log(base)))
+    if base ** n_stages != n:
+        raise ValueError(f"n={n} is not a power of the kernel size {base}")
+    g = gen_arikan(kern, n_stages)
+    weights = g.sum(axis=1)
+    frozen_pos = np.sort(np.argsort(weights, kind="stable")[:f_num])
+    return g, weights, frozen_pos

@@ -67,12 +67,18 @@ def _uptr_live(s: int, i_end: int, s_node: int = 0) -> bool:
 
 class SubtreeSchedule:
     """One subtree's op list: ``ops`` for the plain version and ``table``,
-    its int32 [n_ops, 3] encoding (kind, stage, lo) on ``device``."""
+    its int32 [n_ops, 3] encoding (kind, stage, lo) on ``device``; ``codes``
+    maps the kinds a kernel takes to their codes. ``span`` is the number of
+    leaves the ops cover, which the wrappers hold against 2^b."""
 
-    def __init__(self, ops, device):
+    def __init__(self, ops, device, codes=KIND_CODES):
         self.ops = tuple((str(k), int(s), int(lo)) for k, s, lo in ops)
+        bad = sorted({k for k, _, _ in self.ops} - set(codes))
+        if bad:
+            raise ValueError(f"op kinds {bad} not in {sorted(codes)}")
+        self.span = max((lo + (1 << s) for _, s, lo in self.ops), default=0)
         self.table = torch.tensor(
-            [[KIND_CODES[k], s, lo] for k, s, lo in self.ops],
+            [[codes[k], s, lo] for k, s, lo in self.ops],
             dtype=torch.int32, device=device).reshape(-1, 3)
 
 
@@ -122,9 +128,10 @@ def _native_call(fn, a, pm, sched, b, llr_max, mode, stream):
     w, L, bs = a.shape
     if a.dtype != torch.float32 or pm.dtype != torch.float32:
         raise TypeError("scl_subtree takes f32 LLRs and path metrics")
-    if w != 1 << b or not 1 <= b <= MAX_B:
-        raise ValueError(f"a has {w} rows; need 2^b rows with 1 <= b <= "
-                         f"{MAX_B} (b={b})")
+    if w != 1 << b or not 1 <= b <= MAX_B or sched.span != w:
+        raise ValueError(f"a has {w} rows and the schedule {sched.span} "
+                         f"leaves; need 2^b of both with 1 <= b <= {MAX_B} "
+                         f"(b={b})")
     if L not in LIST_SIZES:
         raise ValueError(f"list size {L} not in {LIST_SIZES}")
     if a.stride(2) != 1 and bs > 1:

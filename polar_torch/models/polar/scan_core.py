@@ -1,8 +1,8 @@
-"""The two-level fast-SCL sweep.
+"""The two-level SC and SCL sweeps.
 
 The decode tree is cut at stage ``b``. Every 2^b-leaf subtree is one call of
-the subtree kernel (``cuda_scl.scl_subtree``); the stages above ``b`` run
-here as tensor code:
+a subtree kernel (``cuda_scl.scl_subtree`` for SCL, ``cuda_sc.sc_subtree``
+for SC); the stages above ``b`` run here as tensor code. For SCL:
 
 * the outer descent (f/g from the channel LLRs down to the next subtree),
   and the rise (partial-sum combines back up);
@@ -14,16 +14,23 @@ here as tensor code:
 
 The node schedule is Hashemi's fast-SSCL pruning: rate-0 nodes keep a bulk
 path-metric update, repetition nodes one fork, and (``rate1=True``) rate-1
-and SPC nodes theta least-reliable-flip forks at the node top. With
-``b = S`` the whole tree is one subtree call.
+and SPC nodes theta least-reliable-flip forks at the node top. The plain
+(unpruned) SCL sweep, ``scl_sweep_hybrid``, is the same sweep with one
+frozen/info op per leaf (``leaf_schedule``). With ``b = S`` the whole tree
+is one subtree call.
+
+The SC sweep (``sc_sweep_hybrid``) has no list and so no pointers and no
+backtracking: its schedule is ``fast_schedule(mask, rep=False)``, whose
+rate-0 nodes above stage b skip their subtrees' calls.
 """
 
 import numpy as np
 import torch
 
+from polar_torch.models.polar.cuda_sc import SC_KIND_CODES, sc_subtree
 from polar_torch.models.polar.cuda_scl import (
-    SubtreeSchedule, _ctz, _cto, _flip_forks, _lptr_live, _rep_fork,
-    _take_paths, _uptr_live, scl_subtree)
+    KIND_CODES, SubtreeSchedule, _ctz, _cto, _flip_forks, _lptr_live,
+    _rep_fork, _take_paths, _uptr_live, scl_subtree)
 from polar_torch.ops.butterfly import polar_transform
 from polar_torch.ops.fg import F_FUNCTIONS, _clip, g as g_op, softplus
 
@@ -32,12 +39,18 @@ SPC_MIN_STAGE_OFF = 99
 # subtree depth b when none is given: the fastest of b = 5..10 for the
 # k=512 n=1024 SCL-8 chain on an H100 (the depth survey of chip_smoke.py)
 DEFAULT_LOWER_STAGES = 6
+# the same for SC: the fastest of b = 4..10 for the k=512 n=1024 SC decoder
+# on an H100 (chip_smoke.py's SC depth survey; the whole tree, b=10, is
+# half again as slow: one thread per codeword leaves the card idle where
+# whole-batch tensor ops fill it)
+DEFAULT_SC_LOWER_STAGES = 8
 
 
-def resolve_lower_stages(S: int, lower_stages=None) -> int:
-    """Subtree depth b of a 2^S-leaf tree: ``lower_stages`` (default
-    ``DEFAULT_LOWER_STAGES``) clamped to [1, S]."""
-    b = DEFAULT_LOWER_STAGES if lower_stages is None else int(lower_stages)
+def resolve_lower_stages(S: int, lower_stages=None,
+                         default: int = DEFAULT_LOWER_STAGES) -> int:
+    """Subtree depth b of a 2^S-leaf tree: ``lower_stages`` (else
+    ``default``) clamped to [1, S]."""
+    b = default if lower_stages is None else int(lower_stages)
     return max(1, min(b, S))
 
 
@@ -81,9 +94,22 @@ def fast_schedule(frozen_mask, rep: bool = True, rate1: bool = False,
     return ops
 
 
+def leaf_schedule(frozen_mask):
+    """The unpruned schedule: one ``('f', 0, lo)`` or ``('i', 0, lo)`` op
+    per leaf."""
+    return [("f" if fz else "i", 0, lo)
+            for lo, fz in enumerate(np.asarray(frozen_mask, dtype=bool))]
+
+
 def split_fast_schedule(frozen_mask, b, rate1: bool = False,
                         spc_min_stage=None):
-    """Cut the fast schedule at the subtree boundary 2^b. Returns
+    """``split_schedule`` of the fast schedule."""
+    return split_schedule(fast_schedule(frozen_mask, rate1=rate1,
+                                        spc_min_stage=spc_min_stage), b)
+
+
+def split_schedule(ops, b):
+    """Cut a schedule (leaf order) at the subtree boundary 2^b. Returns
     ``(units, has_upper_rep)``: ``units`` in leaf order are
     ``('sub', j, ops_j)`` (subtree ``j``, ``lo`` local to it) or
     ``(kind, s, j0, q)``, an upper node at stage ``s > b`` covering the
@@ -97,8 +123,7 @@ def split_fast_schedule(frozen_mask, b, rate1: bool = False,
             units.append(("sub", cur_j, tuple(cur_ops)))
             cur_j, cur_ops = None, []
 
-    for kind, s, lo in fast_schedule(frozen_mask, rate1=rate1,
-                                     spc_min_stage=spc_min_stage):
+    for kind, s, lo in ops:
         if s > b:
             flush()
             has_upper_rep |= kind == "r"
@@ -119,14 +144,19 @@ def sum_rows(x):
     return x.sum(dim=0)
 
 
+def plan_sweep(ops, b, device, codes=KIND_CODES):
+    """``split_schedule``'s units with each subtree's op list encoded once
+    as a ``SubtreeSchedule`` on ``device`` (op codes ``codes``)."""
+    units, _ = split_schedule(ops, b)
+    return [("sub", u[1], SubtreeSchedule(u[2], device, codes))
+            if u[0] == "sub" else u for u in units]
+
+
 def plan_fast_sweep(frozen_mask, b, device, rate1: bool = False,
                     spc_min_stage=None):
-    """``split_fast_schedule``'s units with each subtree's op list encoded
-    once as a ``SubtreeSchedule`` on ``device``."""
-    units, _ = split_fast_schedule(frozen_mask, b, rate1=rate1,
-                                   spc_min_stage=spc_min_stage)
-    return [("sub", u[1], SubtreeSchedule(u[2], device)) if u[0] == "sub"
-            else u for u in units]
+    """The fast SCL sweep's plan (``plan_sweep`` of ``fast_schedule``)."""
+    return plan_sweep(fast_schedule(frozen_mask, rate1=rate1,
+                                    spc_min_stage=spc_min_stage), b, device)
 
 
 def scl_sweep_hybrid_fast(llr_ch, frozen_mask, list_size: int,
@@ -276,3 +306,104 @@ def scl_sweep_hybrid_fast(llr_ch, frozen_mask, list_size: int,
     cw = torch.stack(cws, dim=0)                  # [m, 2^b, L, bs]
     u = polar_transform(cw, axis=1)
     return u.reshape(n, L, bs), pm
+
+
+def scl_sweep_hybrid(llr_ch, frozen_mask, list_size: int,
+                     mode: str = "minsum", llr_max: float = 30.0,
+                     lower_stages=None, plan=None, subtree=scl_subtree):
+    """Plain (unpruned) two-level SCL sweep: ``scl_sweep_hybrid_fast`` on
+    ``leaf_schedule``, one frozen/info op per leaf and no upper nodes.
+    Arguments and result as there; ``plan`` is ``plan_sweep`` of
+    ``leaf_schedule(frozen_mask)`` at the same b."""
+    S = int(np.log2(llr_ch.shape[0]))
+    b = resolve_lower_stages(S, lower_stages)
+    if plan is None:
+        plan = plan_sweep(leaf_schedule(frozen_mask), b, llr_ch.device)
+    return scl_sweep_hybrid_fast(llr_ch, frozen_mask, list_size, mode=mode,
+                                 llr_max=llr_max, lower_stages=b, plan=plan,
+                                 subtree=subtree)
+
+
+def plan_sc_sweep(frozen_mask, b, device):
+    """The SC sweep's plan: ``plan_sweep`` of the rate-0-pruned schedule
+    ``fast_schedule(mask, rep=False)`` with the SC kernel's op codes."""
+    return plan_sweep(fast_schedule(frozen_mask, rep=False), b, device,
+                      codes=SC_KIND_CODES)
+
+
+def sc_sweep_hybrid(llr_ch, frozen_mask, mode: str = "minsum",
+                    llr_max: float = 30.0, lower_stages=None, plan=None,
+                    subtree=sc_subtree):
+    """Two-level SC sweep. ``llr_ch``: [n, bs] channel LLRs (positive
+    means bit 0) -> decisions ``u`` [n, bs] int8.
+
+    ``lower_stages`` is the subtree depth b (default
+    ``DEFAULT_SC_LOWER_STAGES``; b = S decodes the whole tree in one
+    subtree call). ``plan`` is ``plan_sc_sweep``'s result for the same mask
+    and b, computed here when omitted. ``subtree`` decodes one subtree
+    (``cuda_sc.sc_subtree`` or a function with its signature). Each
+    subtree emits its stage-b codeword, so the decisions come from a
+    width-2^b polar transform per subtree."""
+    n, bs = llr_ch.shape
+    S = int(np.log2(n))
+    b = resolve_lower_stages(S, lower_stages, DEFAULT_SC_LOWER_STAGES)
+    dev = llr_ch.device
+    f = F_FUNCTIONS[mode]
+    w_sub = 1 << b
+    top = S - b
+    if plan is None:
+        plan = plan_sc_sweep(frozen_mask, b, dev)
+    llr = llr_ch.to(torch.float32).contiguous()
+    # lbs[t] holds super-stage t+1 (real stage b+1+t), u0s[t] the left
+    # partial sums of super-stage t, each waiting for its g-read / combine
+    lbs = [None] * max(top - 1, 0)
+    u0s = [None] * top
+
+    def descend(j0: int, sg_nd: int, stop: int):
+        """Descend from the unit's g-entry to super-stage ``stop``, storing
+        the super-stages above the unit's root ``sg_nd``; the value at
+        ``stop`` (None when the g-entry lies below it)."""
+        if j0 == 0:
+            cur, d = llr, top
+        else:
+            d = _ctz(j0)
+            if d < stop:
+                return None
+            a = llr if d + 1 == top else lbs[d]
+            h = 1 << (b + d)
+            cur = g_op(a[:h], a[h:], u0s[d])
+            if d > sg_nd:
+                lbs[d - 1] = cur
+        for sg in range(d, stop, -1):
+            h = 1 << (b + sg - 1)
+            cur = f(cur[:h], cur[h:], llr_max)
+            if sg - 1 > sg_nd:
+                lbs[sg - 2] = cur
+        return cur
+
+    cws = [None] * (n >> b)
+    for unit in plan:
+        if unit[0] == "sub":
+            _, j, sched = unit
+            a = descend(j, 0, 0)
+            node = cws[j] = subtree(a, None, sched, b=b, llr_max=llr_max,
+                                    mode=mode).to(torch.int8)
+            j_end, sg_nd = j, 0
+        else:
+            # rate-0 node spanning q subtrees: zero partial sums whatever
+            # its LLRs; the descent only stores what later g-reads need
+            _, s_real, j0, q = unit
+            sg_nd, j_end = s_real - b, j0 + q - 1
+            descend(j0, sg_nd, sg_nd + 1)
+            node = torch.zeros((1 << s_real, bs), dtype=torch.int8,
+                               device=dev)
+            for jj in range(j0, j_end + 1):
+                cws[jj] = node[:w_sub]
+        # rise: combine partial sums upward through cto(j_end) stages
+        r = _cto(j_end)
+        for sg in range(sg_nd, min(r, top)):
+            node = torch.cat([u0s[sg] ^ node, node], dim=0)
+        if r < top:
+            u0s[r] = node
+    cw = torch.stack(cws, dim=0)                  # [m, 2^b, bs]
+    return polar_transform(cw, axis=1).reshape(n, bs)

@@ -1,10 +1,20 @@
-"""Successive-cancellation list (SCL) polar decoder: the fast-SCL sweep.
+"""Successive-cancellation list (SCL) polar decoder.
 
 Path metrics follow Balatsoukas-Stimming et al. (Eq. 10) with clipped
 softplus updates and the initial metrics ``[0, llr_max, ...]``; the best L
-of 2L candidates survive each fork. The decode runs the two-level fast
-sweep of ``scan_core.scl_sweep_hybrid_fast`` for every n, with its 2^b-leaf
-subtrees on the CUDA kernel (``cuda_scl``) when the input is on the card.
+of 2L candidates survive each fork. The decode runs one of two two-level
+sweeps, with their 2^b-leaf subtrees on the CUDA kernel (``cuda_scl``) when
+the input is on the card:
+
+* ``use_fast_scl=True``: the fast-SCL sweep
+  (``scan_core.scl_sweep_hybrid_fast``), Hashemi's rate-0/repetition
+  pruning plus, with ``fast_rate1``, rate-1 and SPC nodes;
+* ``use_fast_scl=False``: the plain sweep (``scan_core.scl_sweep_hybrid``),
+  one fork per info leaf, no pruning.
+
+``use_fast_scl=None`` resolves as the JAX package does: fast below
+n = 256, plain from n = 256 up. Under min-sum the two sweeps decide
+differently, so each blocklength keeps the reference's bit contract.
 """
 
 import numpy as np
@@ -14,35 +24,45 @@ from polar_torch._device import resolve_device
 from polar_torch.models.polar.construction import info_positions
 from polar_torch.models.polar.cuda_scl import LIST_SIZES
 from polar_torch.models.polar.scan_core import (
-    plan_fast_sweep, resolve_lower_stages, scl_sweep_hybrid_fast)
+    leaf_schedule, plan_fast_sweep, plan_sweep, resolve_lower_stages,
+    scl_sweep_hybrid, scl_sweep_hybrid_fast)
 from polar_torch.ops.fg import F_FUNCTIONS
+
+# from this blocklength up, use_fast_scl=None means the plain sweep (the
+# JAX package's scan engine); below it, the fast sweep
+PLAIN_SWEEP_MIN_N = 256
 
 
 class PolarSCLDecoder:
     """SCL decoder. ``__call__(llr_logits[..., n]) -> u_hat[..., k]``;
     logits are positive for bit 1.
 
-    ``fast_rate1`` adds rate-1 node shortcuts to the rate-0/repetition
+    ``use_fast_scl`` picks the sweep (module docstring; None resolves by
+    n). ``fast_rate1`` adds rate-1 node shortcuts to the rate-0/repetition
     pruning, and ``spc_min_stage`` SPC nodes from that stage up (off when
-    None). ``lower_stages`` is the subtree depth b
+    None); both need the fast sweep. ``lower_stages`` is the subtree depth b
     (``scan_core.resolve_lower_stages``): one kernel call per 2^b-leaf
     subtree."""
 
     def __init__(self, frozen_pos, n: int, list_size: int = 8,
                  crc_degree=None, use_hybrid_sc: bool = False,
-                 use_fast_scl: bool = True, mode: str = "minsum",
+                 use_fast_scl=None, mode: str = "minsum",
                  llr_max: float = 30.0, pc_pos=None,
                  fast_rate1: bool = False, spc_min_stage=None,
                  lower_stages=None, output_dtype=torch.float32,
                  device=None):
-        if fast_rate1 and not use_fast_scl:
-            raise ValueError("fast_rate1=True needs use_fast_scl=True")
+        n = int(n)
+        if n < 2 or n & (n - 1):
+            raise ValueError("n must be a power of 2, at least 2")
+        if use_fast_scl is None:
+            use_fast_scl = n < PLAIN_SWEEP_MIN_N
+        if (fast_rate1 or spc_min_stage is not None) and not use_fast_scl:
+            raise ValueError("fast_rate1 and spc_min_stage need the fast "
+                             "sweep (use_fast_scl=True)")
         later = {
             "crc_degree": (crc_degree is not None, "ROADMAP Queue 1 item 9"),
             "pc_pos": (pc_pos is not None, "ROADMAP Queue 1 item 10"),
             "use_hybrid_sc": (use_hybrid_sc, "ROADMAP Queue 1 item 11"),
-            "use_fast_scl=False": (not use_fast_scl,
-                                   "ROADMAP Queue 1 item 18"),
             "list_size > 8": (list_size > 8, "ROADMAP Queue 1 item 12"),
             "a frozen set given as a tensor": (
                 isinstance(frozen_pos, torch.Tensor),
@@ -52,9 +72,6 @@ class PolarSCLDecoder:
             if asked:
                 raise NotImplementedError(
                     f"PolarSCLDecoder: {what} is not ported yet ({item})")
-        n = int(n)
-        if n < 2 or n & (n - 1):
-            raise ValueError("n must be a power of 2, at least 2")
         if list_size not in LIST_SIZES:
             raise ValueError(f"list_size must be one of {LIST_SIZES}")
         if mode not in F_FUNCTIONS:
@@ -65,6 +82,7 @@ class PolarSCLDecoder:
         self.info_pos = info_positions(self.frozen_pos, n)
         self.k = n - len(self.frozen_pos)
         self.list_size = int(list_size)
+        self.use_fast_scl = bool(use_fast_scl)
         self.mode = mode
         self.llr_max = float(llr_max)
         self.fast_rate1 = bool(fast_rate1)
@@ -74,19 +92,29 @@ class PolarSCLDecoder:
                                                  lower_stages)
         self._frozen_mask = np.zeros(n, dtype=bool)
         self._frozen_mask[self.frozen_pos] = True
-        self._plan = plan_fast_sweep(self._frozen_mask, self.lower_stages,
-                                     self.device, rate1=self.fast_rate1,
-                                     spc_min_stage=spc_min_stage)
+        if self.use_fast_scl:
+            self._plan = plan_fast_sweep(
+                self._frozen_mask, self.lower_stages, self.device,
+                rate1=self.fast_rate1, spc_min_stage=spc_min_stage)
+        else:
+            self._plan = plan_sweep(leaf_schedule(self._frozen_mask),
+                                    self.lower_stages, self.device)
         self._info_idx = torch.from_numpy(self.info_pos).to(self.device)
 
     def decode(self, llr_logits):
         """[bs, n] logits -> [bs, k] decisions of the best path."""
         llr_ch = (-llr_logits.to(torch.float32)).t().contiguous()  # [n, bs]
-        u_all, pm = scl_sweep_hybrid_fast(
-            llr_ch, self._frozen_mask, self.list_size, mode=self.mode,
-            llr_max=self.llr_max, lower_stages=self.lower_stages,
-            rate1=self.fast_rate1, spc_min_stage=self.spc_min_stage,
-            plan=self._plan)
+        if self.use_fast_scl:
+            u_all, pm = scl_sweep_hybrid_fast(
+                llr_ch, self._frozen_mask, self.list_size, mode=self.mode,
+                llr_max=self.llr_max, lower_stages=self.lower_stages,
+                rate1=self.fast_rate1, spc_min_stage=self.spc_min_stage,
+                plan=self._plan)
+        else:
+            u_all, pm = scl_sweep_hybrid(
+                llr_ch, self._frozen_mask, self.list_size, mode=self.mode,
+                llr_max=self.llr_max, lower_stages=self.lower_stages,
+                plan=self._plan)
         u_info = u_all[self._info_idx]                      # [k, L, bs]
         sel = torch.argmin(pm, dim=0)                       # [bs]
         u_sel = torch.gather(u_info, 1, sel[None, None, :].expand(

@@ -1,6 +1,6 @@
-"""polar_torch on the card: the SCL subtree kernel against its plain version
-on the same CUDA inputs, and the decoder on the card against the decoder on
-the CPU. Every test here needs a CUDA card and skips without one.
+"""polar_torch on the card: the SCL and SC subtree kernels against their
+plain versions on the same CUDA inputs, and the decoders (fast and plain
+SCL, SC) on the card against the same decoders on the CPU. Every test here needs a CUDA card and skips without one.
 
 The file imports no JAX, so it also runs where JAX is not installed:
 
@@ -96,10 +96,97 @@ def test_decoder_on_card_equals_cpu(cuda, b):
     logits = torch.from_numpy(
         (-(2.0 / 0.64) * ((1.0 - 2.0 * c) + rng.normal(0, 0.8, (bs, n))))
         .astype(np.float32))
-    kw = dict(list_size=8, fast_rate1=True, lower_stages=b)
+    kw = dict(list_size=8, use_fast_scl=True, fast_rate1=True,
+              lower_stages=b)
     want = PolarSCLDecoder(frozen, n, device="cpu", **kw)(logits)
     before = scl_subtree.launches
     got = PolarSCLDecoder(frozen, n, device=cuda, **kw)(logits.to(cuda))
+    assert scl_subtree.launches > before
+    agree = (got.cpu() == want).all(dim=1).float().mean().item()
+    assert agree >= BLOCK_AGREEMENT
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["minsum", "exact"])
+@pytest.mark.parametrize("b", [3, 6, 10])
+def test_sc_kernel_equals_plain_on_card(cuda, b, mode):
+    from polar_torch.models.polar.cuda_sc import (
+        sc_schedule, sc_subtree, sc_subtree_plain, traced_schedule)
+    from polar_torch.models.polar.scan_core import fast_schedule
+    rng = np.random.default_rng(b)
+    mask = _mask_5g(1 << (b - 1), 1 << b) if b >= 5 else _random_mask(
+        1 << b, b)
+    a = torch.from_numpy(rng.normal(0, 3, (1 << b, 2048)).astype(
+        np.float32)).to(cuda)
+    frz = torch.from_numpy(mask.astype(np.int32)).to(cuda)
+    for ops in (fast_schedule(mask, rep=False), traced_schedule(b)):
+        before = sc_subtree.launches
+        got = sc_subtree(a, frz, sc_schedule(ops, cuda), b=b,
+                         llr_max=LLR_MAX, mode=mode)
+        torch.cuda.synchronize()
+        assert sc_subtree.launches == before + 1
+        assert got.device == a.device and got.dtype == torch.int32
+        want = sc_subtree_plain(a, frz, ops, b=b, llr_max=LLR_MAX,
+                                mode=mode)
+        agree = (got == want).all(dim=0).float().mean().item()
+        # min-sum is exact; the exact boxplus rounds differently in
+        # log1pf/expf and torch.logaddexp
+        assert agree == 1.0 if mode == "minsum" else agree >= 0.999
+
+
+@pytest.mark.gpu
+def test_sc_wrapper_rejects_bad_cuda_inputs(cuda):
+    from polar_torch.models.polar.cuda_sc import (sc_schedule, sc_subtree,
+                                                  traced_schedule)
+    sched = sc_schedule(traced_schedule(2), cuda)
+    a = torch.zeros(4, 8, device=cuda)
+    with pytest.raises(ValueError):       # 't' ops and no frz
+        sc_subtree(a, None, sched, b=2, llr_max=LLR_MAX, mode="minsum")
+    with pytest.raises(TypeError):
+        sc_subtree(a.double(), torch.zeros(4, dtype=torch.int32,
+                                           device=cuda), sched, b=2,
+                   llr_max=LLR_MAX, mode="minsum")
+    with pytest.raises(ValueError):       # schedule table on the CPU
+        sc_subtree(a, torch.zeros(4, dtype=torch.int32, device=cuda),
+                   sc_schedule(traced_schedule(2), "cpu"), b=2,
+                   llr_max=LLR_MAX, mode="minsum")
+
+
+def _logits(n, bs, seed):
+    rng = np.random.default_rng(seed)
+    c = rng.integers(0, 2, (bs, n))
+    return torch.from_numpy(
+        (-(2.0 / 0.64) * ((1.0 - 2.0 * c) + rng.normal(0, 0.8, (bs, n))))
+        .astype(np.float32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [4, 10])
+def test_sc_decoder_on_card_equals_cpu(cuda, b):
+    from polar_torch.models.polar.cuda_sc import sc_subtree
+    from polar_torch.models.polar.sc import PolarSCDecoder
+    n, k = 1024, 512
+    frozen, _ = generate_5g_ranking(k, n)
+    logits = _logits(n, 2048, b)
+    want = PolarSCDecoder(frozen, n, lower_stages=b, device="cpu")(logits)
+    before = sc_subtree.launches
+    got = PolarSCDecoder(frozen, n, lower_stages=b, device=cuda)(
+        logits.to(cuda))
+    assert sc_subtree.launches > before
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_plain_scl_decoder_on_card_equals_cpu(cuda):
+    n, k, bs = 256, 128, 2048
+    frozen, _ = generate_5g_ranking(k, n)
+    logits = _logits(n, bs, 5)
+    dec_cpu = PolarSCLDecoder(frozen, n, list_size=8, device="cpu")
+    assert not dec_cpu.use_fast_scl
+    want = dec_cpu(logits)
+    before = scl_subtree.launches
+    got = PolarSCLDecoder(frozen, n, list_size=8, device=cuda)(
+        logits.to(cuda))
     assert scl_subtree.launches > before
     agree = (got.cpu() == want).all(dim=1).float().mean().item()
     assert agree >= BLOCK_AGREEMENT

@@ -1,5 +1,6 @@
-"""The polar_torch fast-SCL decoder and chain against polar_tpu: the golden
-decoder fixtures bit for bit, the decoder's options, the state carried
+"""The polar_torch SCL decoder (fast and plain sweeps) and chain against
+polar_tpu: the golden decoder fixtures bit for bit, JAX's plain sweep on
+random blocks, the decoder's options and their defaults, the state carried
 across, and the package's independence from JAX."""
 
 import os
@@ -15,10 +16,13 @@ import torch
 from polar_tpu.models.polar.construction import (
     generate_5g_ranking as j_generate_5g_ranking)
 from polar_tpu.models.polar.encode import PolarEncoder as JPolarEncoder
+from polar_tpu.models.polar import scan_core as jsc
 from polar_tpu.models.polar.scl import PolarSCLDecoder as JPolarSCLDecoder
 
 from polar_torch import from_numpy_state
+from polar_torch.models.polar import scan_core as tsc
 from polar_torch.models.polar.construction import generate_5g_ranking
+from polar_torch.models.polar.cuda_scl import scl_subtree_host
 from polar_torch.models.polar.scl import PolarSCLDecoder
 from polar_torch.sim import count_block_errors
 
@@ -32,10 +36,57 @@ def test_decoder_equals_golden_fixture(decoders_fix, n, list_size, b):
     frozen = decoders_fix[f"n{n}_frozen_pos"]
     llr = decoders_fix[f"n{n}_llr"]
     dec = PolarSCLDecoder(frozen, n, list_size=list_size, mode="exact",
-                          lower_stages=b, device="cpu")
+                          use_fast_scl=True, lower_stages=b, device="cpu")
     got = dec(torch.from_numpy(llr)).numpy()
     np.testing.assert_array_equal(
         got, decoders_fix[f"n{n}_scl{list_size}_exact"])
+
+
+@pytest.mark.parametrize("b", [None, 3])
+@pytest.mark.parametrize("mode,key", [("minsum", "scl4_minsum"),
+                                      ("exact", "scl4_exact_nofast")])
+@pytest.mark.parametrize("n", [64, 256])
+def test_plain_decoder_equals_golden_fixture_and_jax(decoders_fix, n, mode,
+                                                     key, b):
+    frozen = decoders_fix[f"n{n}_frozen_pos"]
+    llr = decoders_fix[f"n{n}_llr"]
+    want = decoders_fix[f"n{n}_{key}"]
+    if b is None:
+        j_dec = JPolarSCLDecoder(frozen, n, list_size=4, mode=mode,
+                                 use_fast_scl=False)
+        np.testing.assert_array_equal(np.asarray(j_dec(jnp.asarray(llr))),
+                                      want)
+    dec = PolarSCLDecoder(frozen, n, list_size=4, mode=mode,
+                          use_fast_scl=False, lower_stages=b, device="cpu")
+    assert not dec.use_fast_scl
+    np.testing.assert_array_equal(dec(torch.from_numpy(llr)).numpy(), want)
+
+
+@pytest.mark.parametrize("subtree", ["plain", "host"])
+def test_plain_sweep_equals_jax_plain_sweep(subtree):
+    """The port's plain sweep (the fast sweep on a leaf-only schedule)
+    against JAX's ``scl_sweep_hybrid`` on random blocks, min-sum."""
+    n, k, L, b = 256, 128, 8, 4
+    frozen, _ = generate_5g_ranking(k, n)
+    mask = np.zeros(n, bool)
+    mask[frozen] = True
+    llr = _llr_ch(n, 128, 21)
+    u_j, pm_j = jsc.scl_sweep_hybrid(jnp.asarray(llr), mask, L,
+                                     lower_stages=b, use_pallas=False)
+    kw = {} if subtree == "plain" else {"subtree": scl_subtree_host}
+    u_t, pm_t = tsc.scl_sweep_hybrid(torch.from_numpy(llr), mask, L,
+                                     lower_stages=b, **kw)
+    assert u_t.dtype == torch.int8 and u_t.shape == (n, L, 128)
+    np.testing.assert_array_equal(u_t.numpy(), np.asarray(u_j))
+    np.testing.assert_allclose(pm_t.numpy(), np.asarray(pm_j), rtol=1e-5)
+
+
+@pytest.mark.parametrize("n", [64, 1024])
+def test_fast_sweep_default_equals_jax(n):
+    frozen, _ = generate_5g_ranking(n // 2, n)
+    want = JPolarSCLDecoder(frozen, n, list_size=8).use_fast_scl
+    assert PolarSCLDecoder(frozen, n, device="cpu").use_fast_scl == want
+    assert want == (n < 256)
 
 
 def _llr_ch(n, bs, seed):
@@ -64,7 +115,6 @@ def test_decoder_equals_jax_decoder_rate1():
     ({"crc_degree": "CRC11"}, "Queue 1 item 9"),
     ({"pc_pos": [3]}, "Queue 1 item 10"),
     ({"use_hybrid_sc": True}, "Queue 1 item 11"),
-    ({"use_fast_scl": False}, "Queue 1 item 18"),
     ({"list_size": 16}, "Queue 1 item 12"),
 ])
 def test_decoder_raises_for_later_slices(kwargs, item):
@@ -80,6 +130,8 @@ def test_decoder_raises_for_traced_frozen_set_and_bad_options():
     with pytest.raises(ValueError):   # the reference drops this silently
         PolarSCLDecoder(frozen, 64, use_fast_scl=False, fast_rate1=True,
                         device="cpu")
+    with pytest.raises(ValueError):   # n >= 256 defaults to the plain sweep
+        PolarSCLDecoder(np.arange(128), 256, fast_rate1=True, device="cpu")
     with pytest.raises(ValueError):
         PolarSCLDecoder(frozen, 64, list_size=3, device="cpu")
 
