@@ -2,26 +2,31 @@
 
     python3 chip_smoke.py            # from the repo root; one card, nvcc
 
-It drives two paths: the fast-SCL chain (phases 4 and 5) and the CLI sweep
-(phase 6). Phases (any failure exits non-zero and prints no result):
+It drives three paths: the fast-SCL chain (phases 4 and 5), the CLI sweep
+(phase 6) and the 5G NR CA-SCL chain (phase 8). Phases (any failure exits
+non-zero and prints no result):
 
 1. the card: CUDA must be available; prints the card's name and power
    limit as ``nvidia-smi`` reports them;
-2. build: compiles every kernel of both paths from ``polar_torch/csrc``,
-   one ``nvcc`` per kernel, all started together;
+2. build: compiles every kernel of the three paths from
+   ``polar_torch/csrc``, one ``nvcc`` per kernel, all started together;
 3. kernels against their plain versions on the card, on the same CUDA
-   inputs. The
-   SCL subtree kernel (``scl_subtree``) against ``scl_subtree_plain`` on a
-   5G k=32 n=64 code at b=3, on random masks (rate-1 and SPC nodes), and
-   through the whole k=512 n=1024 sweep at the decoder's subtree depth and
-   at a smaller one (so the outer sweep runs on the card too). Codewords
-   and parent maps must agree on >= 99.8% of blocks, path metrics to
-   1e-5 relative on the agreeing blocks. The same holds for the plain
-   (unpruned) SCL-8 sweep at k=512 n=1024. The SC subtree kernel
-   (``sc_subtree``) against ``sc_subtree_plain``: random masks at
-   b = 3..8, static (ops z/f/i) and traced (op t) forms, and the 5G k=512
-   n=1024 code at the SC decoder's depth and as the whole tree. Min-sum
-   must agree on every block, exact mode on >= 99.9% of blocks;
+   inputs. The SCL subtree kernel (``scl_subtree``) against
+   ``scl_subtree_plain``: at L=8 on a 5G k=32 n=64 code at b=3, on random
+   masks (rate-1 and SPC nodes), and through the whole k=512 n=1024 sweep
+   at the decoder's subtree depth and at a smaller one (so the outer sweep
+   runs on the card too); at L=16 and 32 on the k=512 n=1024 fast schedule
+   and random masks, min-sum and exact; the traced form (frozen flags as
+   data) through the plain sweep of the 5G k=400 E=1000 mother code at
+   L=8, 16 and 32 in exact mode, against the plain version and bit for bit
+   against the static form. Codewords and parent maps must agree on
+   >= 99.8% of blocks, path metrics to 1e-5 relative on the agreeing
+   blocks. The same holds for the plain (unpruned) SCL-8 sweep at k=512
+   n=1024. The SC subtree kernel (``sc_subtree``) against
+   ``sc_subtree_plain``: random masks at b = 3..8, static (ops z/f/i) and
+   traced (op t) forms, and the 5G k=512 n=1024 code at the SC decoder's
+   depth and as the whole tree. Min-sum must agree on every block, exact
+   mode on >= 99.9% of blocks;
 4. the main path: ``SystemAWGNModel.step`` (source -> 5G k=512 n=1024
    polar encoder -> QPSK -> AWGN -> demapper -> SCL-8 min-sum fast-SCL
    decoder with rate-1 nodes) at a batch of 8192 codewords and 2.0 dB,
@@ -31,17 +36,27 @@ It drives two paths: the fast-SCL chain (phases 4 and 5) and the CLI sweep
    of ``benchmarks/bler_validation.json`` (+-0.006, about 4 sigma);
 6. the CLI path: ``polar_torch.main.sweep`` at k=512 n=1024 (5G), bs=8192,
    4 batches per point at 1.5 and 2.0 dB: SC on the ``sc_subtree`` kernel,
-   then SCL-8 on the plain sweep and the ``scl_subtree`` kernel, with both
-   launch counts reset just before and read just after. Gates: SC BLER at
-   2.0 dB within +-0.011 of ``sc_n1024``, SCL-8 BLER at 1.5 dB within
-   +-0.007 of ``scl8_n1024`` (about 4 sigma of both samples combined);
-7. where the time goes: the SC, plain SCL and fast SCL depth surveys,
-   kernel, plain and bound times over one decode, and one profiled
-   main-path step.
+   then SCL-8 on the plain sweep and the ``scl_subtree`` kernel (traced
+   form: 16 subtrees), with both launch counts reset just before and read
+   just after. Gates: SC BLER at 2.0 dB within +-0.011 of ``sc_n1024``,
+   SCL-8 BLER at 1.5 dB within +-0.007 of ``scl8_n1024`` (about 4 sigma of
+   both samples combined);
+7. where the time goes: the SC, plain SCL, fast SCL and CA-SCL-32 depth
+   surveys, kernel, plain and bound times over one decode, and one
+   profiled main-path step;
+8. the 5G path: ``Polar5GEncoder`` (uplink k=400 E=1000, CRC11,
+   n_polar=1024) -> QPSK -> AWGN -> demapper -> ``Polar5GDecoder`` in exact
+   mode through ``sim_ber`` at 1.5 dB: CA-SCL-8 and hybSCL-8 at bs=8192,
+   CA-SCL-32 at bs=2048, each with the launch counts reset just before and
+   read just after. Gates: CA-SCL-8 and hybSCL-8 BLER within about 4 sigma
+   of ``5g_cascl8_k400_n1000`` and ``hybscl8_5g_k400_n1000``; CA-SCL-32
+   BLER at or below the CA-SCL-8 yardstick. Prints info bit/s, decoder ms
+   per batch, and the kernel's ms per decode with launches and bound.
 
 The line before the card's line is one JSON object ``{"kernels": [...]}``
-with each kernel's launches on its path (``scl_subtree``: the fast-SCL
-chain; ``sc_subtree``: the CLI sweep), its disagreement with the plain
+with each kernel form's launches on its path (``scl_subtree`` static
+L <= 8: the fast-SCL chain; ``scl_subtree`` L=16/32 and traced: the 5G
+path; ``sc_subtree``: the CLI sweep), its disagreement with the plain
 version, and its time, the plain version's time and its bound at the
 path's shape. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -69,6 +84,18 @@ SC_CHECK_BATCH = 4096
 CLI_EBNO_DB, CLI_MC_ITER = (1.5, 2.0), 4
 CLI_GATES = (("SC", "sc_n1024", 2.0, 0.011),
              ("SCL-8", "scl8_n1024", 1.5, 0.007))
+# the 5G path: uplink k=400 E=1000 (CRC11, n_polar=1024) in exact mode, as
+# the yardsticks ran. (name, dec_type, list size, batch, batches, yardstick,
+# its sample: blocks). CA-SCL-32 has no yardstick of its own: its BLER must
+# not exceed CA-SCL-8's.
+G5_K, G5_E, G5_MODE, G5_EBNO_DB = 400, 1000, "exact", 1.5
+G5_DECODERS = (("CA-SCL-8", "SCL", 8, 8192, 8, "5g_cascl8_k400_n1000",
+                299008),
+               ("hybSCL-8", "hybSCL", 8, 8192, 8, "hybscl8_5g_k400_n1000",
+                37376),
+               ("CA-SCL-32", "SCL", 32, 2048, 16, None, None))
+WIDE_BATCH = 2048                   # the L=16/32 rows' batch
+WIDE_SURVEY_DEPTHS = range(3, 9)    # the CA-SCL-32 decoder's depths
 SEED = 0
 
 # NVIDIA H100 SXM data sheet: HBM bandwidth and fp32 rate outside the
@@ -92,18 +119,26 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def subtree_work(ops, b, L, bs, mode, a):
+def subtree_work(ops, b, mode, a, frz=None):
     """(bytes, f32 operations) one subtree call must at least move and do:
     each input read once (a broadcast input counts once), each output
     written once; the f/g, softplus, partial-sum and top-L work of the
-    op schedule over L paths and bs codewords."""
+    op schedule over the L paths and bs codewords of ``a``. A traced
+    ``'t'`` leaf counts as the frozen or info leaf its flag in ``frz``
+    makes it (the kernel skips a frozen leaf's fork)."""
     from polar_torch.models.polar.cuda_scl import _ctz, _cto
+    _, L, bs = a.shape
     a_bytes = a.element_size()
     for size, stride in zip(a.shape, a.stride()):
         a_bytes *= size if stride else 1
     w = 1 << b
     n_bytes = (a_bytes + 4 * L * bs + 12 * len(ops)          # a, pm, table
                + 4 * w * L * bs + 4 * L * bs + 4 * L * bs)   # cw, P, pm
+    if frz is not None:
+        n_bytes += 4 * w
+        flags = frz.tolist()
+        ops = [(("f" if flags[lo] else "i") if kind == "t" else kind, s, lo)
+               for kind, s, lo in ops]
     n_f = n_g = n_sp = n_xor = n_cmp = 0
     for kind, s_nd, lo in ops:
         top = b if lo == 0 else _ctz(lo)
@@ -146,6 +181,26 @@ def sc_subtree_work(ops, b, bs, mode):
     return n_bytes, bs * (OPS_F[mode] * n_f + OPS_G * n_g + OPS_XOR * n_xor)
 
 
+def resource_usage(libs):
+    """Registers, stack and shared memory of each kernel in the built
+    libraries, as ``cuobjdump -res-usage`` reports them."""
+    from polar_torch import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return ["resource usage: cuobjdump not found (not measured)"]
+    lines, name = [], None
+    for lib in libs:
+        out = subprocess.run([tool, "-res-usage", lib], capture_output=True,
+                             text=True, timeout=60).stdout
+        for line in out.splitlines():
+            if "Function" in line:
+                name = line.split("Function", 1)[1].strip(" :")
+            elif "REG:" in line and name:
+                lines.append(f"{name}: {' '.join(line.split()[:4])}")
+                name = None
+    return lines
+
+
 def bound_ms(n_bytes, n_ops):
     """(least time in ms, "bytes" or "operations") on the card's data-sheet
     rates."""
@@ -164,6 +219,14 @@ class ScCheck:
         self.blocks = {"minsum": 0, "exact": 0}
         self.bad = {"minsum": 0, "exact": 0}
         self.max_abs = 0
+
+    @property
+    def n_bad(self):
+        return sum(self.bad.values())
+
+    @property
+    def n_blocks(self):
+        return sum(self.blocks.values())
 
     def add(self, label, mode, want, got):
         import torch
@@ -207,7 +270,7 @@ class Check:
     """Accumulates kernel-vs-plain comparisons; fails on the first miss."""
 
     def __init__(self):
-        self.blocks = self.bad = 0
+        self.n_blocks = self.n_bad = 0
         self.max_abs = self.max_rel = 0.0
 
     def add(self, label, want, got):
@@ -218,8 +281,8 @@ class Check:
         if share < BLOCK_AGREEMENT or rel > PM_RTOL:
             raise AssertionError(f"{label}: kernel disagrees with the plain "
                                  f"version (share {share}, pm rel {rel})")
-        self.blocks += n_blocks
-        self.bad += n_bad
+        self.n_blocks += n_blocks
+        self.n_bad += n_bad
         self.max_abs = max(self.max_abs, gap)
         self.max_rel = max(self.max_rel, rel)
         return n_bad
@@ -322,7 +385,24 @@ def main():
     from polar_torch.models.polar.sc import PolarSCDecoder
     from polar_torch.models.polar.scl import PolarSCLDecoder
     from polar_torch.ops.butterfly import polar_transform
-    from polar_torch.sim import count_block_errors, count_errors
+    from polar_torch.models.polar.decode5g import Polar5GDecoder
+    from polar_torch.models.polar.encode import Polar5GEncoder
+    from polar_torch.models.systems import SystemAWGNModel
+    from polar_torch.sim import count_block_errors, count_errors, sim_ber
+
+    def reset_counts():
+        """Every kernel wrapper's launch counts to 0."""
+        for c in ("launches", "launches_traced", "launches_wide"):
+            setattr(cuda_scl.scl_subtree, c, 0)
+        cuda_sc.sc_subtree.launches = 0
+
+    def counts():
+        """The launch counts by kernel form (the scl_subtree forms
+        overlap: a traced launch at L=32 counts as traced and as wide)."""
+        return {"scl_subtree": cuda_scl.scl_subtree.launches,
+                "scl_subtree traced": cuda_scl.scl_subtree.launches_traced,
+                "scl_subtree wide": cuda_scl.scl_subtree.launches_wide,
+                "sc_subtree": cuda_sc.sc_subtree.launches}
 
     # ---- phase 1: the card ----
     kind = torch.cuda.get_device_name(0)
@@ -332,14 +412,16 @@ def main():
         f"{torch.version.cuda}")
     dev = resolve_device()                      # the current card
 
-    # ---- phase 2: build every kernel of both paths, compilers in parallel
+    # ---- phase 2: build every kernel of the paths, compilers in parallel
     t0 = time.perf_counter()
     kernels_built = ("scl_subtree", "sc_subtree")
-    _build.build([(name, "cuda") for name in kernels_built])
+    libs = _build.build([(name, "cuda") for name in kernels_built])
     for name in kernels_built:
         _build.load(name, "cuda")
     log(f"phase 2: built {', '.join(kernels_built)} (nvcc, sm_90a, in "
         f"parallel) in {time.perf_counter() - t0:.1f} s")
+    for line in resource_usage(libs):
+        log(f"  {line}")
 
     # ---- phase 3: kernels against their plain versions on the card ----
     log("phase 3: scl_subtree kernel against scl_subtree_plain")
@@ -351,7 +433,7 @@ def main():
         mask[frozen] = True
         return mask
 
-    def random_units(mask, b, L, bs, mode, spc=None):
+    def random_units(mask, b, L, bs, mode, spc=None, into=check):
         units, _ = scan_core.split_fast_schedule(mask, b, rate1=True,
                                                  spc_min_stage=spc)
         for i, u in enumerate(x for x in units if x[0] == "sub"):
@@ -363,8 +445,8 @@ def main():
             kw = dict(b=b, llr_max=30.0, mode=mode)
             got = scl_subtree(a, pm, sched, **kw)
             want = scl_subtree_plain(a, pm, ops, **kw)
-            check.add(f"{len(mask)}-leaf mask, b={b}, L={L}, {mode}, "
-                      f"unit {i} ({len(ops)} ops)", want, got)
+            into.add(f"{len(mask)}-leaf mask, b={b}, L={L}, {mode}, "
+                     f"unit {i} ({len(ops)} ops)", want, got)
 
     random_units(mask_of(generate_5g_ranking(32, 64)[0], 64), 3, 8, 4096,
                  "minsum")
@@ -432,11 +514,69 @@ def main():
               f"{EBNO_MAIN_DB} dB", (u_p, torch.zeros_like(pm_p), pm_p),
               (u_k, torch.zeros_like(pm_k), pm_k))
     torch.cuda.synchronize()
-    log(f"phase 3: scl_subtree: {check.bad} of {check.blocks} blocks "
-        f"differ; pm max abs {check.max_abs:.3g}, max rel "
-        f"{check.max_rel:.3g}")
+    log(f"phase 3: scl_subtree static, L <= 8: {check.n_bad} of "
+        f"{check.n_blocks} blocks differ; pm max abs {check.max_abs:.3g}, "
+        f"max rel {check.max_rel:.3g}")
 
-    def subtree_times(calls, b, label, reps):
+    # L = 16, 32: the k=512 n=1024 fast schedule and random masks (rate-1
+    # and SPC nodes), both modes
+    check_wide = Check()
+    for L in (16, 32):
+        for mode in ("minsum", "exact"):
+            random_units(mask, main_b, L, WIDE_BATCH, mode, into=check_wide)
+            random_units(rng.random(128) < rng.uniform(0.2, 0.8), 4, L,
+                         WIDE_BATCH, mode, spc=2, into=check_wide)
+
+    # the traced form on the 5G path: the plain sweep of the k=400 E=1000
+    # mother code (16 subtrees at b=6, 64 at b=4 share one traced
+    # schedule) against the plain version, and bit for bit against the
+    # static leaf-only form
+    check_traced = Check()
+    enc5 = Polar5GEncoder(G5_K, G5_E, device=dev)
+    mask5 = mask_of(enc5.frozen_pos, enc5.n_polar)
+    traced_calls = {}
+    for L in (8, 16, 32):
+        bs = BATCH if L == 8 else WIDE_BATCH
+        dec5 = Polar5GDecoder(enc5, dec_type="SCL", list_size=L,
+                              mode=G5_MODE)
+        b5 = dec5._polar_dec.lower_stages
+        model5 = SystemAWGNModel(G5_E, G5_K, enc5, dec5)
+        llr5 = (-dec5.rate_recover(model5.front(gen, bs, G5_EBNO_DB)[2])).t(
+            ).contiguous()
+        kw = dict(mode=G5_MODE, llr_max=30.0, lower_stages=b5)
+        traced_plan = scan_core.plan_plain_sweep(mask5, b5, dev)
+        static_plan = scan_core.plan_sweep(scan_core.leaf_schedule(mask5),
+                                           b5, dev)
+        if not all(u[2].traced for u in traced_plan):
+            raise AssertionError(f"the 5G plain sweep at b={b5} is not on "
+                                 "the traced form")
+        calls = traced_calls[L] = []
+        u_t, pm_t = scan_core.scl_sweep_hybrid(
+            llr5, mask5, L, plan=traced_plan,
+            subtree=recorder(calls, scl_subtree), **kw)
+        u_s, pm_s = scan_core.scl_sweep_hybrid(llr5, mask5, L,
+                                               plan=static_plan, **kw)
+        u_p, pm_p = scan_core.scl_sweep_hybrid(llr5, mask5, L,
+                                               plan=traced_plan,
+                                               subtree=plain_subtree, **kw)
+        same = torch.equal(u_t, u_s) and torch.equal(pm_t, pm_s)
+        log(f"  5G k={G5_K} E={G5_E} plain sweep, L={L}, b={b5}, bs={bs}, "
+            f"{G5_MODE}: traced bit-equal to static: {same}")
+        if not same:
+            raise AssertionError(f"L={L}: the traced form differs from the "
+                                 "static form")
+        label = (f"5G k={G5_K} E={G5_E} traced sweep, L={L}, b={b5}, "
+                 f"bs={bs}, {G5_MODE}")
+        for into in (check_traced, check_wide) if L > 8 else (check_traced,):
+            into.add(label, (u_p, torch.zeros_like(pm_p), pm_p),
+                     (u_t, torch.zeros_like(pm_t), pm_t))
+    torch.cuda.synchronize()
+    for name, c in (("L=16/32", check_wide), ("traced", check_traced)):
+        log(f"phase 3: scl_subtree {name}: {c.n_bad} of {c.n_blocks} "
+            f"blocks differ; pm max abs {c.max_abs:.3g}, max rel "
+            f"{c.max_rel:.3g}")
+
+    def subtree_times(calls, label, reps):
         """Kernel, plain and bound ms over ``calls`` of scl_subtree."""
         k_ms = cuda_ms(lambda: [scl_subtree(*args, **kw)
                                 for args, kw in calls], reps=reps)
@@ -444,20 +584,28 @@ def main():
                                 for (a, pm, sched), kw in calls], reps=1)
         n_bytes = n_ops = 0
         for (a, _, sched), kw in calls:
-            call_bytes, call_ops = subtree_work(sched.ops, b, LIST_SIZE,
-                                                BATCH, kw["mode"], a)
+            call_bytes, call_ops = subtree_work(sched.ops, kw["b"],
+                                                kw["mode"], a, kw.get("frz"))
             n_bytes += call_bytes
             n_ops += call_ops
         bnd, by = bound_ms(n_bytes, n_ops)
-        log(f"  scl_subtree, {len(calls)} calls of {label} (b={b}, "
-            f"L={LIST_SIZE}, bs={BATCH}): kernel {k_ms:.3f} ms, plain "
-            f"{p_ms:.3f} ms; bound {bnd:.4f} ms ({by}: {n_bytes} B, "
-            f"{n_ops} f32 ops); library: none [{card}]")
-        return k_ms, p_ms, bnd, by
+        (a, _, _), kw = calls[0]
+        log(f"  scl_subtree, {len(calls)} calls of {label} (b={kw['b']}, "
+            f"L={a.shape[1]}, bs={a.shape[2]}, {kw['mode']}): kernel "
+            f"{k_ms:.3f} ms, plain {p_ms:.3f} ms; bound {bnd:.4f} ms ({by}: "
+            f"{n_bytes} B, {n_ops} f32 ops); library: none [{card}]")
+        return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bnd, bound_by=by)
 
-    kernel_ms, plain_ms, scl_bound, scl_bound_by = subtree_times(
-        main_calls, main_b, "one fast main-path step", reps=3)
-    subtree_times(plain_calls, plain_b, "one plain-sweep decode", reps=3)
+    scl_times = {
+        "static": subtree_times(main_calls, "one fast main-path step",
+                                reps=3),
+        "traced": subtree_times(traced_calls[8], "one CA-SCL-8 decode",
+                                reps=3),
+        "wide": subtree_times(traced_calls[32], "one CA-SCL-32 decode",
+                              reps=2),
+    }
+    subtree_times(traced_calls[16], "one CA-SCL-16 decode", reps=2)
+    subtree_times(plain_calls, "one plain-sweep SCL-8 decode (CLI)", reps=3)
 
     log("phase 3: sc_subtree kernel against sc_subtree_plain")
     sc_check = ScCheck()
@@ -544,7 +692,7 @@ def main():
 
     # ---- phase 4: the main path ----
     steps = 10
-    cuda_scl.scl_subtree.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     bits, bits_hat = model.step(gen, BATCH, EBNO_MAIN_DB)      # warm-up
     torch.cuda.synchronize()
@@ -556,9 +704,13 @@ def main():
         blk += count_block_errors(bits, bits_hat).item()
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / steps
-    launches = cuda_scl.scl_subtree.launches
+    main_counts = counts()
+    launches = main_counts["scl_subtree"]
     if launches == 0:
         raise AssertionError("the main path launched no scl_subtree kernel")
+    if main_counts["scl_subtree traced"] or main_counts["scl_subtree wide"]:
+        raise AssertionError(f"the fast main path left the static L=8 "
+                             f"form: {main_counts}")
     if bits_hat.shape != (BATCH, K) or not torch.isin(
             bits_hat, torch.tensor([0.0, 1.0], device=dev)).all():
         raise AssertionError(f"decoder output of shape {bits_hat.shape} is "
@@ -596,17 +748,15 @@ def main():
     log(f"phase 6: CLI sweep {cfg}")
     with tempfile.TemporaryDirectory() as tmp:
         jsonl = os.path.join(tmp, "sweep.jsonl")
-        cuda_sc.sc_subtree.launches = 0
-        cuda_scl.scl_subtree.launches = 0
+        reset_counts()
         torch.cuda.synchronize()
         curves = sweep(cfg, ebno_dbs=CLI_EBNO_DB, jsonl_path=jsonl)
         torch.cuda.synchronize()
-        cli_launches = {"sc_subtree": cuda_sc.sc_subtree.launches,
-                        "scl_subtree": cuda_scl.scl_subtree.launches}
+        cli_launches = counts()
         with open(jsonl) as fh:
             rows = [json.loads(line) for line in fh]
     log(f"phase 6: launches during the sweep: {cli_launches}")
-    if min(cli_launches.values()) == 0:
+    if min(cli_launches["sc_subtree"], cli_launches["scl_subtree"]) == 0:
         raise AssertionError(f"the CLI sweep did not launch every kernel: "
                              f"{cli_launches}")
     names = [gate[0] for gate in CLI_GATES]
@@ -656,37 +806,104 @@ def main():
         ms = cuda_ms(lambda: dec_b(llr), reps=3)
         log(f"depth survey: decoder at b={b} ({N >> b} x {1 << b} leaves): "
             f"{ms:.3f} ms per batch of {BATCH} [{card}]")
+    llr5 = SystemAWGNModel(G5_E, G5_K, enc5, None).front(
+        gen, WIDE_BATCH, G5_EBNO_DB)[2]
+    for b in WIDE_SURVEY_DEPTHS:
+        dec_b = Polar5GDecoder(enc5, dec_type="SCL", list_size=32,
+                               mode=G5_MODE, lower_stages=b)
+        ms = cuda_ms(lambda: dec_b(llr5), reps=2)
+        log(f"CA-SCL-32 depth survey: 5G k={G5_K} E={G5_E} decoder at b={b} "
+            f"({enc5.n_polar >> b} x {1 << b} leaves): {ms:.3f} ms per batch "
+            f"of {WIDE_BATCH} [{card}]")
     profile_step(model, gen)
 
-    kernels = [{
-        "name": "scl_subtree",
-        "route": "cuda",
-        "source": "polar_torch/csrc/scl_subtree.cu",
-        "replaces": "polar_tpu/models/polar/pallas_scl.py:142",
-        "launches": launches,
-        "max_abs_err": check.max_abs,
-        "mismatch_blocks": check.bad,
-        "checked_blocks": check.blocks,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": scl_bound,
-        "bound_by": scl_bound_by,
-        "library_ms": None,
-    }, {
-        "name": "sc_subtree",
-        "route": "cuda",
-        "source": "polar_torch/csrc/sc_subtree.cu",
-        "replaces": "polar_tpu/models/polar/pallas_scl.py:832",
-        "launches": cli_launches["sc_subtree"],
-        "max_abs_err": sc_check.max_abs,
-        "mismatch_blocks": sum(sc_check.bad.values()),
-        "checked_blocks": sum(sc_check.blocks.values()),
-        "ms": sc_kernel_ms,
-        "plain_ms": sc_plain_ms,
-        "bound_ms": sc_bound,
-        "bound_by": sc_bound_by,
-        "library_ms": None,
-    }]
+    # ---- phase 8: the 5G NR CA-SCL path ----
+    g5_counts = {}
+    for name, dec_type, L, bs, batches, key, key_blocks in G5_DECODERS:
+        dec5 = Polar5GDecoder(enc5, dec_type=dec_type, list_size=L,
+                              mode=G5_MODE)
+        model5 = SystemAWGNModel(G5_E, G5_K, enc5, dec5)
+        bits, bits_hat = model5.step(gen, bs, G5_EBNO_DB)    # warm-up
+        if bits_hat.shape != (bs, G5_K) or not torch.isin(
+                bits_hat, torch.tensor([0.0, 1.0], device=dev)).all():
+            raise AssertionError(f"{name}: output of shape {bits_hat.shape} "
+                                 "is not a [batch, k] array of bits")
+        with tempfile.TemporaryDirectory() as tmp:
+            jsonl = os.path.join(tmp, "5g.jsonl")
+            reset_counts()
+            torch.cuda.synchronize()
+            sim_ber(model5, [G5_EBNO_DB], batch_size=bs,
+                    max_mc_iter=batches, early_stop=False, verbose=False,
+                    seed=SEED, jsonl_path=jsonl)
+            torch.cuda.synchronize()
+            run = g5_counts[name] = counts()
+            with open(jsonl) as fh:
+                (row,) = [json.loads(line) for line in fh]
+        need = {"scl_subtree traced": True, "scl_subtree wide": L > 8,
+                "sc_subtree": dec_type == "hybSCL"}
+        missing = [k for k, v in need.items() if v and run[k] == 0]
+        if missing or row["num_blocks"] != bs * batches:
+            raise AssertionError(f"{name}: {row['num_blocks']} blocks, "
+                                 f"launches {run}; none of {missing}")
+        got_bler = row["block_errors"] / row["num_blocks"]
+        llr = model5.front(gen, bs, G5_EBNO_DB)[2]
+        dec_ms = cuda_ms(lambda: dec5(llr), reps=3)
+        if dec_type == "hybSCL":
+            log(f"phase 8: {name}: CA-SCL bucket (high-water mark) "
+                f"{min(dec5._polar_dec._cap_hwm, bs)} rows of {bs}")
+        log(f"phase 8: {name} {dec_type} L={L} {G5_MODE}, 5G k={G5_K} "
+            f"E={G5_E}, bs={bs}, b={dec5._polar_dec.lower_stages}: BLER "
+            f"{got_bler:.5f} at {G5_EBNO_DB} dB over {row['num_blocks']} "
+            f"blocks, {row['runtime_s']:.3f} s, "
+            f"{G5_K * row['num_blocks'] / row['runtime_s']:.4g} info bit/s; "
+            f"decoder {dec_ms:.3f} ms per batch; launches {run} [{card}]")
+        if key is None:
+            want = yardstick("5g_cascl8_k400_n1000", G5_EBNO_DB)
+            log(f"phase 8: {name} BLER {got_bler:.5f}; must not exceed the "
+                f"CA-SCL-8 yardstick {want:.5f}")
+            if got_bler > want:
+                raise AssertionError(f"{name} BLER {got_bler} is above "
+                                     f"{want}")
+            continue
+        want = yardstick(key, G5_EBNO_DB)
+        # about 4 sigma of the two binomial samples combined
+        tol = 4.0 * np.sqrt(want * (1.0 - want)
+                            * (1.0 / row["num_blocks"] + 1.0 / key_blocks))
+        log(f"phase 8: {name} BLER {got_bler:.5f}; yardstick {key} "
+            f"{want:.5f} +- {tol:.5f}")
+        if abs(got_bler - want) > tol:
+            raise AssertionError(f"{name} BLER {got_bler} is off the "
+                                 f"yardstick {want}")
+    for label, key, L in (("CA-SCL-8", "traced", 8),
+                          ("CA-SCL-32", "wide", 32)):
+        t = scl_times[key]
+        log(f"phase 8: scl_subtree per {label} decode: {t['ms']:.3f} ms over "
+            f"{len(traced_calls[L])} launches; plain {t['plain_ms']:.3f} ms; "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}) [{card}]")
+
+    def entry(name, source, replaces, launches, c, times):
+        return dict(name=name, route="cuda", source=source,
+                    replaces=replaces, launches=launches,
+                    max_abs_err=c.max_abs, mismatch_blocks=c.n_bad,
+                    checked_blocks=c.n_blocks, **times, library_ms=None)
+
+    scl_src, pallas = ("polar_torch/csrc/scl_subtree.cu",
+                       "polar_tpu/models/polar/pallas_scl.py")
+    g5_total = {k: sum(run[k] for run in g5_counts.values())
+                for k in ("scl_subtree traced", "scl_subtree wide")}
+    kernels = [
+        entry("scl_subtree", scl_src, f"{pallas}:142", launches, check,
+              scl_times["static"]),
+        entry("scl_subtree L=16/32", scl_src, f"{pallas}:515",
+              g5_total["scl_subtree wide"], check_wide, scl_times["wide"]),
+        entry("scl_subtree traced", scl_src, f"{pallas}:407",
+              g5_total["scl_subtree traced"], check_traced,
+              scl_times["traced"]),
+        entry("sc_subtree", "polar_torch/csrc/sc_subtree.cu",
+              f"{pallas}:832", cli_launches["sc_subtree"], sc_check,
+              dict(ms=sc_kernel_ms, plain_ms=sc_plain_ms, bound_ms=sc_bound,
+                   bound_by=sc_bound_by)),
+    ]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}; main path {info_bps:.6g} info bit/s, "
           f"{step_s * 1e3:.3f} ms per step")

@@ -1,17 +1,21 @@
 """polar_torch: the PyTorch and CUDA port of polar_tpu.
 
-It carries two paths:
+It carries three paths:
 
 * the SCL-8 fast-SCL chain: binary source -> polar encoder on a 5G-ranked
   code -> QPSK mapper -> AWGN -> exact demapper -> fast-SCL list decoder
   (rate-0, repetition, rate-1 and optional SPC nodes) -> error counters;
 * the CLI sweep (``python -m polar_torch.main``): BER/BLER curves of the SC
   decoder against the SCL decoder (the plain sweep from n = 256 up) through
-  the Monte-Carlo harness ``sim_ber`` and ``PlotBER``.
+  the Monte-Carlo harness ``sim_ber`` and ``PlotBER``;
+* the 5G NR CA-SCL chain: ``Polar5GEncoder`` (CRC, rate matching, PC bits)
+  -> QPSK -> AWGN -> demapper -> ``Polar5GDecoder`` (SC, CA-SCL or hybrid
+  SC/CA-SCL, lists of up to 32) -> CRC check.
 
 The decoders' subtrees run in hand-written CUDA kernels on the card
-(``models/polar/cuda_scl.py`` with ``csrc/scl_subtree.cu`` for SCL,
-``models/polar/cuda_sc.py`` with ``csrc/sc_subtree.cu`` for SC).
+(``models/polar/cuda_scl.py`` with ``csrc/scl_subtree.cu`` for SCL, static
+and traced forms, L up to 32; ``models/polar/cuda_sc.py`` with
+``csrc/sc_subtree.cu`` for SC).
 
 Entry points run on ``device="cuda"`` by default and raise when no card is
 present; pass ``device="cpu"`` to run the plain PyTorch versions.
@@ -24,9 +28,12 @@ from polar_torch.ops.mapping import (Constellation, Demapper, Mapper,
 from polar_torch.ops.channels import AWGN, complex_normal
 from polar_torch.models.polar.construction import (
     ARIKAN_F2, generate_5g_ranking, get_kern_frozen_bits, info_positions)
-from polar_torch.models.polar.encode import PolarEncoder
+from polar_torch.models.polar.encode import Polar5GEncoder, PolarEncoder
 from polar_torch.models.polar.sc import PolarSCDecoder
 from polar_torch.models.polar.scl import PolarSCLDecoder
+from polar_torch.models.polar.hybrid import HybridSCLDecoder
+from polar_torch.models.polar.decode5g import Polar5GDecoder
+from polar_torch.ops.crc import CRCDecoder, CRCEncoder
 from polar_torch.models.systems import SystemAWGNModel
 from polar_torch.sim import count_block_errors, count_errors, sim_ber
 from polar_torch.plotting import PlotBER
@@ -37,7 +44,9 @@ __all__ = [
     "ebnodb2no", "binary_source", "Constellation", "Demapper", "Mapper",
     "SymbolLogits2LLRs", "AWGN", "complex_normal", "ARIKAN_F2",
     "generate_5g_ranking", "get_kern_frozen_bits", "info_positions",
-    "PolarEncoder", "PolarSCDecoder", "PolarSCLDecoder", "SystemAWGNModel",
+    "PolarEncoder", "Polar5GEncoder", "PolarSCDecoder", "PolarSCLDecoder",
+    "HybridSCLDecoder", "Polar5GDecoder", "CRCEncoder", "CRCDecoder",
+    "SystemAWGNModel",
     "count_block_errors", "count_errors", "sim_ber", "PlotBER",
     "PolarConfig", "from_numpy_state",
 ]

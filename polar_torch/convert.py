@@ -7,7 +7,8 @@ and scalars, so both packages decode the same code.
 
 import numpy as np
 
-from polar_torch.models.polar.encode import PolarEncoder
+from polar_torch.models.polar.decode5g import Polar5GDecoder
+from polar_torch.models.polar.encode import Polar5GEncoder, PolarEncoder
 from polar_torch.models.polar.sc import PolarSCDecoder
 from polar_torch.models.polar.scl import PolarSCLDecoder
 from polar_torch.models.systems import SystemAWGNModel
@@ -15,10 +16,21 @@ from polar_torch.models.systems import SystemAWGNModel
 
 def from_numpy_state(state: dict, device=None) -> SystemAWGNModel:
     """``SystemAWGNModel`` (with its ``encoder`` and ``decoder``) from
-    ``state`` keys ``frozen_pos``, ``n``, ``k``, ``mode``, ``llr_max`` and
-    ``decoder`` (``"scl"``, the default, or ``"sc"``). An SCL decoder also
-    reads ``list_size``, ``use_fast_scl`` (None or absent: the decoder's
-    default by n), ``fast_rate1`` and ``spc_min_stage`` (None: no SPC)."""
+    ``state``.
+
+    A code given by its frozen set (``code`` absent or ``"polar"``) reads
+    ``frozen_pos``, ``n``, ``k``, ``mode``, ``llr_max`` and ``decoder``
+    (``"scl"``, the default, or ``"sc"``). An SCL decoder also reads
+    ``list_size``, ``use_fast_scl`` (None or absent: the decoder's default
+    by n), ``fast_rate1`` and ``spc_min_stage`` (None: no SPC).
+
+    A 5G NR code (``code="5g"``) reads ``k`` and ``n`` (the rate-matched
+    targets), ``channel_type``, ``enable_pc``, ``dec_type`` (``"SC"``,
+    ``"SCL"`` or ``"hybSCL"``), ``list_size``, ``mode`` and
+    ``use_fast_scl``. The port builds the code itself; a ``frozen_pos``
+    given beside them must equal the port's mother-code frozen set."""
+    if state.get("code", "polar") == "5g":
+        return _from_5g_state(state, device)
     frozen = np.asarray(state["frozen_pos"], dtype=np.int64)
     n, k = int(state["n"]), int(state["k"])
     if n - len(frozen) != k:
@@ -40,4 +52,23 @@ def from_numpy_state(state: dict, device=None) -> SystemAWGNModel:
             spc_min_stage=None if spc is None else int(spc), **common)
     else:
         raise ValueError(f"unknown decoder {kind!r}: 'sc' or 'scl'")
+    return SystemAWGNModel(n, k, encoder, decoder)
+
+
+def _from_5g_state(state: dict, device) -> SystemAWGNModel:
+    k, n = int(state["k"]), int(state["n"])
+    encoder = Polar5GEncoder(
+        k, n, channel_type=state.get("channel_type", "uplink"),
+        enable_pc=bool(state.get("enable_pc", True)), device=device)
+    if state.get("frozen_pos") is not None:
+        want = np.asarray(state["frozen_pos"], dtype=np.int64)
+        if not np.array_equal(np.sort(want), encoder.frozen_pos):
+            raise ValueError(f"frozen_pos differs from the port's 5G "
+                             f"construction of k={k}, n={n}")
+    fast = state.get("use_fast_scl")
+    decoder = Polar5GDecoder(
+        encoder, dec_type=state.get("dec_type", "SCL"),
+        list_size=int(state.get("list_size", 8)),
+        mode=state.get("mode", "minsum"),
+        use_fast_scl=None if fast is None else bool(fast))
     return SystemAWGNModel(n, k, encoder, decoder)

@@ -4,10 +4,16 @@
 // PyTorch version.
 //
 // Contract (polar_torch/models/polar/cuda_scl.py, scl_subtree): given the
-// stage-b LLRs a [2^b, L, bs], the path metrics pm [L, bs] and a static op
+// stage-b LLRs a [2^b, L, bs], the path metrics pm [L, bs] and an op
 // schedule (kind, stage, lo) of one 2^b-leaf subtree, return the subtree's
 // per-path codeword cw [2^b, L, bs] int32, the parent map P [L, bs] (output
 // logical path -> input path) and the updated path metrics.
+//
+// Two forms share one routine. The static form's schedule fixes the frozen
+// set (ops z/r/o/s/f/i). The traced form has one 't' leaf per leaf and reads
+// the frozen flags at run time from frz [2^b] int32; the flag is the same
+// for every codeword of a launch, so the branch is uniform, and a frozen
+// 't' leaf pays only its path-metric update, as an 'f' leaf does.
 //
 // Design:
 // * every array is batch-minor [row, L, bs], so neighbouring threads
@@ -16,11 +22,13 @@
 //   (stage s at row 2^s - 1): lloc f32 LLR segments and uloc int8 partial
 //   sums, stages 0..b-1; stage b is read straight from the input a;
 // * forks copy no workspace rows. Each stage has a path pointer (logical
-//   path -> physical row slot), packed as L <= 8 nibbles in one uint32;
-//   a fork composes the pointers that are still live (liveness rules of
-//   _lptr_live / _uptr_live) and every read goes through its stage pointer;
+//   path -> physical row slot): L <= 8 nibbles in one uint32, or for
+//   L = 16, 32 one byte per path. A fork composes the pointers that are
+//   still live (liveness rules of _lptr_live / _uptr_live) and every read
+//   goes through its stage pointer;
 // * top-L of 2L candidates is L rounds of minimum, ties to the lower
 //   candidate index; rate-1 / SPC reliability order ties to the lower row.
+//   Per-path flags (flips, SPC toggles) are bits of one uint32 (L <= 32).
 #pragma once
 
 #include "fg.cuh"
@@ -28,10 +36,10 @@
 namespace polar_torch {
 
 // op kinds of the schedule table [n_ops, 3] = (kind, stage, lo)
-enum OpKind { OP_Z = 0, OP_R = 1, OP_O = 2, OP_S = 3, OP_F = 4, OP_I = 5 };
+enum OpKind { OP_Z = 0, OP_R = 1, OP_O = 2, OP_S = 3, OP_F = 4, OP_I = 5,
+              OP_T = 6 };
 
 constexpr int kMaxB = 12;          // subtree depth limit (n <= 4096)
-constexpr int kMaxL = 8;           // nibble-packed path pointers
 constexpr uint32_t kIdent = 0x76543210u;
 
 struct SubtreeArgs {
@@ -39,6 +47,7 @@ struct SubtreeArgs {
   long long a_row_stride;  // elements
   long long a_l_stride;    // elements (0 for a broadcast over paths)
   const float* pm_in;      // [L, bs]
+  const int32_t* frz;      // [2^b] (read by 't' ops only; may be null)
   const int32_t* sched;    // [n_ops, 3]
   int n_ops;
   int32_t* cw;             // [2^b, L, bs]
@@ -52,23 +61,46 @@ struct SubtreeArgs {
   int exact;               // 1: exact boxplus f, 0: min-sum f
 };
 
-PT_HD PT_INLINE int nib(uint32_t p, int l) { return (p >> (4 * l)) & 0xF; }
+// A path pointer: slot l holds the physical row of logical path l.
+// blank() gives a pointer whose every slot is about to be put().
+template <int L, bool kNibbles = (L <= 8)>
+struct PathPtr {           // L = 16, 32: one byte per path
+  uint8_t v[L];
+  PT_HD PT_INLINE int operator[](int l) const { return v[l]; }
+  PT_HD PT_INLINE void put(int l, int p) { v[l] = (uint8_t)p; }
+  static PT_HD PT_INLINE PathPtr blank() { return PathPtr(); }
+  static PT_HD PT_INLINE PathPtr ident() {
+    PathPtr p;
+    for (int l = 0; l < L; ++l) p.v[l] = (uint8_t)l;
+    return p;
+  }
+};
+
+template <int L>
+struct PathPtr<L, true> {  // L <= 8: nibbles of one uint32
+  uint32_t v;
+  PT_HD PT_INLINE int operator[](int l) const { return (v >> (4 * l)) & 0xF; }
+  PT_HD PT_INLINE void put(int l, int p) { v |= (uint32_t)p << (4 * l); }
+  static PT_HD PT_INLINE PathPtr blank() { return PathPtr{0u}; }
+  static PT_HD PT_INLINE PathPtr ident() { return PathPtr{kIdent}; }
+};
 
 // new[l] = p[parent[l]]
 template <int L>
-PT_HD PT_INLINE uint32_t compose(uint32_t p, uint32_t parent) {
-  uint32_t r = 0;
+PT_HD PT_INLINE PathPtr<L> compose(const PathPtr<L>& p,
+                                   const PathPtr<L>& parent) {
+  PathPtr<L> r = PathPtr<L>::blank();
 #pragma unroll
-  for (int l = 0; l < L; ++l) r |= (uint32_t)nib(p, nib(parent, l)) << (4 * l);
+  for (int l = 0; l < L; ++l) r.put(l, p[parent[l]]);
   return r;
 }
 
 // bit l of the result = bit parent[l] of m (a per-path flag follows its path)
 template <int L>
-PT_HD PT_INLINE uint32_t permute_bits(uint32_t m, uint32_t parent) {
+PT_HD PT_INLINE uint32_t permute_bits(uint32_t m, const PathPtr<L>& parent) {
   uint32_t r = 0;
 #pragma unroll
-  for (int l = 0; l < L; ++l) r |= ((m >> nib(parent, l)) & 1u) << l;
+  for (int l = 0; l < L; ++l) r |= ((m >> parent[l]) & 1u) << l;
   return r;
 }
 
@@ -106,11 +138,17 @@ struct Column {
   }
 };
 
-// top-L of the 2L candidates: L rounds of minimum, ties to the lower index
+// a set of the 2L candidates of a fork
+template <bool kWide> struct CandSet { using type = uint32_t; };
+template <> struct CandSet<true> { using type = uint64_t; };
+
+// top-L of the 2L candidates: L rounds of minimum, ties to the lower index.
+// L <= 8 unrolls both loops; L = 16, 32 only the inner one.
 template <int L>
 PT_HD PT_INLINE void top_l(const float* cand, float* pm, int* sel) {
-  uint32_t taken = 0;
-#pragma unroll
+  using Set = typename CandSet<(2 * L > 32)>::type;
+  Set taken = 0;
+#pragma unroll (L <= 8 ? L : 1)
   for (int r = 0; r < L; ++r) {
     int bi = -1;
     float best = 0.0f;
@@ -123,34 +161,46 @@ PT_HD PT_INLINE void top_l(const float* cand, float* pm, int* sel) {
     }
     pm[r] = best;
     sel[r] = bi;
-    taken |= 1u << bi;
+    taken |= (Set)1 << bi;
   }
+}
+
+// the parent pointer of a fork's survivors
+template <int L>
+PT_HD PT_INLINE PathPtr<L> parents_of(const int* sel) {
+  PathPtr<L> par = PathPtr<L>::blank();
+  for (int l = 0; l < L; ++l) par.put(l, sel[l] % L);
+  return par;
 }
 
 template <int L>
 PT_HD void subtree_column(const SubtreeArgs& A, int col) {
+  using Ptr = PathPtr<L>;
+  constexpr int kRank = L > 8 ? L : 8;   // rows of the rate-1 / SPC state
   const Column<L> C{A, col};
   const int b = A.b;
   const float m = A.llr_max;
   float pm[L];
   for (int l = 0; l < L; ++l) pm[l] = A.pm_in[(size_t)l * A.bs + col];
-  uint32_t lptr[kMaxB + 1];   // stages 0..b (b = input)
-  uint32_t uptr[kMaxB];       // stages 0..b-1
-  for (int s = 0; s <= b; ++s) lptr[s] = kIdent;
-  for (int s = 0; s < b; ++s) uptr[s] = kIdent;
-  uint32_t P = kIdent;
+  Ptr lptr[kMaxB + 1];        // stages 0..b (b = input)
+  Ptr uptr[kMaxB];            // stages 0..b-1
+  for (int s = 0; s <= b; ++s) lptr[s] = Ptr::ident();
+  for (int s = 0; s < b; ++s) uptr[s] = Ptr::ident();
+  Ptr P = Ptr::ident();
 
   float cand[2 * L];
   int sel[L];
   // rate-1 / SPC node state: reliability order per node-entry path
-  float svals[kMaxL][kMaxL];
-  int srows[kMaxL][kMaxL];
-  uint32_t flips[kMaxL];
+  float svals[kRank][kRank];
+  int srows[kRank][kRank];
+  uint32_t flips[kRank];
 
   for (int op = 0; op < A.n_ops; ++op) {
-    const int kind = A.sched[3 * op];
+    int kind = A.sched[3 * op];
     const int s_nd = A.sched[3 * op + 1];
     const int lo = A.sched[3 * op + 2];
+    // traced leaf: frozen or info by the run-time flag (uniform branch)
+    if (kind == OP_T) kind = A.frz[lo] != 0 ? OP_F : OP_I;
     const int w = 1 << s_nd;
     const int i_end = lo + w - 1;
 
@@ -163,26 +213,26 @@ PT_HD void subtree_column(const SubtreeArgs& A, int col) {
       const int d = ctz(lo);
       const int h = 1 << d;
       for (int l = 0; l < L; ++l) {
-        const int p = nib(lptr[d + 1], l);
-        const int q = nib(uptr[d], l);
+        const int p = lptr[d + 1][l];
+        const int q = uptr[d][l];
         for (int j = 0; j < h; ++j)
           C.lwrite(d, j, l, g_op(C.lread(d + 1, j, p), C.lread(d + 1, j + h, p),
                                  C.uread(d, j, q)));
       }
-      lptr[d] = kIdent;
+      lptr[d] = Ptr::ident();
       s_top = d;
     }
     for (int s = s_top; s > s_nd; --s) {
       const int h = 1 << (s - 1);
       for (int l = 0; l < L; ++l) {
-        const int p = nib(lptr[s], l);
+        const int p = lptr[s][l];
         for (int j = 0; j < h; ++j)
           C.lwrite(s - 1, j, l, f_op(C.lread(s, j, p), C.lread(s, j + h, p), m, A.exact));
       }
-      lptr[s - 1] = kIdent;
+      lptr[s - 1] = Ptr::ident();
     }
-    // node values of node-entry path q: C.lread(s_nd, j, nib(node_ptr, q))
-    const uint32_t node_ptr = lptr[s_nd];
+    // node values of node-entry path q: C.lread(s_nd, j, node_ptr[q])
+    const Ptr node_ptr = lptr[s_nd];
 
     // ---- node ----
     // the node's partial sums go to the tail of the rise destination
@@ -201,11 +251,11 @@ PT_HD void subtree_column(const SubtreeArgs& A, int col) {
     };
 
     bool forked = false;
-    uint32_t qn = kIdent;   // node-local composition of the node's forks
+    Ptr qn = Ptr::ident();   // node-local composition of the node's forks
     if (kind == OP_F || kind == OP_Z) {
       // frozen leaf / rate-0 node: bulk PM update, all-zero partial sums
       for (int l = 0; l < L; ++l) {
-        const int p = nib(node_ptr, l);
+        const int p = node_ptr[l];
         float acc = 0.0f;
         for (int j = 0; j < w; ++j) acc += softplus(-clipf(C.lread(s_nd, j, p), m));
         pm[l] = pm[l] + acc;
@@ -214,7 +264,7 @@ PT_HD void subtree_column(const SubtreeArgs& A, int col) {
     } else if (kind == OP_R || kind == OP_I) {
       // repetition node / info leaf: one fork for the (repeated) bit
       for (int l = 0; l < L; ++l) {
-        const int p = nib(node_ptr, l);
+        const int p = node_ptr[l];
         if (kind == OP_I) {
           const float v = clipf(C.lread(s_nd, 0, p), m);
           cand[l] = pm[l] + softplus(-v);
@@ -231,9 +281,7 @@ PT_HD void subtree_column(const SubtreeArgs& A, int col) {
         }
       }
       top_l<L>(cand, pm, sel);
-      uint32_t par = 0;
-      for (int l = 0; l < L; ++l) par |= (uint32_t)(sel[l] % L) << (4 * l);
-      qn = par;
+      qn = parents_of<L>(sel);
       forked = true;
       for (int l = 0; l < L; ++l) {
         const int bit = sel[l] / L;
@@ -247,7 +295,7 @@ PT_HD void subtree_column(const SubtreeArgs& A, int col) {
       const bool small = !spc && w <= L - 1;   // row-order forks, no sort
       uint32_t e = 0;                          // SPC toggle state per path
       for (int l = 0; l < L; ++l) {
-        const int p = nib(node_ptr, l);
+        const int p = node_ptr[l];
         float acc = 0.0f;
         int par = 0;
         for (int j = 0; j < w; ++j) {
@@ -286,10 +334,10 @@ PT_HD void subtree_column(const SubtreeArgs& A, int col) {
       }
       for (int t = spc ? 1 : 0; t < theta; ++t) {
         for (int l = 0; l < L; ++l) {
-          const int q = nib(qn, l);
+          const int q = qn[l];
           float pen;
           if (small) {
-            pen = fabsf(clipf(C.lread(s_nd, t, nib(node_ptr, q)), m));
+            pen = fabsf(clipf(C.lread(s_nd, t, node_ptr[q]), m));
           } else if (spc) {
             const float v0 = svals[0][q];
             pen = ((e >> l) & 1u) ? svals[t][q] - v0 : svals[t][q] + v0;
@@ -300,11 +348,9 @@ PT_HD void subtree_column(const SubtreeArgs& A, int col) {
           cand[L + l] = pm[l] + pen;
         }
         top_l<L>(cand, pm, sel);
-        uint32_t par = 0, flip = 0;
-        for (int l = 0; l < L; ++l) {
-          par |= (uint32_t)(sel[l] % L) << (4 * l);
-          flip |= (uint32_t)(sel[l] / L) << l;
-        }
+        const Ptr par = parents_of<L>(sel);
+        uint32_t flip = 0;
+        for (int l = 0; l < L; ++l) flip |= (uint32_t)(sel[l] / L) << l;
         qn = compose<L>(qn, par);
         for (int u = spc ? 1 : 0; u < t; ++u) flips[u] = permute_bits<L>(flips[u], par);
         flips[t] = flip;
@@ -318,8 +364,8 @@ PT_HD void subtree_column(const SubtreeArgs& A, int col) {
       // codeword of output path l: node-entry path q's hard decisions with
       // the surviving flips applied (rows read through the final q)
       for (int l = 0; l < L; ++l) {
-        const int q = nib(qn, l);
-        const int p = nib(node_ptr, q);
+        const int q = qn[l];
+        const int p = node_ptr[q];
         for (int j = 0; j < w; ++j) {
           int c = C.lread(s_nd, j, p) < 0.0f;
           for (int t = spc ? 1 : 0; t < theta; ++t) {
@@ -344,14 +390,14 @@ PT_HD void subtree_column(const SubtreeArgs& A, int col) {
       const int h = 1 << s;
       const int base = Wd - 2 * h;
       for (int l = 0; l < L; ++l) {
-        const int q = nib(uptr[s], l);
+        const int q = uptr[s][l];
         for (int j = 0; j < h; ++j) put(base + j, l, C.uread(s, j, q) ^ get(base + h + j, l));
       }
     }
-    if (r < b) uptr[r] = kIdent;
+    if (r < b) uptr[r] = Ptr::ident();
   }
   for (int l = 0; l < L; ++l) {
-    A.p_out[(size_t)l * A.bs + col] = nib(P, l);
+    A.p_out[(size_t)l * A.bs + col] = P[l];
     A.pm_out[(size_t)l * A.bs + col] = pm[l];
   }
 }

@@ -26,6 +26,14 @@ def generate_5g_ranking(k: int, n: int, sort: bool = True,
     return [frozen_pos, info_pos]
 
 
+def as_host_positions(positions) -> np.ndarray:
+    """A frozen set (or any position list) as a host int64 array; a tensor
+    is copied to the host, as the JAX package's ``np.asarray`` does."""
+    if hasattr(positions, "detach"):
+        positions = positions.detach().cpu().numpy()
+    return np.asarray(positions, dtype=np.int64)
+
+
 def info_positions(frozen_pos, n: int) -> np.ndarray:
     """Complement of ``frozen_pos`` in ``range(n)``."""
     return np.setdiff1d(np.arange(n), np.asarray(frozen_pos, dtype=np.int64))

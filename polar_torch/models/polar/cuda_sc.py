@@ -32,8 +32,9 @@ import ctypes
 import torch
 
 from polar_torch import _build
+# traced_schedule is shared with the SCL kernel and re-exported here
 from polar_torch.models.polar.cuda_scl import (MAX_B, SubtreeSchedule, _ctz,
-                                               _cto)
+                                               _cto, traced_schedule)
 from polar_torch.ops.fg import F_FUNCTIONS, f_exact, g as g_op
 
 # op codes of csrc/sc_subtree.cuh (z/f/i as in the SCL kernel's table)
@@ -43,11 +44,6 @@ SC_KIND_CODES = {"z": 0, "f": 4, "i": 5, "t": 6}
 def sc_schedule(ops, device) -> SubtreeSchedule:
     """An SC subtree's ops (kinds z/f/i/t) as a ``SubtreeSchedule``."""
     return SubtreeSchedule(ops, device, codes=SC_KIND_CODES)
-
-
-def traced_schedule(b: int):
-    """The traced form's ops: one ``'t'`` leaf per leaf of the subtree."""
-    return tuple(("t", 0, i) for i in range(1 << b))
 
 
 # ----------------------------------------------------------------------
@@ -107,7 +103,7 @@ def _native_call(fn, a, frz, sched, b, llr_max, mode, stream):
     if sched.table.device != a.device:
         raise ValueError("a and the schedule table must share a device")
     frz_ptr = None
-    if any(k == "t" for k, _, _ in sched.ops):
+    if sched.traced:
         if (frz is None or frz.dtype != torch.int32
                 or tuple(frz.shape) != (w,) or frz.device != a.device):
             raise ValueError(f"'t' ops need frz, an int32 [{w}] tensor on "

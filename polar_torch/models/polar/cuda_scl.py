@@ -4,14 +4,26 @@ host build, and its plain PyTorch version.
 One call decodes one 2^b-leaf subtree of the fast-SCL sweep
 (``scan_core.scl_sweep_hybrid_fast``) for every codeword of the batch:
 given the stage-b LLRs ``a`` [2^b, L, bs] f32, the path metrics ``pm``
-[L, bs] f32 and the subtree's static op schedule (``'z'`` rate-0, ``'r'``
-repetition, ``'o'`` rate-1, ``'s'`` SPC, ``'f'``/``'i'`` frozen/info leaf),
-it returns the per-path codeword ``cw`` [2^b, L, bs] int32, the parent map
-``P`` [L, bs] int32 (output path -> input path) and the new path metrics.
+[L, bs] f32 and the subtree's op schedule, it returns the per-path codeword
+``cw`` [2^b, L, bs] int32, the parent map ``P`` [L, bs] int32 (output path
+-> input path) and the new path metrics. L is 1, 2, 4, 8, 16 or 32.
+
+The schedule comes in two forms:
+
+* static: ``'z'`` rate-0, ``'r'`` repetition, ``'o'`` rate-1, ``'s'`` SPC
+  and ``'f'``/``'i'`` frozen/info leaf ops, which fix the frozen set;
+* traced (``traced_schedule``): one ``'t'`` leaf per leaf, whose frozen
+  flag is read at run time from ``frz`` [2^b] int32. One schedule then
+  serves every subtree of a sweep. The kernel branches on the flag (it is
+  the same for the whole launch), so a frozen ``'t'`` leaf pays only its
+  path-metric update; the plain version computes the fork and selects, as
+  the JAX package's branchless form does. Both equal the static form.
 
 * ``scl_subtree`` is the wrapper the sweep calls. A CUDA tensor goes through
   the kernel (``csrc/scl_subtree.cu``), a CPU tensor through the plain
-  version; nothing falls back from one to the other.
+  version; nothing falls back from one to the other. It counts its
+  launches in ``launches``, and of those the traced ones in
+  ``launches_traced`` and those at L > 8 in ``launches_wide``.
 * ``scl_subtree_plain`` repeats the computation with whole-buffer gathers:
   a fork physically re-orders the workspaces. The kernel instead composes
   per-stage path pointers lazily, pruned by ``_lptr_live`` / ``_uptr_live``;
@@ -35,9 +47,14 @@ from polar_torch import _build
 from polar_torch.ops.fg import (F_FUNCTIONS, _clip, f_exact, g as g_op,
                                 softplus)
 
-KIND_CODES = {"z": 0, "r": 1, "o": 2, "s": 3, "f": 4, "i": 5}
+KIND_CODES = {"z": 0, "r": 1, "o": 2, "s": 3, "f": 4, "i": 5, "t": 6}
 MAX_B = 12          # kMaxB in csrc/scl_subtree.cuh
-LIST_SIZES = (1, 2, 4, 8)
+LIST_SIZES = (1, 2, 4, 8, 16, 32)
+
+
+def traced_schedule(b: int):
+    """The traced form's ops: one ``'t'`` leaf per leaf of the subtree."""
+    return tuple(("t", 0, i) for i in range(1 << b))
 
 
 def _ctz(i: int) -> int:
@@ -69,7 +86,8 @@ class SubtreeSchedule:
     """One subtree's op list: ``ops`` for the plain version and ``table``,
     its int32 [n_ops, 3] encoding (kind, stage, lo) on ``device``; ``codes``
     maps the kinds a kernel takes to their codes. ``span`` is the number of
-    leaves the ops cover, which the wrappers hold against 2^b."""
+    leaves the ops cover, which the wrappers hold against 2^b; ``traced``
+    says whether any op reads the run-time frozen flags (``'t'``)."""
 
     def __init__(self, ops, device, codes=KIND_CODES):
         self.ops = tuple((str(k), int(s), int(lo)) for k, s, lo in ops)
@@ -77,6 +95,7 @@ class SubtreeSchedule:
         if bad:
             raise ValueError(f"op kinds {bad} not in {sorted(codes)}")
         self.span = max((lo + (1 << s) for _, s, lo in self.ops), default=0)
+        self.traced = any(k == "t" for k, _, _ in self.ops)
         self.table = torch.tensor(
             [[codes[k], s, lo] for k, s, lo in self.ops],
             dtype=torch.int32, device=device).reshape(-1, 3)
@@ -86,45 +105,50 @@ class SubtreeSchedule:
 # the wrapper
 # ----------------------------------------------------------------------
 def scl_subtree(a, pm, sched: SubtreeSchedule, *, b: int, llr_max: float,
-                mode: str):
-    """Decode one subtree; see the module docstring. CUDA tensors launch
-    the kernel, CPU tensors run ``scl_subtree_plain``."""
+                mode: str, frz=None):
+    """Decode one subtree; see the module docstring. ``frz`` is None
+    unless the schedule has ``'t'`` ops. CUDA tensors launch the kernel,
+    CPU tensors run ``scl_subtree_plain``."""
     if a.device.type == "cpu":
         return scl_subtree_plain(a, pm, sched.ops, b=b, llr_max=llr_max,
-                                 mode=mode)
+                                 mode=mode, frz=frz)
     if a.device.type != "cuda":
         raise ValueError(f"scl_subtree: unsupported device {a.device}")
     lib = _build.load("scl_subtree", "cuda")
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        out = _native_call(lib.scl_subtree_launch, a, pm, sched, b, llr_max,
-                           mode, stream)
+        out = _native_call(lib.scl_subtree_launch, a, pm, frz, sched, b,
+                           llr_max, mode, stream)
         scl_subtree.launches += 1
+        scl_subtree.launches_traced += sched.traced
+        scl_subtree.launches_wide += a.shape[1] > 8
     return out
 
 
 scl_subtree.launches = 0
+scl_subtree.launches_traced = 0
+scl_subtree.launches_wide = 0
 
 
 def scl_subtree_host(a, pm, sched: SubtreeSchedule, *, b: int,
-                     llr_max: float, mode: str):
+                     llr_max: float, mode: str, frz=None):
     """The kernel's per-codeword routine built for the CPU (g++); CPU
     tensors only. For tests: the main path never calls it."""
     if a.device.type != "cpu":
         raise ValueError("scl_subtree_host takes CPU tensors")
     lib = _build.load("scl_subtree", "host")
-    return _native_call(lib.scl_subtree_host, a, pm, sched, b, llr_max,
-                        mode, None)
+    return _native_call(lib.scl_subtree_host, a, pm, frz, sched, b,
+                        llr_max, mode, None)
 
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_float, ctypes.c_int]
 
 
-def _native_call(fn, a, pm, sched, b, llr_max, mode, stream):
+def _native_call(fn, a, pm, frz, sched, b, llr_max, mode, stream):
     w, L, bs = a.shape
     if a.dtype != torch.float32 or pm.dtype != torch.float32:
         raise TypeError("scl_subtree takes f32 LLRs and path metrics")
@@ -143,6 +167,14 @@ def _native_call(fn, a, pm, sched, b, llr_max, mode, stream):
     table = sched.table
     if table.device != a.device or pm.device != a.device:
         raise ValueError("a, pm and the schedule table must share a device")
+    frz_ptr = None
+    if sched.traced:
+        if (frz is None or frz.dtype != torch.int32
+                or tuple(frz.shape) != (w,) or frz.device != a.device):
+            raise ValueError(f"'t' ops need frz, an int32 [{w}] tensor on "
+                             f"{a.device}")
+        frz = frz.contiguous()
+        frz_ptr = frz.data_ptr()
     pm = pm.contiguous()
     dev = a.device
     cw = torch.empty((w, L, bs), dtype=torch.int32, device=dev)
@@ -154,7 +186,7 @@ def _native_call(fn, a, pm, sched, b, llr_max, mode, stream):
         fn.argtypes = _ARGTYPES + ([] if stream is None
                                    else [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    args = [a.data_ptr(), a.stride(0), a.stride(1), pm.data_ptr(),
+    args = [a.data_ptr(), a.stride(0), a.stride(1), pm.data_ptr(), frz_ptr,
             table.data_ptr(), table.shape[0], cw.data_ptr(), P.data_ptr(),
             pm_out.data_ptr(), lloc.data_ptr(), uloc.data_ptr(), b, L, bs,
             float(llr_max), int(F_FUNCTIONS[mode] is f_exact)]
@@ -255,10 +287,14 @@ def _flip_forks(pm, cur, llr_max, spc, fork, row_sum=_row_sum):
     return pm, c ^ fm, qn
 
 
-def scl_subtree_plain(a, pm, ops, *, b: int, llr_max: float, mode: str):
+def scl_subtree_plain(a, pm, ops, *, b: int, llr_max: float, mode: str,
+                      frz=None):
     """Plain PyTorch subtree decode on any device; ``ops`` is the op list
-    of a ``SubtreeSchedule``. Forks re-order whole workspaces, and the
-    stage-b input rides the packed LLR buffer so forks reach it too."""
+    of a ``SubtreeSchedule`` (``frz`` as for ``scl_subtree``). Forks
+    re-order whole workspaces, and the stage-b input rides the packed LLR
+    buffer so forks reach it too. A ``'t'`` leaf computes the fork and
+    selects, on its frozen flag, between it and the frozen leaf's update,
+    without a host sync."""
     f = F_FUNCTIONS[mode]
     w_sub, L, bs = a.shape
     dev = a.device
@@ -307,6 +343,15 @@ def scl_subtree_plain(a, pm, ops, *, b: int, llr_max: float, mode: str):
         elif kind in ("r", "i"):
             pm, parent, bit = _rep_fork(pm, cur, llr_max)
             ubit = bit[None].expand(w_nd, L, bs)
+            fork(parent)
+        elif kind == "t":
+            frozen = frz[lo] != 0
+            pm_f = pm + _row_sum(softplus(-_clip(cur, llr_max)))
+            pm_i, parent, bit = _rep_fork(pm, cur, llr_max)
+            pm = torch.where(frozen, pm_f, pm_i)
+            ident = torch.arange(L, device=dev)[:, None].expand(L, bs)
+            parent = torch.where(frozen, ident, parent)
+            ubit = torch.where(frozen, torch.zeros_like(bit), bit)[None]
             fork(parent)
         else:
             raise ValueError(f"unknown op kind {kind!r}")

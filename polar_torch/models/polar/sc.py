@@ -13,7 +13,8 @@ import numpy as np
 import torch
 
 from polar_torch._device import resolve_device
-from polar_torch.models.polar.construction import info_positions
+from polar_torch.models.polar.construction import (as_host_positions,
+                                                    info_positions)
 from polar_torch.models.polar.cuda_scl import MAX_B
 from polar_torch.models.polar.scan_core import (
     DEFAULT_SC_LOWER_STAGES, plan_sc_sweep, resolve_lower_stages,
@@ -21,6 +22,10 @@ from polar_torch.models.polar.scan_core import (
 from polar_torch.ops.fg import F_FUNCTIONS
 
 SCHEDULES = ("auto", "unrolled", "scan")
+# PC-aided decoding runs in the JAX package only on its unrolled trees,
+# which the port does not have
+PC_NOT_PORTED = ("pc_pos (PC-aided decoding) is not ported yet (ROADMAP "
+                 "Queue 1 item 21)")
 
 
 class PolarSCDecoder:
@@ -36,8 +41,7 @@ class PolarSCDecoder:
                  pc_pos=None, output_dtype=torch.float32,
                  lower_stages=None, device=None):
         if pc_pos is not None:
-            raise NotImplementedError("PolarSCDecoder: pc_pos is not ported "
-                                      "yet (ROADMAP Queue 1 item 10)")
+            raise NotImplementedError(f"PolarSCDecoder: {PC_NOT_PORTED}")
         n = int(n)
         if n < 2 or n & (n - 1):
             raise ValueError("n must be a power of 2, at least 2")
@@ -47,7 +51,7 @@ class PolarSCDecoder:
             raise ValueError(f"schedule must be one of {SCHEDULES}")
         self.n = n
         self.device = resolve_device(device)
-        self.frozen_pos = np.asarray(frozen_pos, dtype=np.int64)
+        self.frozen_pos = as_host_positions(frozen_pos)
         self.info_pos = info_positions(self.frozen_pos, n)
         self.k = n - len(self.frozen_pos)
         self.mode = mode

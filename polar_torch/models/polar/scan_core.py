@@ -16,8 +16,10 @@ The node schedule is Hashemi's fast-SSCL pruning: rate-0 nodes keep a bulk
 path-metric update, repetition nodes one fork, and (``rate1=True``) rate-1
 and SPC nodes theta least-reliable-flip forks at the node top. The plain
 (unpruned) SCL sweep, ``scl_sweep_hybrid``, is the same sweep with one
-frozen/info op per leaf (``leaf_schedule``). With ``b = S`` the whole tree
-is one subtree call.
+frozen/info op per leaf (``leaf_schedule``); with more than
+``UNROLL_OUTER_MAX_M`` subtrees its units share one traced schedule and
+take their frozen flags as data (``plan_plain_sweep``). With ``b = S`` the
+whole tree is one subtree call.
 
 The SC sweep (``sc_sweep_hybrid``) has no list and so no pointers and no
 backtracking: its schedule is ``fast_schedule(mask, rep=False)``, whose
@@ -30,7 +32,7 @@ import torch
 from polar_torch.models.polar.cuda_sc import SC_KIND_CODES, sc_subtree
 from polar_torch.models.polar.cuda_scl import (
     KIND_CODES, SubtreeSchedule, _ctz, _cto, _flip_forks, _lptr_live,
-    _rep_fork, _take_paths, _uptr_live, scl_subtree)
+    _rep_fork, _take_paths, _uptr_live, scl_subtree, traced_schedule)
 from polar_torch.ops.butterfly import polar_transform
 from polar_torch.ops.fg import F_FUNCTIONS, _clip, g as g_op, softplus
 
@@ -39,11 +41,22 @@ SPC_MIN_STAGE_OFF = 99
 # subtree depth b when none is given: the fastest of b = 5..10 for the
 # k=512 n=1024 SCL-8 chain on an H100 (the depth survey of chip_smoke.py)
 DEFAULT_LOWER_STAGES = 6
+# the same for lists of 16 and 32: the fastest of b = 4..8 for the CA-SCL-32
+# decoder of the 5G k=400 E=1000 code (n=1024) at a batch of 2048 on an H100
+# (chip_smoke.py's CA-SCL-32 depth survey). One thread per codeword holds 32
+# paths here, so the kernel is slower per leaf than at L=8, and more of the
+# tree goes to the outer sweep's whole-batch torch ops.
+DEFAULT_WIDE_LOWER_STAGES = 4
 # the same for SC: the fastest of b = 4..10 for the k=512 n=1024 SC decoder
 # on an H100 (chip_smoke.py's SC depth survey; the whole tree, b=10, is
 # half again as slow: one thread per codeword leaves the card idle where
 # whole-batch tensor ops fill it)
 DEFAULT_SC_LOWER_STAGES = 8
+
+
+# with more subtrees than this the plain sweep runs them on the traced
+# form, as the JAX package's plain sweep does (its lax.scan outer)
+UNROLL_OUTER_MAX_M = 8
 
 
 def resolve_lower_stages(S: int, lower_stages=None,
@@ -52,6 +65,12 @@ def resolve_lower_stages(S: int, lower_stages=None,
     ``default``) clamped to [1, S]."""
     b = default if lower_stages is None else int(lower_stages)
     return max(1, min(b, S))
+
+
+def default_lower_stages(list_size: int) -> int:
+    """The SCL decoders' subtree depth when none is given, by list size."""
+    return DEFAULT_LOWER_STAGES if list_size <= 8 \
+        else DEFAULT_WIDE_LOWER_STAGES
 
 
 def fast_schedule(frozen_mask, rep: bool = True, rate1: bool = False,
@@ -146,10 +165,28 @@ def sum_rows(x):
 
 def plan_sweep(ops, b, device, codes=KIND_CODES):
     """``split_schedule``'s units with each subtree's op list encoded once
-    as a ``SubtreeSchedule`` on ``device`` (op codes ``codes``)."""
+    as a ``SubtreeSchedule`` on ``device`` (op codes ``codes``). A subtree
+    unit is ``("sub", j, schedule, frz)``; ``frz`` is None for a static
+    schedule."""
     units, _ = split_schedule(ops, b)
-    return [("sub", u[1], SubtreeSchedule(u[2], device, codes))
+    return [("sub", u[1], SubtreeSchedule(u[2], device, codes), None)
             if u[0] == "sub" else u for u in units]
+
+
+def plan_plain_sweep(frozen_mask, b, device):
+    """The plain SCL sweep's plan. Up to ``UNROLL_OUTER_MAX_M`` subtrees
+    each get their static leaf-only schedule; beyond that every subtree
+    shares one traced schedule (``'t'`` leaves) and carries its slice of
+    the frozen mask as ``frz``, an int32 [2^b] tensor on ``device``. Both
+    decode alike, bit for bit."""
+    mask = np.asarray(frozen_mask, dtype=bool)
+    m = len(mask) >> b
+    if m <= UNROLL_OUTER_MAX_M:
+        return plan_sweep(leaf_schedule(mask), b, device)
+    sched = SubtreeSchedule(traced_schedule(b), device)
+    frz = torch.from_numpy(mask.reshape(m, 1 << b).astype(np.int32)).to(
+        device)
+    return [("sub", j, sched, frz[j]) for j in range(m)]
 
 
 def plan_fast_sweep(frozen_mask, b, device, rate1: bool = False,
@@ -168,14 +205,15 @@ def scl_sweep_hybrid_fast(llr_ch, frozen_mask, list_size: int,
     (positive means bit 0). Returns ``(u [n, L, bs] int8, pm [L, bs])``.
 
     ``lower_stages`` is the subtree depth b (see ``resolve_lower_stages``;
-    b = S runs the whole tree as one subtree call). ``plan`` is ``plan_fast_sweep``'s result for the same mask, b,
-    ``rate1`` and ``spc_min_stage``, computed here when omitted.
-    ``subtree`` decodes one subtree (``cuda_scl.scl_subtree`` or a function
-    with its signature)."""
+    by default ``default_lower_stages(list_size)``; b = S runs the whole
+    tree as one subtree call). ``plan`` is ``plan_fast_sweep``'s result
+    for the same mask, b, ``rate1`` and ``spc_min_stage``, computed here
+    when omitted. ``subtree`` decodes one subtree (``cuda_scl.scl_subtree``
+    or a function with its signature)."""
     n, bs = llr_ch.shape
     S = int(np.log2(n))
     L = int(list_size)
-    b = resolve_lower_stages(S, lower_stages)
+    b = resolve_lower_stages(S, lower_stages, default_lower_stages(L))
     dev = llr_ch.device
     f = F_FUNCTIONS[mode]
     w_sub = 1 << b
@@ -252,10 +290,10 @@ def scl_sweep_hybrid_fast(llr_ch, frozen_mask, list_size: int,
     ps = [None] * m
     for unit in plan:
         if unit[0] == "sub":
-            _, j, sched = unit
+            _, j, sched, frz = unit
             a = descend(j, 0)
             cw32, Pj, pm = subtree(a, pm, sched, b=b, llr_max=llr_max,
-                                   mode=mode)
+                                   mode=mode, frz=frz)
             Pj = Pj.to(torch.int64)
             compose_live(Pj, j, 0)
             cws[j] = cw32.to(torch.int8)
@@ -313,12 +351,13 @@ def scl_sweep_hybrid(llr_ch, frozen_mask, list_size: int,
                      lower_stages=None, plan=None, subtree=scl_subtree):
     """Plain (unpruned) two-level SCL sweep: ``scl_sweep_hybrid_fast`` on
     ``leaf_schedule``, one frozen/info op per leaf and no upper nodes.
-    Arguments and result as there; ``plan`` is ``plan_sweep`` of
-    ``leaf_schedule(frozen_mask)`` at the same b."""
+    Arguments and result as there; ``plan`` is ``plan_plain_sweep``'s
+    result for the same mask and b."""
     S = int(np.log2(llr_ch.shape[0]))
-    b = resolve_lower_stages(S, lower_stages)
+    b = resolve_lower_stages(S, lower_stages,
+                             default_lower_stages(int(list_size)))
     if plan is None:
-        plan = plan_sweep(leaf_schedule(frozen_mask), b, llr_ch.device)
+        plan = plan_plain_sweep(frozen_mask, b, llr_ch.device)
     return scl_sweep_hybrid_fast(llr_ch, frozen_mask, list_size, mode=mode,
                                  llr_max=llr_max, lower_stages=b, plan=plan,
                                  subtree=subtree)
@@ -384,7 +423,7 @@ def sc_sweep_hybrid(llr_ch, frozen_mask, mode: str = "minsum",
     cws = [None] * (n >> b)
     for unit in plan:
         if unit[0] == "sub":
-            _, j, sched = unit
+            _, j, sched, _ = unit
             a = descend(j, 0, 0)
             node = cws[j] = subtree(a, None, sched, b=b, llr_max=llr_max,
                                     mode=mode).to(torch.int8)

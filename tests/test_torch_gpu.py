@@ -1,6 +1,8 @@
 """polar_torch on the card: the SCL and SC subtree kernels against their
-plain versions on the same CUDA inputs, and the decoders (fast and plain
-SCL, SC) on the card against the same decoders on the CPU. Every test here needs a CUDA card and skips without one.
+plain versions on the same CUDA inputs (the SCL kernel at L up to 32 and
+in its traced form), and the decoders (fast and plain SCL, SC, the 5G
+CA-SCL and hybrid chain) on the card against the same decoders on the CPU.
+Every test here needs a CUDA card and skips without one.
 
 The file imports no JAX, so it also runs where JAX is not installed:
 
@@ -13,8 +15,9 @@ import torch
 
 from polar_torch.models.polar.construction import generate_5g_ranking
 from polar_torch.models.polar.cuda_scl import (
-    SubtreeSchedule, scl_subtree, scl_subtree_plain)
-from polar_torch.models.polar.scan_core import split_fast_schedule
+    SubtreeSchedule, scl_subtree, scl_subtree_plain, traced_schedule)
+from polar_torch.models.polar.scan_core import (leaf_schedule,
+                                                split_fast_schedule)
 from polar_torch.models.polar.scl import PolarSCLDecoder
 
 from _torch_parity import BLOCK_AGREEMENT, assert_blocks_agree
@@ -43,7 +46,7 @@ def _random_mask(n, seed):
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ["5g_n64_b3", "random_b4_spc",
                                   "5g_n1024_b6", "5g_n1024_b10"])
-@pytest.mark.parametrize("L", [2, 8])
+@pytest.mark.parametrize("L", [2, 8, 16, 32])
 def test_kernel_equals_plain_on_card(cuda, case, L):
     mask, b, spc = {
         "5g_n64_b3": (_mask_5g(32, 64), 3, None),
@@ -84,6 +87,42 @@ def test_wrapper_rejects_bad_cuda_inputs(cuda):
         scl_subtree(torch.zeros(2, 8, 4, device=cuda), pm,
                     SubtreeSchedule((("i", 0, 0), ("i", 0, 1)), "cpu"),
                     b=1, llr_max=LLR_MAX, mode="minsum")
+    with pytest.raises(ValueError):       # 't' ops and no frz
+        scl_subtree(torch.zeros(4, 8, 4, device=cuda), pm,
+                    SubtreeSchedule(traced_schedule(2), cuda), b=2,
+                    llr_max=LLR_MAX, mode="minsum")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["minsum", "exact"])
+@pytest.mark.parametrize("L", [8, 16, 32])
+def test_traced_kernel_equals_static_on_card(cuda, L, mode):
+    """The traced form (one schedule, frozen flags as data) is bit-equal
+    to the static leaf schedule on the card, and agrees with the plain
+    version."""
+    b = 6
+    mask = _mask_5g(512, 1024)
+    rng = np.random.default_rng(L)
+    for j in (0, 7, 15):
+        sub = mask.reshape(16, 64)[j]
+        a = torch.from_numpy(rng.normal(0, 3, (64, L, 512)).astype(
+            np.float32)).to(cuda)
+        pm = torch.from_numpy(rng.exponential(2.0, (L, 512)).astype(
+            np.float32)).to(cuda)
+        frz = torch.from_numpy(sub.astype(np.int32)).to(cuda)
+        kw = dict(b=b, llr_max=LLR_MAX, mode=mode)
+        before = scl_subtree.launches_traced
+        got = scl_subtree(a, pm, SubtreeSchedule(traced_schedule(b), cuda),
+                          frz=frz, **kw)
+        assert scl_subtree.launches_traced == before + 1
+        static = scl_subtree(a, pm, SubtreeSchedule(leaf_schedule(sub), cuda),
+                             **kw)
+        assert all(torch.equal(x, y) for x, y in zip(got, static))
+        want = scl_subtree_plain(a, pm, traced_schedule(b), frz=frz, **kw)
+        assert_blocks_agree(
+            tuple(x.cpu().numpy() for x in want[:2]),
+            tuple(x.cpu().numpy() for x in got[:2]),
+            want[2].cpu().numpy(), got[2].cpu().numpy())
 
 
 @pytest.mark.gpu
@@ -190,3 +229,25 @@ def test_plain_scl_decoder_on_card_equals_cpu(cuda):
     assert scl_subtree.launches > before
     agree = (got.cpu() == want).all(dim=1).float().mean().item()
     assert agree >= BLOCK_AGREEMENT
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dec_type,L", [("SCL", 8), ("SCL", 32),
+                                        ("hybSCL", 8), ("SC", 8)])
+def test_5g_decoder_on_card_equals_cpu(cuda, dec_type, L):
+    from polar_torch.models.polar.decode5g import Polar5GDecoder
+    from polar_torch.models.polar.encode import Polar5GEncoder
+    rng = np.random.default_rng(L)
+    enc_cpu = Polar5GEncoder(400, 1000, device="cpu")
+    u = rng.integers(0, 2, (512, 400)).astype(np.float32)
+    c = enc_cpu(torch.from_numpy(u)).numpy()
+    logits = torch.from_numpy(((2.0 / 0.72) * ((2.0 * c - 1.0) + rng.normal(
+        0, 0.85, c.shape))).astype(np.float32))
+    kw = dict(dec_type=dec_type, list_size=L, mode="exact",
+              return_crc_status=True)
+    want, ok_want = Polar5GDecoder(enc_cpu, **kw)(logits)
+    got, ok_got = Polar5GDecoder(Polar5GEncoder(400, 1000, device=cuda),
+                                 **kw)(logits.to(cuda))
+    agree = (got.cpu() == want).all(dim=1).float().mean().item()
+    assert agree >= BLOCK_AGREEMENT
+    assert (ok_got.cpu() == ok_want).float().mean().item() >= BLOCK_AGREEMENT

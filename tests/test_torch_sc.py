@@ -207,7 +207,7 @@ def test_zero_llr_decides_one_and_leading_dims():
 
 def test_decoder_options_and_errors():
     frozen, _ = generate_5g_ranking(32, 64)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 21"):
         PolarSCDecoder(frozen, 64, pc_pos=[3], device="cpu")
     with pytest.raises(ValueError):
         PolarSCDecoder(frozen, 64, mode="bad", device="cpu")

@@ -19,12 +19,15 @@ from polar_tpu.models.polar.encode import PolarEncoder as JPolarEncoder
 from polar_tpu.models.polar import scan_core as jsc
 from polar_tpu.models.polar.scl import PolarSCLDecoder as JPolarSCLDecoder
 
-from polar_torch import from_numpy_state
+from polar_torch import PolarEncoder, from_numpy_state
 from polar_torch.models.polar import scan_core as tsc
 from polar_torch.models.polar.construction import generate_5g_ranking
 from polar_torch.models.polar.cuda_scl import scl_subtree_host
 from polar_torch.models.polar.scl import PolarSCLDecoder
+from polar_torch.ops.crc import CRCEncoder
 from polar_torch.sim import count_block_errors
+
+from _torch_parity import assert_blocks_agree
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -112,10 +115,7 @@ def test_decoder_equals_jax_decoder_rate1():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"crc_degree": "CRC11"}, "Queue 1 item 9"),
-    ({"pc_pos": [3]}, "Queue 1 item 10"),
-    ({"use_hybrid_sc": True}, "Queue 1 item 11"),
-    ({"list_size": 16}, "Queue 1 item 12"),
+    ({"pc_pos": [3]}, "Queue 1 item 21"),
 ])
 def test_decoder_raises_for_later_slices(kwargs, item):
     frozen, _ = generate_5g_ranking(32, 64)
@@ -123,10 +123,25 @@ def test_decoder_raises_for_later_slices(kwargs, item):
         PolarSCLDecoder(frozen, 64, device="cpu", **kwargs)
 
 
-def test_decoder_raises_for_traced_frozen_set_and_bad_options():
+@pytest.mark.parametrize("kwargs", [
+    {"crc_degree": "CRC11"}, {"crc_degree": "CRC11", "use_hybrid_sc": True},
+    {"list_size": 16}, {"list_size": 32}])
+def test_decoder_takes_the_options_of_the_5g_chain(kwargs):
     frozen, _ = generate_5g_ranking(32, 64)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 5"):
-        PolarSCLDecoder(torch.from_numpy(frozen), 64, device="cpu")
+    dec = PolarSCLDecoder(frozen, 64, device="cpu", **kwargs)
+    out = dec(torch.zeros(3, 64))
+    assert out.shape == (3, 32) and not out.any()
+
+
+def test_decoder_raises_for_traced_frozen_set_and_bad_options():
+    """A frozen set given as a tensor is copied to the host, as the JAX
+    package's ``np.asarray`` does; options the port refuses raise."""
+    frozen, _ = generate_5g_ranking(32, 64)
+    logits = torch.from_numpy(-_llr_ch(64, 16, 3).T.copy())
+    from_tensor = PolarSCLDecoder(torch.from_numpy(frozen), 64, device="cpu")
+    np.testing.assert_array_equal(from_tensor.frozen_pos, frozen)
+    assert torch.equal(from_tensor(logits),
+                       PolarSCLDecoder(frozen, 64, device="cpu")(logits))
     with pytest.raises(ValueError):   # the reference drops this silently
         PolarSCLDecoder(frozen, 64, use_fast_scl=False, fast_rate1=True,
                         device="cpu")
@@ -134,6 +149,107 @@ def test_decoder_raises_for_traced_frozen_set_and_bad_options():
         PolarSCLDecoder(np.arange(128), 256, fast_rate1=True, device="cpu")
     with pytest.raises(ValueError):
         PolarSCLDecoder(frozen, 64, list_size=3, device="cpu")
+    with pytest.raises(ValueError):   # the CRC status needs a CRC
+        PolarSCLDecoder(frozen, 64, return_crc_status=True, device="cpu")
+
+
+@pytest.mark.parametrize("n", [64, 256])
+def test_ca_scl_equals_golden_fixture(decoders_fix, n):
+    frozen = decoders_fix[f"n{n}_frozen_pos"]
+    dec = PolarSCLDecoder(frozen, n, list_size=8, mode="exact",
+                          crc_degree="CRC11", device="cpu")
+    got = dec(torch.from_numpy(decoders_fix[f"n{n}_llr"]))
+    np.testing.assert_array_equal(got.numpy(),
+                                  decoders_fix[f"n{n}_scl8_crc11"])
+
+
+def _crc_logits(n, k, bs, seed):
+    """Logits of codewords whose info words carry a valid CRC11, at about
+    1.5 dB: CA-SCL then has CRC-valid and CRC-failed paths to choose
+    between."""
+    frozen, _ = generate_5g_ranking(k, n)
+    rng = np.random.default_rng(seed)
+    enc = CRCEncoder("CRC11", k=k - 11)
+    u = enc(torch.from_numpy(rng.integers(0, 2, (bs, k - 11)).astype(
+        np.float32)))
+    c = PolarEncoder(frozen, n, device="cpu")(u).numpy()
+    sigma = np.sqrt(1.0 / (2 * 10 ** 0.15 * (k / n)))
+    y = (2.0 * c - 1.0) + rng.normal(0, sigma, c.shape)
+    return frozen, ((2.0 / sigma ** 2) * y).astype(np.float32)
+
+
+@pytest.mark.parametrize("n,L,fast", [(64, 8, None), (64, 16, None),
+                                      (64, 32, None), (256, 32, False)])
+def test_ca_scl_equals_jax(n, L, fast):
+    """CA-SCL at L = 8, 16, 32, fast and plain sweeps, on shared logits:
+    decisions and CRC status equal JAX's on every block (a flip would be
+    allowed only at a path-metric near-tie; none occurs here)."""
+    frozen, logits = _crc_logits(n, n // 2, 96, seed=n + L)
+    kw = dict(list_size=L, crc_degree="CRC11", return_crc_status=True,
+              use_fast_scl=fast)
+    u_j, ok_j = JPolarSCLDecoder(frozen, n, **kw)(jnp.asarray(logits))
+    dec = PolarSCLDecoder(frozen, n, device="cpu", **kw)
+    u_t, ok_t = dec(torch.from_numpy(logits))
+    assert u_t.shape == (96, n // 2) and ok_t.dtype == torch.bool
+    np.testing.assert_array_equal(u_t.numpy(), np.asarray(u_j))
+    np.testing.assert_array_equal(ok_t.numpy(), np.asarray(ok_j))
+
+
+@pytest.mark.parametrize("sweep,L", [("fast", 32), ("plain", 16)])
+def test_wide_list_sweep_equals_jax(sweep, L):
+    """L = 16, 32 through the port's sweeps (rate-1 nodes on the fast one)
+    against JAX's XLA sweeps on random blocks, min-sum."""
+    n, k, b = 128, 64, 3        # the plain sweep's 16 units run traced
+    frozen, _ = generate_5g_ranking(k, n)
+    mask = np.zeros(n, bool)
+    mask[frozen] = True
+    llr = _llr_ch(n, 32, L)
+    if sweep == "fast":
+        u_j, pm_j = jsc.scl_sweep_hybrid_fast(
+            jnp.asarray(llr), mask, L, lower_stages=b, use_pallas=False,
+            rate1=True)
+        u_t, pm_t = tsc.scl_sweep_hybrid_fast(
+            torch.from_numpy(llr), mask, L, lower_stages=b, rate1=True)
+    else:
+        u_j, pm_j = jsc.scl_sweep_hybrid(jnp.asarray(llr), mask, L,
+                                         lower_stages=b, use_pallas=False)
+        u_t, pm_t = tsc.scl_sweep_hybrid(torch.from_numpy(llr), mask, L,
+                                         lower_stages=b)
+    assert_blocks_agree((np.asarray(u_j),), (u_t.numpy(),), np.asarray(pm_j),
+                        pm_t.numpy())
+
+
+@pytest.mark.parametrize("subtree", ["plain", "host"])
+def test_plain_sweep_traced_units_equal_static_units(subtree):
+    """With more than ``UNROLL_OUTER_MAX_M`` subtrees the plain sweep runs
+    them on one traced schedule with the frozen flags as data; the result
+    is bit-identical to the static leaf-only units."""
+    n, k, L, b = 256, 128, 8, 4
+    frozen, _ = generate_5g_ranking(k, n)
+    mask = np.zeros(n, bool)
+    mask[frozen] = True
+    traced = tsc.plan_plain_sweep(mask, b, "cpu")
+    assert len(traced) == 16 > tsc.UNROLL_OUTER_MAX_M
+    assert all(u[2].traced and u[3] is not None for u in traced)
+    static = tsc.plan_sweep(tsc.leaf_schedule(mask), b, "cpu")
+    assert not any(u[2].traced for u in static if u[0] == "sub")
+    assert not any(u[2].traced for u in tsc.plan_plain_sweep(mask, 5, "cpu"))
+    llr = torch.from_numpy(_llr_ch(n, 64, 31))
+    kw = {} if subtree == "plain" else {"subtree": scl_subtree_host}
+    u_s, pm_s = tsc.scl_sweep_hybrid(llr, mask, L, lower_stages=b,
+                                     plan=static, **kw)
+    u_t, pm_t = tsc.scl_sweep_hybrid(llr, mask, L, lower_stages=b,
+                                     plan=traced, **kw)
+    assert torch.equal(u_s, u_t) and torch.equal(pm_s, pm_t)
+
+
+def test_wide_lists_take_their_own_default_depth():
+    frozen, _ = generate_5g_ranking(512, 1024)
+    for L in (8, 16, 32):
+        dec = PolarSCLDecoder(frozen, 1024, list_size=L, device="cpu")
+        assert dec.lower_stages == tsc.default_lower_stages(L)
+    assert tsc.default_lower_stages(8) == tsc.DEFAULT_LOWER_STAGES
+    assert tsc.default_lower_stages(32) == tsc.DEFAULT_WIDE_LOWER_STAGES
 
 
 def test_entry_points_default_to_the_card():

@@ -15,8 +15,9 @@ from polar_torch.models.polar import cuda_scl
 from polar_torch.models.polar.construction import generate_5g_ranking
 from polar_torch.models.polar.cuda_scl import (
     KIND_CODES, SubtreeSchedule, scl_subtree, scl_subtree_host,
-    scl_subtree_plain)
-from polar_torch.models.polar.scan_core import split_fast_schedule
+    scl_subtree_plain, traced_schedule)
+from polar_torch.models.polar.scan_core import (leaf_schedule,
+                                                split_fast_schedule)
 
 from _torch_parity import PM_RTOL, assert_blocks_agree, block_agreement
 
@@ -77,6 +78,51 @@ def test_plain_subtree_equals_pallas_interpret(case):
         assert_blocks_agree((np.asarray(cw_j), np.asarray(p_j)),
                             (cw_t.numpy(), p_t.numpy()), np.asarray(pm_j),
                             pm_t.numpy())
+
+
+# L = 16, 32 run the blocked kernel (``_subtree_kernel_blocked``), whose
+# interpret mode costs 8-40 s per fork op on the CPU: one small schedule
+# each. Info leaves at L = 16, 32 and rate-1 forks at L = 32 are held
+# against JAX's XLA decoders and sweeps in test_torch_scl.py.
+WIDE_PALLAS_CASES = {
+    "L16_rate0_rate1": (16, 2, (("z", 1, 0), ("o", 1, 2))),
+    "L32_rate0_rep": (32, 2, (("z", 1, 0), ("r", 1, 2))),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WIDE_PALLAS_CASES))
+def test_plain_wide_subtree_equals_pallas_interpret(case):
+    L, b, ops = WIDE_PALLAS_CASES[case]
+    a, pm = _inputs(b, L, 128, seed=L + b)
+    cw_j, p_j, pm_j = subtree_pallas(
+        jnp.asarray(a), None, jnp.asarray(pm), b=b, L=L, llr_max=LLR_MAX,
+        mode="minsum", interpret=True, sched_static=ops)
+    cw_t, p_t, pm_t = scl_subtree_plain(
+        torch.from_numpy(a), torch.from_numpy(pm), ops, b=b,
+        llr_max=LLR_MAX, mode="minsum")
+    assert_blocks_agree((np.asarray(cw_j), np.asarray(p_j)),
+                        (cw_t.numpy(), p_t.numpy()), np.asarray(pm_j),
+                        pm_t.numpy())
+
+
+@pytest.mark.parametrize("cond_leaves", [False, True])
+def test_plain_traced_subtree_equals_pallas_interpret(cond_leaves):
+    """The traced form (frozen flags as data) against the Pallas kernel's
+    traced form, with and without its run-time frozen-leaf skip."""
+    b, L = 3, 8
+    mask = _random_mask(1 << b, 11)
+    a, pm = _inputs(b, L, 128, seed=12)
+    frz = mask.astype(np.int32)
+    cw_j, p_j, pm_j = subtree_pallas(
+        jnp.asarray(a), jnp.asarray(frz), jnp.asarray(pm), b=b, L=L,
+        llr_max=LLR_MAX, mode="minsum", interpret=True,
+        cond_leaves=cond_leaves)
+    cw_t, p_t, pm_t = scl_subtree_plain(
+        torch.from_numpy(a), torch.from_numpy(pm), traced_schedule(b), b=b,
+        llr_max=LLR_MAX, mode="minsum", frz=torch.from_numpy(frz))
+    assert_blocks_agree((np.asarray(cw_j), np.asarray(p_j)),
+                        (cw_t.numpy(), p_t.numpy()), np.asarray(pm_j),
+                        pm_t.numpy())
 
 
 def _near_tie_blocks(monkeypatch):
@@ -145,6 +191,85 @@ def test_host_build_equals_plain(mode, L, monkeypatch):
             "with no near-tie fork")
         n_diff += int(bad.sum())
     assert n_diff <= 0.01 * sum(len(t) for t in near_tie)
+
+
+@pytest.mark.parametrize("mode", ["minsum", "exact"])
+@pytest.mark.parametrize("L", [16, 32])
+def test_wide_host_build_equals_plain(mode, L, monkeypatch):
+    """L = 16, 32: the routine's byte-per-path pointers, 64-candidate top-L
+    and up to 31 rate-1 flips against the plain version, on 5G and random
+    schedules (rate-1 and SPC nodes)."""
+    cases = [(_mask_5g(32, 64), 3, None),
+             (_mask_5g(128, 256), 5, None),
+             (_random_mask(128, L), 4, 2),
+             (_random_mask(256, L + 1), 6, 3)]
+    near_tie, close_call = _near_tie_blocks(monkeypatch)
+    n_diff = n_blocks = 0
+    for c, (mask, b, spc) in enumerate(cases):
+        for i, ops in enumerate(_sub_units(mask, b, True, spc)[:4]):
+            a, pm = _inputs(b, L, 64, seed=2000 * c + i)
+            a_t, pm_t = torch.from_numpy(a), torch.from_numpy(pm)
+            want = [x.numpy() for x in scl_subtree_plain(
+                a_t, pm_t, ops, b=b, llr_max=LLR_MAX, mode=mode)]
+            close_call(64)
+            got = [x.numpy() for x in scl_subtree_host(
+                a_t, pm_t, SubtreeSchedule(ops, "cpu"), b=b,
+                llr_max=LLR_MAX, mode=mode)]
+            _, rel, bad = block_agreement(want[:2], got[:2], want[2], got[2])
+            assert rel <= PM_RTOL
+            if mode == "minsum":
+                assert not bad.any()
+            else:
+                assert not (bad & ~near_tie[-1].numpy()).any()
+            n_diff += int(bad.sum())
+            n_blocks += bad.size
+    assert n_diff <= 0.01 * n_blocks
+
+
+@pytest.mark.parametrize("L", [1, 8, 16, 32])
+def test_traced_form_equals_static_form(L):
+    """One traced schedule with the frozen flags as data decodes every
+    subtree bit for bit as its static leaf schedule does: in the host
+    build (the kernel's run-time skip of frozen leaves) and in the plain
+    version (a branchless select)."""
+    b = 4
+    for seed in range(3):
+        mask = _random_mask(1 << b, 100 + seed)
+        a, pm = _inputs(b, L, 32, seed=seed)
+        a_t, pm_t = torch.from_numpy(a), torch.from_numpy(pm)
+        frz = torch.from_numpy(mask.astype(np.int32))
+        static = leaf_schedule(mask)
+        traced = traced_schedule(b)
+        kw = dict(b=b, llr_max=LLR_MAX, mode="minsum")
+        outs = [
+            scl_subtree_plain(a_t, pm_t, static, **kw),
+            scl_subtree_plain(a_t, pm_t, traced, frz=frz, **kw),
+            scl_subtree_host(a_t, pm_t, SubtreeSchedule(static, "cpu"),
+                             **kw),
+            scl_subtree_host(a_t, pm_t, SubtreeSchedule(traced, "cpu"),
+                             frz=frz, **kw),
+        ]
+        for x, y in zip(outs[0], outs[1]):
+            assert torch.equal(x, y)
+        for x, y in zip(outs[2], outs[3]):
+            assert torch.equal(x, y)
+        # the host build's traced form against the plain traced form
+        # (min-sum: only path-metric ulps may differ)
+        for x, y in zip(outs[3][:2], outs[1][:2]):
+            assert torch.equal(x, y)
+        np.testing.assert_allclose(outs[3][2].numpy(), outs[1][2].numpy(),
+                                   rtol=PM_RTOL)
+
+
+def test_traced_form_needs_its_frozen_flags():
+    sched = SubtreeSchedule(traced_schedule(2), "cpu")
+    a, pm = torch.zeros(4, 8, 4), torch.zeros(8, 4)
+    for frz in (None, torch.zeros(4), torch.zeros(3, dtype=torch.int32)):
+        with pytest.raises(ValueError, match="frz"):
+            scl_subtree_host(a, pm, sched, b=2, llr_max=LLR_MAX,
+                             mode="minsum", frz=frz)
+    assert sched.traced and not SubtreeSchedule(
+        (("f", 1, 0), ("i", 1, 2)), "cpu").traced
 
 
 def test_host_build_reads_broadcast_input():
