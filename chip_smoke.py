@@ -2,14 +2,15 @@
 
     python3 chip_smoke.py            # from the repo root; one card, nvcc
 
-It drives three paths: the fast-SCL chain (phases 4 and 5), the CLI sweep
-(phase 6) and the 5G NR CA-SCL chain (phase 8). Phases (any failure exits
-non-zero and prints no result):
+It drives four paths: the fast-SCL chain (phases 4 and 5), the CLI sweep
+with SC, SCL-8 and BP-20 (phase 6), the 5G NR CA-SCL chain (phase 8) and
+BP's two-pass serving path (phase 9). Phases (any failure exits non-zero
+and prints no result):
 
 1. the card: CUDA must be available; prints the card's name and power
    limit as ``nvidia-smi`` reports them;
-2. build: compiles every kernel of the three paths from
-   ``polar_torch/csrc``, one ``nvcc`` per kernel, all started together;
+2. build: compiles every kernel of the paths from ``polar_torch/csrc``, one
+   ``nvcc`` per kernel, all started together;
 3. kernels against their plain versions on the card, on the same CUDA
    inputs. The SCL subtree kernel (``scl_subtree``) against
    ``scl_subtree_plain``: at L=8 on a 5G k=32 n=64 code at b=3, on random
@@ -26,7 +27,15 @@ non-zero and prints no result):
    ``sc_subtree_plain``: random masks at b = 3..8, static (ops z/f/i) and
    traced (op t) forms, and the 5G k=512 n=1024 code at the SC decoder's
    depth and as the whole tree. Min-sum must agree on every block, exact
-   mode on >= 99.9% of blocks;
+   mode on >= 99.9% of blocks. The BP kernel (``bp_decode``) against
+   ``bp_decode_plain``: n = 64, 256, 1024 and 2048 with the lattice in
+   shared memory, n = 4096 and n = 1024 with it in global memory; scaled
+   and unscaled min-sum, early stop on and off, odd sweep counts and
+   check_every 1 and 2, the convergence flags returned; exact mode at
+   n = 1024. Min-sum must be bit-equal (every LLR and flag); in exact mode
+   the hard decisions must agree on every block the plain version marks
+   converged and on >= 99% of all blocks, since ``expf``/``log1pf`` and
+   ``torch.logaddexp`` round differently;
 4. the main path: ``SystemAWGNModel.step`` (source -> 5G k=512 n=1024
    polar encoder -> QPSK -> AWGN -> demapper -> SCL-8 min-sum fast-SCL
    decoder with rate-1 nodes) at a batch of 8192 codewords and 2.0 dB,
@@ -35,15 +44,18 @@ non-zero and prints no result):
 5. BLER at 1.5 dB over 32768 blocks against the ``scl8_n1024_fast_r1`` row
    of ``benchmarks/bler_validation.json`` (+-0.006, about 4 sigma);
 6. the CLI path: ``polar_torch.main.sweep`` at k=512 n=1024 (5G), bs=8192,
-   4 batches per point at 1.5 and 2.0 dB: SC on the ``sc_subtree`` kernel,
-   then SCL-8 on the plain sweep and the ``scl_subtree`` kernel (traced
-   form: 16 subtrees), with both launch counts reset just before and read
-   just after. Gates: SC BLER at 2.0 dB within +-0.011 of ``sc_n1024``,
-   SCL-8 BLER at 1.5 dB within +-0.007 of ``scl8_n1024`` (about 4 sigma of
-   both samples combined);
+   4 batches per point at 1.5 and 2.0 dB, ``algos=["scl", "bp"]``: SC on
+   the ``sc_subtree`` kernel, SCL-8 on the plain sweep and the
+   ``scl_subtree`` kernel (traced form: 16 subtrees), then BP-20 on the
+   ``bp`` kernel, with every launch count reset just before and read just
+   after. Gates: SC BLER at 2.0 dB within +-0.011 of ``sc_n1024``, SCL-8
+   BLER at 1.5 dB within +-0.007 of ``scl8_n1024``, BP-20 BLER at 2.0 dB
+   within +-0.012 of ``bp_n1024`` (about 4 sigma of both samples
+   combined);
 7. where the time goes: the SC, plain SCL, fast SCL and CA-SCL-32 depth
-   surveys, kernel, plain and bound times over one decode, and one
-   profiled main-path step;
+   surveys, kernel, plain and bound times over one decode, one BP-20
+   decode (bs=8192, 2.0 dB) with early stop on and off and its mean sweeps
+   per codeword, and one profiled main-path step;
 8. the 5G path: ``Polar5GEncoder`` (uplink k=400 E=1000, CRC11,
    n_polar=1024) -> QPSK -> AWGN -> demapper -> ``Polar5GDecoder`` in exact
    mode through ``sim_ber`` at 1.5 dB: CA-SCL-8 and hybSCL-8 at bs=8192,
@@ -51,14 +63,21 @@ non-zero and prints no result):
    read just after. Gates: CA-SCL-8 and hybSCL-8 BLER within about 4 sigma
    of ``5g_cascl8_k400_n1000`` and ``hybscl8_5g_k400_n1000``; CA-SCL-32
    BLER at or below the CA-SCL-8 yardstick. Prints info bit/s, decoder ms
-   per batch, and the kernel's ms per decode with launches and bound.
+   per batch, and the kernel's ms per decode with launches and bound;
+9. BP's two-pass serving path at 2.0 dB: ``PolarBPDecoder(two_pass=True,
+   first_pass_iters=8)`` bit-identical to the single-pass decoder on one
+   batch of 8192 (hard and soft outputs), then through ``sim_ber`` (4
+   batches of 8192) with the launch counts reset just before and read just
+   after; BLER on the ``bp_n1024`` gate, info bit/s.
 
 The line before the card's line is one JSON object ``{"kernels": [...]}``
 with each kernel form's launches on its path (``scl_subtree`` static
 L <= 8: the fast-SCL chain; ``scl_subtree`` L=16/32 and traced: the 5G
-path; ``sc_subtree``: the CLI sweep), its disagreement with the plain
-version, and its time, the plain version's time and its bound at the
-path's shape. The last line is
+path; ``sc_subtree`` and ``bp``: the CLI sweep), its disagreement with the
+plain version (for ``bp``: the largest min-sum LLR gap, and the blocks
+that differ in min-sum or, in exact mode, in their decisions), and its
+time, the plain version's time and its bound at the path's shape. The
+last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 
@@ -83,7 +102,21 @@ SC_EXACT_AGREEMENT = 0.999          # min-sum SC must agree on every block
 SC_CHECK_BATCH = 4096
 CLI_EBNO_DB, CLI_MC_ITER = (1.5, 2.0), 4
 CLI_GATES = (("SC", "sc_n1024", 2.0, 0.011),
-             ("SCL-8", "scl8_n1024", 1.5, 0.007))
+             ("SCL-8", "scl8_n1024", 1.5, 0.007),
+             ("BP-20", "bp_n1024", 2.0, 0.012))
+# BP: the CLI's BP-20 (scaled min-sum, msf 0.9375, early stop every 2
+# sweeps) and the kernel checks, (n, bs, lattice, msf, early stop, sweeps,
+# check_every, mode); n <= 1024 on the 5G code, beyond on the RM-style one
+BP_ITER, BP_EBNO_DB = 20, 2.0
+BP_CASES = ((64, 4096, "auto", 1.0, True, 21, 1, "minsum"),
+            (256, 4096, "auto", 0.9375, True, 21, 2, "minsum"),
+            (1024, BATCH, "auto", 0.9375, True, BP_ITER, 2, "minsum"),
+            (1024, BATCH, "auto", 0.9375, False, BP_ITER, 2, "minsum"),
+            (1024, 2048, "global", 0.9375, True, BP_ITER, 2, "minsum"),
+            (2048, 2048, "auto", 0.9375, True, 13, 1, "minsum"),
+            (4096, 256, "auto", 0.9375, True, 9, 2, "minsum"),
+            (1024, BATCH, "auto", 0.9375, True, BP_ITER, 2, "exact"))
+BP_EXACT_AGREEMENT = 0.99
 # the 5G path: uplink k=400 E=1000 (CRC11, n_polar=1024) in exact mode, as
 # the yardsticks ran. (name, dec_type, list size, batch, batches, yardstick,
 # its sample: blocks). CA-SCL-32 has no yardstick of its own: its BLER must
@@ -181,6 +214,23 @@ def sc_subtree_work(ops, b, bs, mode):
     return n_bytes, bs * (OPS_F[mode] * n_f + OPS_G * n_g + OPS_XOR * n_xor)
 
 
+def bp_work(n, bs, sweeps, checks, mode, msf):
+    """(bytes, f32 operations) BP decodes of ``bs`` codewords must at least
+    move and do, having run ``sweeps`` sweeps and ``checks`` G-matrix
+    checks in all: the LLRs in and the output back once, the prior and the
+    flags; per butterfly and stage two f, the partner sum and the add, and
+    in scaled min-sum the two products; per check the two hard decisions
+    (an add and a compare per row each), the re-encode's xors and the
+    comparison."""
+    S = n.bit_length() - 1
+    n_bytes = 4 * n * bs + 4 * n * bs + 4 * n + 4 * bs
+    scaled = mode == "minsum" and msf != 1.0
+    per_sweep = 2 * S * (n // 2) * (2 * OPS_F[mode] + 2 + (2 if scaled
+                                                           else 0))
+    per_check = 5 * n + OPS_XOR * S * (n // 2)
+    return n_bytes, sweeps * per_sweep + checks * per_check
+
+
 def resource_usage(libs):
     """Registers, stack and shared memory of each kernel in the built
     libraries, as ``cuobjdump -res-usage`` reports them."""
@@ -264,6 +314,42 @@ def agreement(want, got):
             rel.max().item() if rel.numel() else 0.0,
             gap.max().item() if gap.numel() else 0.0,
             int(bad.sum().item()))
+
+
+class BpCheck:
+    """Accumulates BP kernel-vs-plain comparisons of (out [n, bs], done
+    [bs]) pairs; fails on the first miss. Min-sum must be bit-equal; exact
+    mode must agree in its hard decisions (info rows) on every block the
+    plain version marks converged and on ``BP_EXACT_AGREEMENT`` of all."""
+
+    def __init__(self):
+        self.n_blocks = self.n_bad = 0
+        self.max_abs = 0.0
+
+    def add(self, label, mode, info, want, got):
+        (out_w, done_w), (out_g, done_g) = want, got
+        if mode == "minsum":
+            bad = (out_w != out_g).any(0) | (done_w != done_g)
+            self.max_abs = max(self.max_abs,
+                               (out_w - out_g).abs().max().item())
+            need = 1.0
+        else:
+            bad = ((out_w <= 0) != (out_g <= 0))[info].any(0)
+            if bad[done_w > 0].any():
+                raise AssertionError(f"{label}: decisions differ on a block "
+                                     "the plain version marks converged")
+            need = BP_EXACT_AGREEMENT
+        n_bad, n_blocks = int(bad.sum().item()), bad.numel()
+        share = 1.0 - n_bad / n_blocks
+        log(f"  {label}, {mode}: blocks agree {share:.6f} ({n_bad} of "
+            f"{n_blocks} differ), {int(done_w.sum().item())} converged"
+            + (" (decisions)" if mode == "exact" else "")
+            + f"; llr max abs gap {(out_w - out_g).abs().max().item():.3g}")
+        if share < need:
+            raise AssertionError(f"{label}: kernel disagrees with the plain "
+                                 f"version (share {share})")
+        self.n_blocks += n_blocks
+        self.n_bad += n_bad
 
 
 class Check:
@@ -376,8 +462,10 @@ def main():
     from polar_torch._device import resolve_device
     from polar_torch.config import PolarConfig
     from polar_torch.main import sweep
-    from polar_torch.models.polar import cuda_sc, cuda_scl, scan_core
+    from polar_torch.models.polar import cuda_bp, cuda_sc, cuda_scl, scan_core
+    from polar_torch.models.polar.bp import PolarBPDecoder
     from polar_torch.models.polar.construction import get_kern_frozen_bits
+    from polar_torch.models.polar.cuda_bp import bp_decode, bp_decode_plain
     from polar_torch.models.polar.cuda_sc import (
         sc_schedule, sc_subtree, sc_subtree_plain, traced_schedule)
     from polar_torch.models.polar.cuda_scl import (
@@ -395,6 +483,7 @@ def main():
         for c in ("launches", "launches_traced", "launches_wide"):
             setattr(cuda_scl.scl_subtree, c, 0)
         cuda_sc.sc_subtree.launches = 0
+        cuda_bp.bp_decode.launches = 0
 
     def counts():
         """The launch counts by kernel form (the scl_subtree forms
@@ -402,7 +491,8 @@ def main():
         return {"scl_subtree": cuda_scl.scl_subtree.launches,
                 "scl_subtree traced": cuda_scl.scl_subtree.launches_traced,
                 "scl_subtree wide": cuda_scl.scl_subtree.launches_wide,
-                "sc_subtree": cuda_sc.sc_subtree.launches}
+                "sc_subtree": cuda_sc.sc_subtree.launches,
+                "bp": cuda_bp.bp_decode.launches}
 
     # ---- phase 1: the card ----
     kind = torch.cuda.get_device_name(0)
@@ -414,7 +504,7 @@ def main():
 
     # ---- phase 2: build every kernel of the paths, compilers in parallel
     t0 = time.perf_counter()
-    kernels_built = ("scl_subtree", "sc_subtree")
+    kernels_built = ("scl_subtree", "sc_subtree", "bp")
     libs = _build.build([(name, "cuda") for name in kernels_built])
     for name in kernels_built:
         _build.load(name, "cuda")
@@ -690,6 +780,38 @@ def main():
         f"{sc_plain_ms:.3f} ms; bound {sc_bound:.4f} ms ({sc_bound_by}: "
         f"{n_bytes} B, {n_ops} f32 ops); library: none [{card}]")
 
+    log("phase 3: bp kernel against bp_decode_plain")
+    bp_check = BpCheck()
+    # the CLI's BP-20 chain: the same 5G k=512 n=1024 code and encoder
+    bp_dec = PolarBPDecoder(frozen, N, num_iter=BP_ITER, device=dev)
+    bp_model = SystemAWGNModel(N, K, model.encoder, bp_dec)
+    bp_logits = bp_model.front(gen, BATCH, BP_EBNO_DB)[2]
+    bp_prior = bp_dec._prior
+    for n, bs, lattice, msf, es, iters, every, mode in BP_CASES:
+        if n == N:      # the decoder's own call: [bs, n] logits, transposed
+            prior, llr, negate = bp_prior, bp_logits[:bs].t(), True
+        else:           # true LLRs [n, bs] of random codewords
+            m = np.zeros(n, bool)
+            m[generate_5g_ranking(n // 2, n)[0] if n <= N
+              else get_kern_frozen_bits(n, n // 2)[2]] = True
+            prior = torch.from_numpy(np.where(m, 30.0, 0.0).astype(
+                np.float32)).to(dev)
+            llr, negate = codeword_llr(m, bs, 10 ** (-BP_EBNO_DB / 20)), False
+        kw = dict(num_iter=iters, check_every=every, early_stop=es,
+                  mode=mode, msf=msf, llr_max=30.0, return_done=es,
+                  negate=negate)
+        got = bp_decode(llr, prior, lattice=lattice, **kw)
+        want = bp_decode_plain(llr, prior, **kw)
+        if not es:
+            got, want = (got, torch.zeros(bs, device=dev)), \
+                (want, torch.zeros(bs, device=dev))
+        bp_check.add(f"n={n}, bs={bs}, {cuda_bp.resolve_lattice(n, lattice)} "
+                     f"lattice, msf {msf}, early stop {es}, {iters} sweeps, "
+                     f"check every {every}", mode, prior == 0, want, got)
+    torch.cuda.synchronize()
+    log(f"phase 3: bp: {bp_check.n_bad} of {bp_check.n_blocks} blocks "
+        f"differ; min-sum llr max abs gap {bp_check.max_abs:.3g}")
+
     # ---- phase 4: the main path ----
     steps = 10
     reset_counts()
@@ -742,7 +864,8 @@ def main():
         raise AssertionError(f"BLER {bler} is off the yardstick {want_bler}")
 
     # ---- phase 6: the CLI path ----
-    cfg = PolarConfig(k=K, n=N, construction="5g", bs=BATCH, algos=["scl"],
+    cfg = PolarConfig(k=K, n=N, construction="5g", bs=BATCH,
+                      algos=["scl", "bp"], bp_iter=BP_ITER,
                       mc_iter=CLI_MC_ITER, target_block_errs=None, seed=SEED,
                       device=str(dev))
     log(f"phase 6: CLI sweep {cfg}")
@@ -756,7 +879,8 @@ def main():
         with open(jsonl) as fh:
             rows = [json.loads(line) for line in fh]
     log(f"phase 6: launches during the sweep: {cli_launches}")
-    if min(cli_launches["sc_subtree"], cli_launches["scl_subtree"]) == 0:
+    if min(cli_launches["sc_subtree"], cli_launches["scl_subtree"],
+           cli_launches["bp"]) == 0:
         raise AssertionError(f"the CLI sweep did not launch every kernel: "
                              f"{cli_launches}")
     names = [gate[0] for gate in CLI_GATES]
@@ -774,15 +898,17 @@ def main():
             f"{row['num_blocks']} blocks, {row['runtime_s']:.3f} s, "
             f"{K * row['num_blocks'] / row['runtime_s']:.4g} info bit/s "
             f"[{card}]")
-    for name, key, ebno_db, tol in CLI_GATES:
-        row = point[name, ebno_db]
+    def gate(name, key, ebno_db, tol, row):
         got_bler = row["block_errors"] / row["num_blocks"]
         want = yardstick(key, ebno_db)
-        log(f"phase 6: {name} BLER {got_bler:.5f} at {ebno_db} dB; "
-            f"yardstick {key} {want:.5f} +- {tol}")
+        log(f"{name} BLER {got_bler:.5f} at {ebno_db} dB; yardstick {key} "
+            f"{want:.5f} +- {tol}")
         if abs(got_bler - want) > tol:
             raise AssertionError(f"{name} BLER {got_bler} is off the "
                                  f"yardstick {want}")
+
+    for name, key, ebno_db, tol in CLI_GATES:
+        gate(f"phase 6: {name}", key, ebno_db, tol, point[name, ebno_db])
 
     # ---- phase 7: where the time goes ----
     llr = model.front(gen, BATCH, EBNO_MAIN_DB)[2]
@@ -815,6 +941,41 @@ def main():
         log(f"CA-SCL-32 depth survey: 5G k={G5_K} E={G5_E} decoder at b={b} "
             f"({enc5.n_polar >> b} x {1 << b} leaves): {ms:.3f} ms per batch "
             f"of {WIDE_BATCH} [{card}]")
+
+    # one BP-20 decode of the CLI's shape, early stop on (the path's
+    # setting) and off (fixed work); the sweeps each codeword ran, from the
+    # flags at every check budget: a codeword converged within c checks
+    # carries the same flag at the budget of c chunks
+    bp_kw = dict(check_every=bp_dec.check_every, mode=bp_dec.mode,
+                 msf=bp_dec.msf, llr_max=30.0, negate=True)
+    llr_bp = bp_model.front(gen, BATCH, BP_EBNO_DB)[2].t()
+    checks = torch.zeros(BATCH, dtype=torch.int64, device=dev)
+    every = bp_dec.check_every
+    for c in range(1, BP_ITER // every + 1):
+        _, done_c = bp_decode(llr_bp, bp_prior, num_iter=c * every,
+                              early_stop=True, return_done=True, **bp_kw)
+        checks += done_c == 0
+    converged = checks < BP_ITER // every
+    checks = torch.where(converged, checks + 1, checks)
+    sweeps = torch.where(converged, checks * every, BP_ITER)
+    bp_times = {}
+    for es, n_sweeps, n_checks in (
+            (True, int(sweeps.sum().item()), int(checks.sum().item())),
+            (False, BP_ITER * BATCH, 0)):
+        kw = dict(num_iter=BP_ITER, early_stop=es, **bp_kw)
+        k_ms = cuda_ms(lambda: bp_decode(llr_bp, bp_prior, **kw), reps=5)
+        p_ms = cuda_ms(lambda: bp_decode_plain(llr_bp, bp_prior, **kw),
+                       reps=1)
+        n_bytes, n_ops = bp_work(N, BATCH, n_sweeps, n_checks, bp_dec.mode,
+                                 bp_dec.msf)
+        bnd, by = bound_ms(n_bytes, n_ops)
+        bp_times[es] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bnd,
+                            bound_by=by)
+        log(f"  bp, one BP-{BP_ITER} decode (n={N}, bs={BATCH}, "
+            f"{BP_EBNO_DB} dB, early stop {es}): kernel {k_ms:.3f} ms, plain "
+            f"{p_ms:.3f} ms; {n_sweeps / BATCH:.3f} sweeps and "
+            f"{n_checks / BATCH:.3f} checks per codeword; bound {bnd:.4f} ms "
+            f"({by}: {n_bytes} B, {n_ops} f32 ops); library: none [{card}]")
     profile_step(model, gen)
 
     # ---- phase 8: the 5G NR CA-SCL path ----
@@ -881,6 +1042,49 @@ def main():
             f"{len(traced_calls[L])} launches; plain {t['plain_ms']:.3f} ms; "
             f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}) [{card}]")
 
+    # ---- phase 9: BP's two-pass serving path ----
+    bp_two = PolarBPDecoder(frozen, N, num_iter=BP_ITER, two_pass=True,
+                            first_pass_iters=8, device=dev)
+    for hard_out in (True, False):
+        one = PolarBPDecoder(frozen, N, num_iter=BP_ITER, hard_out=hard_out,
+                             device=dev)
+        two = PolarBPDecoder(frozen, N, num_iter=BP_ITER, hard_out=hard_out,
+                             two_pass=True, first_pass_iters=8, device=dev)
+        llr = bp_model.front(gen, BATCH, BP_EBNO_DB)[2]
+        same = torch.equal(one(llr), two(llr))
+        _, done1 = two._run(llr, two.first_pass_iters, want_done=True)
+        log(f"phase 9: two-pass BP-{BP_ITER} (first pass 8 sweeps), "
+            f"hard_out {hard_out}, bs={BATCH}, {BP_EBNO_DB} dB: bit-identical "
+            f"to single-pass: {same}; {int((~done1).sum().item())} rows "
+            f"re-decoded in a bucket of {two._cap_hwm}")
+        if not same:
+            raise AssertionError("the two-pass BP decoder differs from the "
+                                 "single-pass decoder")
+    model_two = SystemAWGNModel(N, K, model.encoder, bp_two)
+    bp_two.prewarm(BATCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        jsonl = os.path.join(tmp, "bp2.jsonl")
+        reset_counts()
+        torch.cuda.synchronize()
+        sim_ber(model_two, [BP_EBNO_DB], batch_size=BATCH,
+                max_mc_iter=CLI_MC_ITER, early_stop=False, verbose=False,
+                seed=SEED, jsonl_path=jsonl)
+        torch.cuda.synchronize()
+        two_counts = counts()
+        with open(jsonl) as fh:
+            (row,) = [json.loads(line) for line in fh]
+    if two_counts["bp"] == 0 or row["num_blocks"] != BATCH * CLI_MC_ITER:
+        raise AssertionError(f"two-pass BP: {row['num_blocks']} blocks, "
+                             f"launches {two_counts}")
+    bp_name, bp_key, bp_ebno, bp_tol = CLI_GATES[-1]
+    one_row = point[bp_name, bp_ebno]
+    log(f"phase 9: two-pass BP-{BP_ITER}: {row['runtime_s']:.3f} s, "
+        f"{K * row['num_blocks'] / row['runtime_s']:.4g} info bit/s "
+        f"(single pass in phase 6: "
+        f"{K * one_row['num_blocks'] / one_row['runtime_s']:.4g}); "
+        f"bucket {bp_two._cap_hwm} rows; launches {two_counts} [{card}]")
+    gate(f"phase 9: two-pass {bp_name}", bp_key, bp_ebno, bp_tol, row)
+
     def entry(name, source, replaces, launches, c, times):
         return dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=launches,
@@ -903,6 +1107,11 @@ def main():
               f"{pallas}:832", cli_launches["sc_subtree"], sc_check,
               dict(ms=sc_kernel_ms, plain_ms=sc_plain_ms, bound_ms=sc_bound,
                    bound_by=sc_bound_by)),
+        entry("bp", "polar_torch/csrc/bp.cu",
+              "polar_tpu/models/polar/pallas_bp.py:57", cli_launches["bp"],
+              bp_check, dict(bp_times[True], **{
+                  f"{k}_no_early_stop": v
+                  for k, v in bp_times[False].items()})),
     ]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}; main path {info_bps:.6g} info bit/s, "

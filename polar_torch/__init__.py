@@ -1,6 +1,6 @@
 """polar_torch: the PyTorch and CUDA port of polar_tpu.
 
-It carries three paths:
+It carries four paths:
 
 * the SCL-8 fast-SCL chain: binary source -> polar encoder on a 5G-ranked
   code -> QPSK mapper -> AWGN -> exact demapper -> fast-SCL list decoder
@@ -10,12 +10,15 @@ It carries three paths:
   the Monte-Carlo harness ``sim_ber`` and ``PlotBER``;
 * the 5G NR CA-SCL chain: ``Polar5GEncoder`` (CRC, rate matching, PC bits)
   -> QPSK -> AWGN -> demapper -> ``Polar5GDecoder`` (SC, CA-SCL or hybrid
-  SC/CA-SCL, lists of up to 32) -> CRC check.
+  SC/CA-SCL, lists of up to 32) -> CRC check;
+* the BP decoder (``--algos [scl,bp]`` in the CLI): scaled min-sum belief
+  propagation with G-matrix early stop and a two-pass serving path.
 
 The decoders' subtrees run in hand-written CUDA kernels on the card
 (``models/polar/cuda_scl.py`` with ``csrc/scl_subtree.cu`` for SCL, static
 and traced forms, L up to 32; ``models/polar/cuda_sc.py`` with
-``csrc/sc_subtree.cu`` for SC).
+``csrc/sc_subtree.cu`` for SC); the whole BP decode is one kernel
+(``models/polar/cuda_bp.py`` with ``csrc/bp.cu``).
 
 Entry points run on ``device="cuda"`` by default and raise when no card is
 present; pass ``device="cpu"`` to run the plain PyTorch versions.
@@ -33,6 +36,7 @@ from polar_torch.models.polar.sc import PolarSCDecoder
 from polar_torch.models.polar.scl import PolarSCLDecoder
 from polar_torch.models.polar.hybrid import HybridSCLDecoder
 from polar_torch.models.polar.decode5g import Polar5GDecoder
+from polar_torch.models.polar.bp import PolarBPDecoder
 from polar_torch.ops.crc import CRCDecoder, CRCEncoder
 from polar_torch.models.systems import SystemAWGNModel
 from polar_torch.sim import count_block_errors, count_errors, sim_ber
@@ -45,7 +49,7 @@ __all__ = [
     "SymbolLogits2LLRs", "AWGN", "complex_normal", "ARIKAN_F2",
     "generate_5g_ranking", "get_kern_frozen_bits", "info_positions",
     "PolarEncoder", "Polar5GEncoder", "PolarSCDecoder", "PolarSCLDecoder",
-    "HybridSCLDecoder", "Polar5GDecoder", "CRCEncoder", "CRCDecoder",
+    "HybridSCLDecoder", "Polar5GDecoder", "PolarBPDecoder", "CRCEncoder", "CRCDecoder",
     "SystemAWGNModel",
     "count_block_errors", "count_errors", "sim_ber", "PlotBER",
     "PolarConfig", "from_numpy_state",

@@ -28,7 +28,7 @@ class PolarConfig:
     # "5g" (NR reliability table); "rm-ref" and "ga" are not ported
     num_devices: int = 0       # data-parallel devices; > 1 is not ported
     target_block_errs: int = 1000
-    bp_iter: int = 20          # BP decoder iterations (BP is not ported)
+    bp_iter: int = 20          # BP decoder iterations (sweeps)
     osd_t: int = 2             # OSD order for non-F2 kernels (not ported)
     # fast-SCL pruning, tri-state: None = the decoder's default by n (fast
     # below n=256, plain from 256 up); true/false pins it

@@ -7,6 +7,7 @@ and scalars, so both packages decode the same code.
 
 import numpy as np
 
+from polar_torch.models.polar.bp import PolarBPDecoder
 from polar_torch.models.polar.decode5g import Polar5GDecoder
 from polar_torch.models.polar.encode import Polar5GEncoder, PolarEncoder
 from polar_torch.models.polar.sc import PolarSCDecoder
@@ -20,9 +21,12 @@ def from_numpy_state(state: dict, device=None) -> SystemAWGNModel:
 
     A code given by its frozen set (``code`` absent or ``"polar"``) reads
     ``frozen_pos``, ``n``, ``k``, ``mode``, ``llr_max`` and ``decoder``
-    (``"scl"``, the default, or ``"sc"``). An SCL decoder also reads
-    ``list_size``, ``use_fast_scl`` (None or absent: the decoder's default
-    by n), ``fast_rate1`` and ``spc_min_stage`` (None: no SPC).
+    (``"scl"``, the default, ``"sc"`` or ``"bp"``). An SCL decoder also
+    reads ``list_size``, ``use_fast_scl`` (None or absent: the decoder's
+    default by n), ``fast_rate1`` and ``spc_min_stage`` (None: no SPC). A
+    BP decoder reads ``num_iter``, ``msf``, ``early_stop``,
+    ``check_every`` and ``hard_out``, and ``two_pass`` and
+    ``first_pass_iters`` when given.
 
     A 5G NR code (``code="5g"``) reads ``k`` and ``n`` (the rate-matched
     targets), ``channel_type``, ``enable_pc``, ``dec_type`` (``"SC"``,
@@ -50,8 +54,17 @@ def from_numpy_state(state: dict, device=None) -> SystemAWGNModel:
             use_fast_scl=None if fast is None else bool(fast),
             fast_rate1=bool(state["fast_rate1"]),
             spc_min_stage=None if spc is None else int(spc), **common)
+    elif kind == "bp":
+        two_pass = bool(state.get("two_pass", False))
+        decoder = PolarBPDecoder(
+            frozen, n, num_iter=int(state["num_iter"]),
+            msf=float(state["msf"]), early_stop=bool(state["early_stop"]),
+            check_every=int(state["check_every"]),
+            hard_out=bool(state["hard_out"]), two_pass=two_pass,
+            first_pass_iters=int(state.get("first_pass_iters", 8)),
+            **common)
     else:
-        raise ValueError(f"unknown decoder {kind!r}: 'sc' or 'scl'")
+        raise ValueError(f"unknown decoder {kind!r}: 'sc', 'scl' or 'bp'")
     return SystemAWGNModel(n, k, encoder, decoder)
 
 

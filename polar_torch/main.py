@@ -1,13 +1,16 @@
-"""CLI entry point: BER/BLER sweep of SC against SCL polar decoding over
-AWGN, on the card unless ``--device cpu``.
+"""CLI entry point: BER/BLER sweep of SC against SCL and BP polar decoding
+over AWGN, on the card unless ``--device cpu``.
 
     python -m polar_torch.main --k 512 --n 1024 --construction 5g --bs 8192
+    python -m polar_torch.main --k 512 --n 1024 --construction 5g \
+        --algos [scl,bp] --bs 8192
 
 Always simulates SC; adds SCL-<list_size> when ``scl`` is in ``--algos``
-(the default). Frozen sets come from the lowest-row-weight construction
-(``--construction rm``, the default) or the 5G NR reliability table
-(``--construction 5g``). ``sweep`` runs the decoders and returns the
-curves; ``main`` also draws them to a PNG (needs matplotlib).
+(the default) and BP-<bp_iter> when ``bp`` is. Frozen sets come from the
+lowest-row-weight construction (``--construction rm``, the default) or the
+5G NR reliability table (``--construction 5g``). ``sweep`` runs the
+decoders and returns the curves; ``main`` also draws them to a PNG (needs
+matplotlib).
 """
 
 import os
@@ -17,17 +20,19 @@ import numpy as np
 from polar_torch.config import PolarConfig, parse_config
 from polar_torch.models.polar.construction import (
     ARIKAN_F2, generate_5g_ranking, get_kern_frozen_bits)
+from polar_torch.models.polar.bp import PolarBPDecoder
 from polar_torch.models.polar.encode import PolarEncoder
 from polar_torch.models.polar.sc import PolarSCDecoder
 from polar_torch.models.polar.scl import PolarSCLDecoder
 from polar_torch.models.systems import SystemAWGNModel
 from polar_torch.plotting import PlotBER
-from polar_torch.utils.profiling import complexity_line, decode_complexity
+from polar_torch.utils.profiling import (bp_complexity, complexity_line,
+                                        decode_complexity)
 
 
 def gen_code(c: PolarConfig, name: str, mode: str = "sc"):
     """``[SystemAWGNModel, name]`` for the configured code with an SC
-    (``mode="sc"``) or SCL (``mode="scl"``) decoder."""
+    (``mode="sc"``), SCL (``mode="scl"``) or BP (``mode="bp"``) decoder."""
     if c.n < 2 or c.n & (c.n - 1):
         raise ValueError("n must be a power of 2")
     kern_name = (c.kern or "F2").upper()
@@ -52,40 +57,43 @@ def gen_code(c: PolarConfig, name: str, mode: str = "sc"):
         dec = PolarSCLDecoder(frozen_pos, c.n, c.list_size, mode=f_mode,
                               use_fast_scl=c.fast_scl, device=c.device)
     elif mode == "bp":
-        raise NotImplementedError("the BP decoder is not ported yet "
-                                  "(ROADMAP Queue 1 item 13)")
+        dec = PolarBPDecoder(frozen_pos, c.n, num_iter=c.bp_iter,
+                             mode=f_mode, device=c.device)
     else:
         raise ValueError(f"unknown decode mode {mode!r}")
     return [SystemAWGNModel(c.n, c.k, enc, dec), name]
 
 
 def sweep(c: PolarConfig, ebno_dbs=None, jsonl_path=None) -> PlotBER:
-    """Simulate SC (and SCL-<L> when ``scl`` is in ``c.algos``) over
-    ``ebno_dbs`` (default ``arange(0, c.snr_end, 0.5)``), printing each
-    decoder's complexity line and progress table. ``jsonl_path`` collects
-    one JSON line per point and decoder, in that order. Returns the
-    curves."""
+    """Simulate SC (and SCL-<L> when ``scl`` is in ``c.algos``, BP-<iter>
+    when ``bp`` is) over ``ebno_dbs`` (default ``arange(0, c.snr_end,
+    0.5)``), printing each decoder's complexity line and progress table.
+    ``jsonl_path`` collects one JSON line per point and decoder, in that
+    order. Returns the curves."""
     if c.num_devices > 1:
         raise NotImplementedError("num_devices > 1 (data-parallel sweep) is "
                                   "not ported yet (ROADMAP Queue 1 item 16)")
-    if "bp" in c.algos:
-        raise NotImplementedError("the BP decoder is not ported yet "
-                                  "(ROADMAP Queue 1 item 13)")
     if ebno_dbs is None:
         ebno_dbs = np.arange(0, c.snr_end, 0.5)
     codes_under_test = [gen_code(c, "SC", mode="sc")]
     if "scl" in c.algos:
         codes_under_test.append(gen_code(c, f"SCL-{c.list_size}",
                                          mode="scl"))
+    if "bp" in c.algos:
+        codes_under_test.append(gen_code(c, f"BP-{c.bp_iter}", mode="bp"))
     ber_plot = PlotBER(f"Performance of Short Len Codes (k={c.k}, n={c.n})")
     for model, name in codes_under_test:
         print("\nRunning: " + name)
         dec = model.decoder
-        L = c.list_size if name.startswith("SCL") else 1
-        fast = bool(getattr(dec, "use_fast_scl", False)) and L > 1
-        print(complexity_line(name, decode_complexity(
-            c.n, c.k, L, fast=fast, frozen_mask=dec._frozen_mask,
-            rate1=bool(getattr(dec, "fast_rate1", False)))))
+        if name.startswith("BP"):
+            comp = bp_complexity(c.n, c.k, c.bp_iter)
+        else:
+            L = c.list_size if name.startswith("SCL") else 1
+            fast = bool(getattr(dec, "use_fast_scl", False)) and L > 1
+            comp = decode_complexity(
+                c.n, c.k, L, fast=fast, frozen_mask=dec._frozen_mask,
+                rate1=bool(getattr(dec, "fast_rate1", False)))
+        print(complexity_line(name, comp))
         ber_plot.simulate(
             model, ebno_dbs=ebno_dbs, batch_size=c.bs,
             target_block_errs=c.target_block_errs, legend=name,

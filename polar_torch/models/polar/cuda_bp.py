@@ -1,0 +1,243 @@
+"""The BP decode: its hand-written CUDA kernel, the same schedule's host
+build, and its plain PyTorch version.
+
+One call runs the whole belief-propagation decode of every codeword of the
+batch: given the true channel LLRs ``llr`` [n, bs] f32 (positive means bit
+0; with ``negate=True`` the caller's logits, negated on load) and the
+frozen prior ``prior`` [n] f32 (+llr_max at frozen positions, 0
+elsewhere), it runs ``num_iter`` sweeps of scaled min-sum (``msf``) or
+exact processing-element updates over the message lattice and returns the
+info-side total LLR [n, bs] f32, and with ``return_done`` the G-matrix
+convergence flag [bs] int32. With ``early_stop`` a codeword stops at the
+first of its checks (every ``check_every`` sweeps) that passes.
+
+* ``bp_decode`` is the wrapper the decoder calls. A CUDA tensor goes
+  through the kernel (``csrc/bp.cu``), a CPU tensor through the plain
+  version; nothing falls back from one to the other. It counts its
+  launches in ``launches``.
+* ``bp_decode_plain`` mirrors the JAX package's XLA engine
+  (``PolarBPDecoder._run``): whole-batch tensor ops, a converged lane frozen
+  by a select, the loop left when every lane has converged.
+* ``bp_decode_host`` runs the kernel's schedule built for the CPU with g++,
+  so the tests can check the CUDA source's logic.
+
+In scaled min-sum the ``l_v``/``r_v`` outputs round ``msf * minsum + v``
+once, as XLA fuses them on the CPU (``ops/fg.scaled_minsum_add`` here,
+``fmaf`` in the kernel), so min-sum is bit-equal to the JAX package. Exact
+mode rounds differently in ``expf``/``log1pf`` and ``torch.logaddexp``.
+"""
+
+import ctypes
+
+import torch
+
+from polar_torch import _build
+from polar_torch.ops.fg import (F_FUNCTIONS, f_exact, make_scaled_minsum,
+                                scaled_minsum_add)
+
+MAX_S = 16
+# the opt-in shared memory of one block on sm_90 (H100): the lattice and
+# the check's n bytes must fit for the shared-memory form
+SHARED_LIMIT = 232448
+LATTICES = ("auto", "shared", "global")
+
+
+def lattice_bytes(n: int) -> int:
+    """Shared memory of the shared-lattice form at block length ``n``."""
+    return 4 * 2 * n.bit_length() * n + n
+
+
+def resolve_lattice(n: int, lattice: str = "auto") -> str:
+    """Where the kernel keeps the lattice: ``"shared"`` when it fits (n up
+    to 2048), else ``"global"``; a forced ``"shared"`` that does not fit
+    raises."""
+    if lattice not in LATTICES:
+        raise ValueError(f"lattice must be one of {LATTICES}")
+    fits = lattice_bytes(n) <= SHARED_LIMIT
+    if lattice == "shared" and not fits:
+        raise ValueError(f"the lattice of n={n} does not fit shared memory")
+    if lattice == "auto":
+        return "shared" if fits else "global"
+    return lattice
+
+
+# ----------------------------------------------------------------------
+# the wrapper
+# ----------------------------------------------------------------------
+def bp_decode(llr, prior, *, num_iter: int, check_every: int,
+              early_stop: bool, mode: str, msf: float, llr_max: float,
+              return_done: bool = False, negate: bool = False,
+              lattice: str = "auto"):
+    """Decode; see the module docstring. CUDA tensors launch the kernel
+    (``lattice`` forces its lattice into shared or global memory), CPU
+    tensors run ``bp_decode_plain``."""
+    kw = dict(num_iter=num_iter, check_every=check_every,
+              early_stop=early_stop, mode=mode, msf=msf, llr_max=llr_max,
+              return_done=return_done, negate=negate)
+    if llr.device.type == "cpu":
+        resolve_lattice(llr.shape[0], lattice)
+        return bp_decode_plain(llr, prior, **kw)
+    if llr.device.type != "cuda":
+        raise ValueError(f"bp_decode: unsupported device {llr.device}")
+    lib = _build.load("bp", "cuda")
+    with torch.cuda.device(llr.device):
+        stream = torch.cuda.current_stream(llr.device).cuda_stream
+        res = _native_call(lib.bp_launch, llr, prior, lattice, stream, **kw)
+        bp_decode.launches += llr.shape[1] > 0      # an empty batch: none
+    return res
+
+
+bp_decode.launches = 0
+
+
+def bp_decode_host(llr, prior, *, lattice: str = "auto", **kw):
+    """The kernel's schedule built for the CPU (g++); CPU tensors only. For
+    tests: the main path never calls it."""
+    if llr.device.type != "cpu":
+        raise ValueError("bp_decode_host takes CPU tensors")
+    return _native_call(_build.load("bp", "host").bp_host, llr, prior,
+                        lattice, None, **kw)
+
+
+_ARGTYPES = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+              ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+             + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_float])
+
+
+def _check(llr, prior, num_iter, check_every, early_stop, mode, return_done):
+    if llr.dim() != 2 or llr.dtype != torch.float32:
+        raise TypeError("bp_decode takes f32 LLRs of shape [n, bs]")
+    n, _ = llr.shape
+    if n < 2 or n & (n - 1) or n > 1 << MAX_S:
+        raise ValueError(f"n={n} must be a power of 2 in [2, 2^{MAX_S}]")
+    if (prior.dtype != torch.float32 or tuple(prior.shape) != (n,)
+            or prior.device != llr.device):
+        raise ValueError(f"prior must be an f32 [{n}] tensor on {llr.device}")
+    if mode not in F_FUNCTIONS:
+        raise ValueError(f"unknown mode {mode!r}")
+    if int(num_iter) < 1 or int(check_every) < 1:
+        raise ValueError("num_iter and check_every must be at least 1")
+    if return_done and not early_stop:
+        raise ValueError("return_done needs early_stop")
+
+
+def _native_call(fn, llr, prior, lattice, stream, *, num_iter, check_every,
+                 early_stop, mode, msf, llr_max, return_done=False,
+                 negate=False):
+    _check(llr, prior, num_iter, check_every, early_stop, mode, return_done)
+    n, bs = llr.shape
+    where = resolve_lattice(n, lattice)
+    dev = llr.device
+    # [n, bs] over [bs, n] storage: a codeword's rows are contiguous, so a
+    # block's loads and stores coalesce
+    out = torch.empty((bs, n), dtype=torch.float32, device=dev).t()
+    done = (torch.empty(bs, dtype=torch.int32, device=dev) if return_done
+            else None)
+    if bs == 0:
+        return (out, done) if return_done else out
+    prior = prior.contiguous()
+    scratch = None
+    if where == "global":
+        scratch = torch.empty(bs * 2 * n.bit_length() * n,
+                              dtype=torch.float32, device=dev)
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES + ([] if stream is None
+                                   else [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    args = [llr.data_ptr(), llr.stride(0), llr.stride(1), prior.data_ptr(),
+            out.data_ptr(), out.stride(0), out.stride(1),
+            None if done is None else done.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            n.bit_length() - 1, bs, int(num_iter), int(check_every),
+            int(bool(early_stop)), int(F_FUNCTIONS[mode] is f_exact),
+            int(bool(negate)), float(msf), float(llr_max)]
+    rc = fn(*args) if stream is None else fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"bp_decode: native call failed with code {rc}")
+    return (out, done) if return_done else out
+
+
+# ----------------------------------------------------------------------
+# the plain version
+# ----------------------------------------------------------------------
+def _pairs(x, s):
+    """[n, bs] -> the (upper, lower) halves of the stage-s butterflies,
+    views [n / 2^(s+1), 2^s, bs]."""
+    n, bs = x.shape
+    blk = x.view(n >> (s + 1), 2, 1 << s, bs)
+    return blk[:, 0], blk[:, 1]
+
+
+def bp_decode_plain(llr, prior, *, num_iter: int, check_every: int,
+                    early_stop: bool, mode: str, msf: float, llr_max: float,
+                    return_done: bool = False, negate: bool = False):
+    """Plain PyTorch BP decode on any device, the JAX package's XLA engine
+    step for step; same contract as ``bp_decode``."""
+    _check(llr, prior, num_iter, check_every, early_stop, mode, return_done)
+    n, bs = llr.shape
+    S = n.bit_length() - 1
+    dev = llr.device
+    if mode in ("minsum", "max") and float(msf) != 1.0:
+        f = make_scaled_minsum(msf)
+
+        def f_add(x, y, z):
+            return scaled_minsum_add(msf, x, y, z, llr_max)
+    else:
+        f = F_FUNCTIONS[mode]
+
+        def f_add(x, y, z):
+            return f(x, y, llr_max) + z
+
+    lmsg = torch.zeros((S + 1, n, bs), dtype=torch.float32, device=dev)
+    rmsg = torch.zeros_like(lmsg)
+    lmsg[S] = -llr if negate else llr
+    rmsg[0] = prior[:, None]
+
+    def sweep_(lm, rm):
+        """One sweep, in place: l at stages S-1..0, then r at 0..S-1."""
+        for left, stages in ((True, range(S - 1, -1, -1)),
+                             (False, range(S))):
+            for s in stages:
+                lu, lv = _pairs(lm[s + 1], s)
+                ru, rv = _pairs(rm[s], s)
+                du, dv = _pairs(lm[s] if left else rm[s + 1], s)
+                a, b, c = (lu, ru, lv) if left else (ru, lu, rv)
+                du.copy_(f(a, lv + rv, llr_max))
+                dv.copy_(f_add(a, b, c))
+
+    frozen = prior > 0
+
+    def converged(lm, rm):
+        u = torch.where(frozen[:, None], 0, (lm[0] + rm[0] <= 0).to(
+            torch.int32))
+        x_hat = (lm[S] + rm[S] <= 0).to(torch.int32)
+        for s in range(S):
+            cu, cv = _pairs(u, s)
+            u = torch.stack([cu ^ cv, cv], dim=1).reshape(n, bs)
+        return (u == x_hat).all(dim=0)
+
+    def frozen_sweeps(lm, rm, done, sweeps):
+        """``sweeps`` sweeps; a converged lane keeps its lattice."""
+        l_new, r_new = lm.clone(), rm.clone()
+        for _ in range(sweeps):
+            sweep_(l_new, r_new)
+        keep = done[None, None, :]
+        return torch.where(keep, lm, l_new), torch.where(keep, rm, r_new)
+
+    done = torch.zeros(bs, dtype=torch.bool, device=dev)
+    if early_stop:
+        # full chunks while a lane is left, then the unchecked remainder
+        full = (num_iter // check_every) * check_every
+        i = 0
+        while i < full and not bool(done.all()):
+            lmsg, rmsg = frozen_sweeps(lmsg, rmsg, done, check_every)
+            done = done | converged(lmsg, rmsg)
+            i += check_every
+        if num_iter > full:
+            lmsg, rmsg = frozen_sweeps(lmsg, rmsg, done, num_iter - full)
+    else:
+        for _ in range(num_iter):
+            sweep_(lmsg, rmsg)
+    out = lmsg[0] + rmsg[0]
+    return (out, done.to(torch.int32)) if return_done else out

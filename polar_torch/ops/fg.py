@@ -7,6 +7,9 @@ update, as element-wise tensor functions.
 * ``g``: ``(1 - 2 u) x + y``.
 * ``pm_update``: ``pm + softplus(-(1 - 2u) clip(llr))`` (Balatsoukas-Stimming
   et al., Eq. 10).
+* ``make_scaled_minsum``: BP's normalized min-sum ``alpha f_minsum(x, y)``,
+  and ``scaled_minsum_add``, ``alpha f_minsum(x, y) + z`` rounded once, as
+  XLA contracts it into a fused multiply-add on the CPU.
 """
 
 import torch
@@ -39,6 +42,45 @@ def f_exact(x, y, llr_max=LLR_MAX):
 
 F_FUNCTIONS = {"minsum": f_minsum, "max": f_minsum, "exact": f_exact,
                "llr": f_exact}
+
+
+def make_scaled_minsum(alpha: float):
+    """Scaled (normalized) min-sum ``alpha * f_minsum(x, y)``, one f32
+    rounding of the product. Min-sum overestimates the boxplus magnitude,
+    and in iterative BP that compounds over the sweeps."""
+    alpha = float(alpha)
+
+    def f(x, y, llr_max=LLR_MAX):
+        return alpha * f_minsum(x, y, llr_max)
+
+    return f
+
+
+def fma_f32(a: float, b, c):
+    """``a * b + c`` for f32 tensors ``b``, ``c`` and a scalar ``a`` taken as
+    f32, rounded once to f32 as ``fmaf`` does.
+
+    The product is exact in f64 (24 + 24 bits) and TwoSum gives the f64
+    sum's rounding error exactly. The cast to f32 rounds the f64 sum, which
+    is the correct rounding of the exact sum except where the f64 sum lies
+    on the midpoint of two f32 neighbours: there the exact sum lies on the
+    error's side of it."""
+    a = torch.tensor(a, dtype=torch.float32).item()
+    p = b.double() * a
+    c = c.double()
+    s = p + c
+    t = s - p
+    err = (p - (s - t)) + (c - t)
+    r = s.float()
+    d = s - r.double()
+    nb = torch.nextafter(r, torch.where(d > 0, torch.inf, -torch.inf).to(r))
+    tie = (d != 0) & (err != 0) & (2.0 * d == nb.double() - r.double())
+    return torch.where(tie & ((err > 0) == (d > 0)), nb, r)
+
+
+def scaled_minsum_add(alpha: float, x, y, z, llr_max=LLR_MAX):
+    """``alpha * f_minsum(x, y) + z`` with one rounding."""
+    return fma_f32(alpha, f_minsum(x, y, llr_max), z)
 
 
 def g(x, y, u_hat):

@@ -1,6 +1,7 @@
 """The polar_torch CLI: configuration parsing, the RM-style construction
-and the complexity meter against polar_tpu's, and ``main`` end to end on
-the CPU (as ``tests/test_config.py`` holds the JAX CLI's parsing)."""
+and the complexity meter against polar_tpu's, and ``main`` and ``sweep``
+(SC, SCL and BP) end to end on the CPU (as ``tests/test_config.py`` holds
+the JAX CLI's parsing)."""
 
 import dataclasses
 import os
@@ -103,11 +104,30 @@ def test_sweep_5g_curves_and_decoders():
     assert not model.decoder.use_fast_scl
 
 
+def test_sweep_with_bp_runs_sc_scl_and_bp(capsys):
+    """``--algos [scl,bp]``: SC, SCL-8 and BP-20 curves, each with its
+    complexity line (BP's from ``bp_complexity``, as the JAX CLI prints)."""
+    c = PolarConfig(k=32, n=64, construction="5g", bs=64, mc_iter=1,
+                    algos=["scl", "bp"], device="cpu")
+    plot = tmain.sweep(c, ebno_dbs=[1.0, 3.0])
+    assert plot.legend == ["SC", "SC (BLER)", "SCL-8", "SCL-8 (BLER)",
+                           "BP-20", "BP-20 (BLER)"]
+    assert all(len(curve) == 2 for curve in plot.ber)
+    bp_bler = np.asarray(plot.ber[5])
+    assert np.all((0 <= bp_bler) & (bp_bler <= 1)) and bp_bler[1] < 0.5
+    text = capsys.readouterr().out
+    want = jprof.complexity_line("BP-20", jprof.bp_complexity(64, 32, 20))
+    assert "Running: BP-20" in text and want in text
+    model, _ = tmain.gen_code(c, "BP-20", mode="bp")
+    dec = model.decoder
+    assert (dec.num_iter, dec.mode, dec.msf) == (20, "minsum", 0.9375)
+    assert dec.early_stop and dec.check_every == 2
+
+
 @pytest.mark.parametrize("change,item", [
     ({"kern": "F3"}, "Queue 1 item 14"),
     ({"construction": "rm-ref"}, "Queue 1 item 14"),
     ({"construction": "ga"}, "Queue 1 item 14"),
-    ({"algos": ["scl", "bp"]}, "Queue 1 item 13"),
     ({"num_devices": 2}, "Queue 1 item 16"),
 ])
 def test_cli_raises_for_later_slices(change, item):

@@ -1,7 +1,9 @@
-"""polar_torch on the card: the SCL and SC subtree kernels against their
-plain versions on the same CUDA inputs (the SCL kernel at L up to 32 and
-in its traced form), and the decoders (fast and plain SCL, SC, the 5G
-CA-SCL and hybrid chain) on the card against the same decoders on the CPU.
+"""polar_torch on the card: the SCL and SC subtree kernels and the BP
+kernel against their plain versions on the same CUDA inputs (the SCL
+kernel at L up to 32 and in its traced form; BP with its lattice in shared
+and in global memory), and the decoders (fast and plain SCL, SC, the 5G
+CA-SCL and hybrid chain, BP single- and two-pass) on the card against the
+same decoders on the CPU.
 Every test here needs a CUDA card and skips without one.
 
 The file imports no JAX, so it also runs where JAX is not installed:
@@ -251,3 +253,105 @@ def test_5g_decoder_on_card_equals_cpu(cuda, dec_type, L):
     agree = (got.cpu() == want).all(dim=1).float().mean().item()
     assert agree >= BLOCK_AGREEMENT
     assert (ok_got.cpu() == ok_want).float().mean().item() >= BLOCK_AGREEMENT
+
+
+def _bp_inputs(n, bs, ebno_db, seed):
+    """(prior [n], logits [bs, n]) of random codewords of a rate-1/2 code
+    (5G table up to n=1024, the RM-style construction beyond)."""
+    from polar_torch.models.polar.construction import get_kern_frozen_bits
+    from polar_torch.models.polar.encode import PolarEncoder
+    frozen = (generate_5g_ranking(n // 2, n)[0] if n <= 1024
+              else get_kern_frozen_bits(n, n // 2)[2])
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, 2, (bs, n // 2)).astype(np.float32)
+    c = PolarEncoder(frozen, n, device="cpu")(torch.from_numpy(u)).numpy()
+    sigma = np.sqrt(1.0 / 10 ** (ebno_db / 10))
+    logits = (2.0 / sigma ** 2) * ((2.0 * c - 1.0)
+                                   + rng.normal(0, sigma, c.shape))
+    prior = np.zeros(n, np.float32)
+    prior[frozen] = LLR_MAX
+    return torch.from_numpy(prior), torch.from_numpy(logits.astype(
+        np.float32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,lattice,msf,early_stop,num_iter,check_every", [
+    (64, "auto", 1.0, True, 21, 1),
+    (256, "auto", 0.9375, True, 21, 2),
+    (1024, "shared", 0.9375, True, 20, 2),
+    (1024, "global", 0.9375, True, 20, 2),
+    (1024, "auto", 0.9375, False, 20, 1),
+    (2048, "auto", 0.9375, True, 13, 2),
+    (4096, "auto", 0.9375, True, 9, 2),
+])
+def test_bp_kernel_equals_plain_on_card(cuda, n, lattice, msf, early_stop,
+                                        num_iter, check_every):
+    """Min-sum: every LLR and flag bit-equal to the plain version on the
+    same CUDA inputs (the kernel reads the logits through a transposed
+    view and negates them on load)."""
+    from polar_torch.models.polar.cuda_bp import bp_decode, bp_decode_plain
+    bs = 256 if n >= 2048 else 2048
+    prior, logits = _bp_inputs(n, bs, 2.0, n)
+    prior, logits = prior.to(cuda), logits.to(cuda)
+    kw = dict(num_iter=num_iter, check_every=check_every,
+              early_stop=early_stop, mode="minsum", msf=msf,
+              llr_max=LLR_MAX, return_done=early_stop)
+    before = bp_decode.launches
+    got = bp_decode(logits.t(), prior, negate=True, lattice=lattice, **kw)
+    torch.cuda.synchronize()
+    assert bp_decode.launches == before + 1
+    want = bp_decode_plain(-logits.t(), prior, **kw)
+    if early_stop:
+        assert torch.equal(got[1], want[1])
+        got, want = got[0], want[0]
+    assert got.device == logits.device and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_bp_kernel_exact_mode_on_card(cuda):
+    """Exact mode rounds differently in expf/log1pf and torch.logaddexp:
+    decisions equal on every block the plain version marks converged, and
+    on 99% of all blocks."""
+    from polar_torch.models.polar.cuda_bp import bp_decode, bp_decode_plain
+    prior, logits = _bp_inputs(1024, 2048, 2.0, 3)
+    prior, llr = prior.to(cuda), (-logits).t().contiguous().to(cuda)
+    kw = dict(num_iter=20, check_every=2, early_stop=True, mode="exact",
+              msf=0.9375, llr_max=LLR_MAX, return_done=True)
+    got, _ = bp_decode(llr, prior, **kw)
+    want, done = bp_decode_plain(llr, prior, **kw)
+    info = prior == 0
+    differ = ((got <= 0) != (want <= 0))[info].any(dim=0)
+    assert not differ[done > 0].any()
+    assert differ.float().mean().item() <= 0.01
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("two_pass", [False, True])
+def test_bp_decoder_on_card_equals_cpu(cuda, two_pass):
+    from polar_torch.models.polar.bp import PolarBPDecoder
+    from polar_torch.models.polar.cuda_bp import bp_decode
+    n, k = 1024, 512
+    frozen, _ = generate_5g_ranking(k, n)
+    _, logits = _bp_inputs(n, 1024, 2.0, 7)
+    kw = dict(num_iter=20, hard_out=False, two_pass=two_pass)
+    want = PolarBPDecoder(frozen, n, device="cpu", **kw)(logits)
+    before = bp_decode.launches
+    got = PolarBPDecoder(frozen, n, device=cuda, **kw)(logits.to(cuda))
+    assert bp_decode.launches > before
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_bp_wrapper_rejects_bad_cuda_inputs(cuda):
+    from polar_torch.models.polar.cuda_bp import bp_decode
+    kw = dict(num_iter=2, check_every=1, early_stop=True, mode="minsum",
+              msf=0.9375, llr_max=LLR_MAX)
+    prior = torch.zeros(8, device=cuda)
+    with pytest.raises(TypeError):
+        bp_decode(torch.zeros(8, 4, dtype=torch.float64, device=cuda), prior,
+                  **kw)
+    with pytest.raises(ValueError):       # the prior on the CPU
+        bp_decode(torch.zeros(8, 4, device=cuda), torch.zeros(8), **kw)
+    with pytest.raises(ValueError):       # no room in shared memory
+        bp_decode(torch.zeros(4096, 4, device=cuda),
+                  torch.zeros(4096, device=cuda), lattice="shared", **kw)

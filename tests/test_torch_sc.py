@@ -101,7 +101,7 @@ def test_from_numpy_state_builds_sc_decoder():
                          _logits(n, 64, 12))
     np.testing.assert_array_equal(got, want)
     with pytest.raises(ValueError, match="unknown decoder"):
-        from_numpy_state(dict(state, decoder="bp"), device="cpu")
+        from_numpy_state(dict(state, decoder="osd"), device="cpu")
 
 
 @pytest.mark.parametrize("form", ["static", "traced"])
