@@ -17,12 +17,14 @@ and prints no result):
    masks (rate-1 and SPC nodes), and through the whole k=512 n=1024 sweep
    at the decoder's subtree depth and at a smaller one (so the outer sweep
    runs on the card too); at L=16 and 32 on the k=512 n=1024 fast schedule
-   and random masks, min-sum and exact; the traced form (frozen flags as
-   data) through the plain sweep of the 5G k=400 E=1000 mother code at
-   L=8, 16 and 32 in exact mode, against the plain version and bit for bit
-   against the static form. Codewords and parent maps must agree on
-   >= 99.8% of blocks, path metrics to 1e-5 relative on the agreeing
-   blocks. The same holds for the plain (unpruned) SCL-8 sweep at k=512
+   and random masks, min-sum and exact; at L=8 b=10 and L=32 b=8, where
+   the upper workspace stages go to the global scratch, min-sum and
+   exact; the plain sweep of the 5G k=400 E=1000 mother code at L=8, 16
+   and 32 in exact mode, at the decoder's depth (the whole tree) and at
+   b=6, where it runs on the traced form (frozen flags as data), against
+   the plain version and bit for bit against the static form at b=6.
+   Codewords and parent maps must agree on >= 99.8% of blocks, path
+   metrics to 1e-5 relative on the agreeing blocks. The same holds for the plain (unpruned) SCL-8 sweep at k=512
    n=1024. The SC subtree kernel (``sc_subtree``) against
    ``sc_subtree_plain``: random masks at b = 3..8, static (ops z/f/i) and
    traced (op t) forms, and the 5G k=512 n=1024 code at the SC decoder's
@@ -46,23 +48,29 @@ and prints no result):
 6. the CLI path: ``polar_torch.main.sweep`` at k=512 n=1024 (5G), bs=8192,
    4 batches per point at 1.5 and 2.0 dB, ``algos=["scl", "bp"]``: SC on
    the ``sc_subtree`` kernel, SCL-8 on the plain sweep and the
-   ``scl_subtree`` kernel (traced form: 16 subtrees), then BP-20 on the
+   ``scl_subtree`` kernel (the whole tree, one call), then BP-20 on the
    ``bp`` kernel, with every launch count reset just before and read just
    after. Gates: SC BLER at 2.0 dB within +-0.011 of ``sc_n1024``, SCL-8
    BLER at 1.5 dB within +-0.007 of ``scl8_n1024``, BP-20 BLER at 2.0 dB
    within +-0.012 of ``bp_n1024`` (about 4 sigma of both samples
    combined);
 7. where the time goes: the SC, plain SCL, fast SCL and CA-SCL-32 depth
-   surveys, kernel, plain and bound times over one decode, one BP-20
-   decode (bs=8192, 2.0 dB) with early stop on and off and its mean sweeps
-   per codeword, and one profiled main-path step;
+   surveys, the SCL kernel's registers, stack and shared memory, its time
+   with the workspace split between shared memory and the global scratch
+   at other points than the budget's (fast SCL-8 at b = 6, 8 and the
+   default), a breakdown of a whole-tree L=32 call (as decoded, min-sum,
+   every leaf frozen, the descent alone), kernel, plain and bound times
+   over one decode, one BP-20 decode (bs=8192, 2.0 dB) with early stop on
+   and off and its mean sweeps per codeword, and one profiled main-path
+   step;
 8. the 5G path: ``Polar5GEncoder`` (uplink k=400 E=1000, CRC11,
    n_polar=1024) -> QPSK -> AWGN -> demapper -> ``Polar5GDecoder`` in exact
    mode through ``sim_ber`` at 1.5 dB: CA-SCL-8 and hybSCL-8 at bs=8192,
-   CA-SCL-32 at bs=2048, each with the launch counts reset just before and
-   read just after. Gates: CA-SCL-8 and hybSCL-8 BLER within about 4 sigma
-   of ``5g_cascl8_k400_n1000`` and ``hybscl8_5g_k400_n1000``; CA-SCL-32
-   BLER at or below the CA-SCL-8 yardstick. Prints info bit/s, decoder ms
+   CA-SCL-32 at bs=2048, and CA-SCL-8 at b=6 (the kernel's traced form)
+   at bs=8192, each with the launch counts reset just before and read just
+   after. Gates: CA-SCL-8 (both depths) and hybSCL-8 BLER within about 4
+   sigma of ``5g_cascl8_k400_n1000`` and ``hybscl8_5g_k400_n1000``;
+   CA-SCL-32 BLER at or below the CA-SCL-8 yardstick. Prints info bit/s, decoder ms
    per batch, and the kernel's ms per decode with launches and bound;
 9. BP's two-pass serving path at 2.0 dB: ``PolarBPDecoder(two_pass=True,
    first_pass_iters=8)`` bit-identical to the single-pass decoder on one
@@ -72,8 +80,9 @@ and prints no result):
 
 The line before the card's line is one JSON object ``{"kernels": [...]}``
 with each kernel form's launches on its path (``scl_subtree`` static
-L <= 8: the fast-SCL chain; ``scl_subtree`` L=16/32 and traced: the 5G
-path; ``sc_subtree`` and ``bp``: the CLI sweep), its disagreement with the
+L <= 8: the fast-SCL chain; ``scl_subtree`` L=16/32: the 5G path's
+CA-SCL-32; ``scl_subtree`` traced: the 5G path's CA-SCL-8 at b=6;
+``sc_subtree`` and ``bp``: the CLI sweep), its disagreement with the
 plain version (for ``bp``: the largest min-sum LLR gap, and the blocks
 that differ in min-sum or, in exact mode, in their decisions), and its
 time, the plain version's time and its bound at the path's shape. The
@@ -119,22 +128,29 @@ BP_CASES = ((64, 4096, "auto", 1.0, True, 21, 1, "minsum"),
 BP_EXACT_AGREEMENT = 0.99
 # the 5G path: uplink k=400 E=1000 (CRC11, n_polar=1024) in exact mode, as
 # the yardsticks ran. (name, dec_type, list size, batch, batches, yardstick,
-# its sample: blocks). CA-SCL-32 has no yardstick of its own: its BLER must
-# not exceed CA-SCL-8's.
+# its sample: blocks, subtree depth or None for the decoder's own).
+# CA-SCL-32 has no yardstick of its own: its BLER must not exceed
+# CA-SCL-8's. The decoders' own depth is the whole tree, a static leaf
+# schedule; at TRACED_B the plain sweep has 16 subtrees, more than 8, and
+# runs them on the kernel's traced form.
 G5_K, G5_E, G5_MODE, G5_EBNO_DB = 400, 1000, "exact", 1.5
+TRACED_B = 6
 G5_DECODERS = (("CA-SCL-8", "SCL", 8, 8192, 8, "5g_cascl8_k400_n1000",
-                299008),
+                299008, None),
                ("hybSCL-8", "hybSCL", 8, 8192, 8, "hybscl8_5g_k400_n1000",
-                37376),
-               ("CA-SCL-32", "SCL", 32, 2048, 16, None, None))
+                37376, None),
+               ("CA-SCL-32", "SCL", 32, 2048, 16, None, None, None),
+               (f"CA-SCL-8 at b={TRACED_B}", "SCL", 8, 8192, 4,
+                "5g_cascl8_k400_n1000", 299008, TRACED_B))
 WIDE_BATCH = 2048                   # the L=16/32 rows' batch
-WIDE_SURVEY_DEPTHS = range(3, 9)    # the CA-SCL-32 decoder's depths
+WIDE_SURVEY_DEPTHS = range(3, 11)   # the CA-SCL-32 decoder's depths
 SEED = 0
 
 # NVIDIA H100 SXM data sheet: HBM bandwidth and fp32 rate outside the
 # tensor cores, at the full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+SMEM_OPT_IN = 232448                # shared memory a block may opt in to
 # f32 operations per element, as the kernel's routine spends them
 OPS_F = {"minsum": 8, "exact": 20}   # clip x2, |.|, min, sign product
 OPS_G, OPS_SOFTPLUS, OPS_XOR = 2, 6, 1
@@ -566,9 +582,9 @@ def main():
         return recording
 
     main_calls = []
-    # the decoder's depth, one smaller (more of the sweep outside the
-    # kernel) and the whole tree as one call
-    for b in (main_b, main_b - 1, N.bit_length() - 1):
+    # the decoder's depth, a smaller one (more of the sweep outside the
+    # kernel, on the card too) and the whole tree as one call
+    for b in dict.fromkeys((main_b, TRACED_B, N.bit_length() - 1)):
         kw = dict(mode=MODE, llr_max=30.0, lower_stages=b, rate1=True)
         u_k, pm_k = scan_core.scl_sweep_hybrid_fast(
             llr_ch, mask, LIST_SIZE,
@@ -617,22 +633,44 @@ def main():
             random_units(rng.random(128) < rng.uniform(0.2, 0.8), 4, L,
                          WIDE_BATCH, mode, spc=2, into=check_wide)
 
-    # the traced form on the 5G path: the plain sweep of the k=400 E=1000
-    # mother code (16 subtrees at b=6, 64 at b=4 share one traced
-    # schedule) against the plain version, and bit for bit against the
-    # static leaf-only form
+    # depths whose workspaces outgrow a block's shared-memory budget, so
+    # the upper stages sit in the global scratch: L=8 at b=10 and L=32 at
+    # b=8 on the k=512 n=1024 fast schedule, both modes
+    for L, b, bs, into in ((8, 10, BATCH // 2, check), (32, 8, WIDE_BATCH,
+                                                        check_wide)):
+        log(f"  L={L}, b={b}: {cuda_scl.shared_stages(b, L)} of {b} "
+            f"workspace stages in shared memory")
+        for mode in ("minsum", "exact"):
+            random_units(mask, b, L, bs, mode, into=into)
+
+    # the 5G path: the plain sweep of the k=400 E=1000 mother code at the
+    # decoder's depth (the whole tree, static leaf schedule) against the
+    # plain version; and at b=TRACED_B, where its 16 subtrees share one
+    # traced schedule, against the plain version and bit for bit against
+    # the static leaf-only form
     check_traced = Check()
     enc5 = Polar5GEncoder(G5_K, G5_E, device=dev)
     mask5 = mask_of(enc5.frozen_pos, enc5.n_polar)
-    traced_calls = {}
+    traced_calls, g5_calls = {}, {}
     for L in (8, 16, 32):
         bs = BATCH if L == 8 else WIDE_BATCH
         dec5 = Polar5GDecoder(enc5, dec_type="SCL", list_size=L,
                               mode=G5_MODE)
-        b5 = dec5._polar_dec.lower_stages
         model5 = SystemAWGNModel(G5_E, G5_K, enc5, dec5)
         llr5 = (-dec5.rate_recover(model5.front(gen, bs, G5_EBNO_DB)[2])).t(
             ).contiguous()
+        b5 = dec5._polar_dec.lower_stages
+        kw = dict(mode=G5_MODE, llr_max=30.0, lower_stages=b5)
+        calls = g5_calls[L] = []
+        u_k, pm_k = scan_core.scl_sweep_hybrid(
+            llr5, mask5, L, subtree=recorder(calls, scl_subtree), **kw)
+        u_p, pm_p = scan_core.scl_sweep_hybrid(llr5, mask5, L,
+                                               subtree=plain_subtree, **kw)
+        (check_wide if L > 8 else check).add(
+            f"5G k={G5_K} E={G5_E} plain sweep, L={L}, b={b5}, bs={bs}, "
+            f"{G5_MODE}", (u_p, torch.zeros_like(pm_p), pm_p),
+            (u_k, torch.zeros_like(pm_k), pm_k))
+        b5 = TRACED_B
         kw = dict(mode=G5_MODE, llr_max=30.0, lower_stages=b5)
         traced_plan = scan_core.plan_plain_sweep(mask5, b5, dev)
         static_plan = scan_core.plan_sweep(scan_core.leaf_schedule(mask5),
@@ -689,12 +727,14 @@ def main():
     scl_times = {
         "static": subtree_times(main_calls, "one fast main-path step",
                                 reps=3),
-        "traced": subtree_times(traced_calls[8], "one CA-SCL-8 decode",
-                                reps=3),
-        "wide": subtree_times(traced_calls[32], "one CA-SCL-32 decode",
-                              reps=2),
+        "traced": subtree_times(traced_calls[8], "one CA-SCL-8 decode, "
+                                "traced", reps=3),
+        "wide": subtree_times(g5_calls[32], "one CA-SCL-32 decode", reps=2),
+        "CA-SCL-8": subtree_times(g5_calls[8], "one CA-SCL-8 decode",
+                                  reps=3),
     }
-    subtree_times(traced_calls[16], "one CA-SCL-16 decode", reps=2)
+    subtree_times(g5_calls[16], "one CA-SCL-16 decode", reps=2)
+    subtree_times(traced_calls[32], "one CA-SCL-32 decode, traced", reps=2)
     subtree_times(plain_calls, "one plain-sweep SCL-8 decode (CLI)", reps=3)
 
     log("phase 3: sc_subtree kernel against sc_subtree_plain")
@@ -942,6 +982,57 @@ def main():
             f"({enc5.n_polar >> b} x {1 << b} leaves): {ms:.3f} ms per batch "
             f"of {WIDE_BATCH} [{card}]")
 
+    # the SCL kernel: its resources, and its time over one fast decode's
+    # calls with the workspace split between shared memory and the global
+    # scratch at other points than the budget's
+    log(f"phase 7: scl_subtree kernel resources (dynamic shared memory "
+        f"per block: {cuda_scl.THREADS} threads, budget "
+        f"{cuda_scl.SMEM_BUDGET} B):")
+    for line in resource_usage(libs[:1]):
+        log(f"  {line}")
+    for b in sorted({TRACED_B, 8, main_b}):
+        split_calls = []
+        scan_core.scl_sweep_hybrid_fast(
+            llr_ch, mask, LIST_SIZE, mode=MODE, llr_max=30.0,
+            lower_stages=b, rate1=True,
+            subtree=recorder(split_calls, scl_subtree))
+        fits = [n for n in range(b + 1)
+                if cuda_scl.block_smem_bytes(LIST_SIZE, n) <= SMEM_OPT_IN]
+        default = cuda_scl.shared_stages(b, LIST_SIZE)
+        for n in sorted({fits[-1], default, max(default - 2, 0), 0},
+                        reverse=True):
+            ms = cuda_ms(lambda: [scl_subtree(*args, n_shared=n, **kw)
+                                  for args, kw in split_calls], reps=2)
+            log(f"shared-memory split survey: fast SCL-{LIST_SIZE} at b={b}, "
+                f"{len(split_calls)} calls, stages 0..{n - 1} shared "
+                f"({cuda_scl.block_smem_bytes(LIST_SIZE, n)} B per block"
+                f"{', the default' if n == default else ''}): kernel "
+                f"{ms:.3f} ms [{card}]")
+
+    # where a whole-tree L=32 call's time goes: the CA-SCL-32 decode's one
+    # call at b=10 as decoded, in min-sum, with every leaf frozen (no fork)
+    # and as one rate-0 node (the first descent alone)
+    dec10 = Polar5GDecoder(enc5, dec_type="SCL", list_size=32, mode=G5_MODE,
+                           lower_stages=10)
+    whole_calls = []
+    scan_core.scl_sweep_hybrid(
+        (-dec10.rate_recover(llr5)).t().contiguous(), mask5, 32,
+        mode=G5_MODE, llr_max=30.0, lower_stages=10,
+        subtree=recorder(whole_calls, scl_subtree))
+    ((a10, pm10, sched10), kw10), = whole_calls
+    frozen_leaves = SubtreeSchedule(scan_core.leaf_schedule(
+        np.ones(1 << 10, bool)), dev)
+    for label, sched, mode in (
+            ("as decoded", sched10, G5_MODE), ("as decoded", sched10, MODE),
+            ("every leaf frozen", frozen_leaves, G5_MODE),
+            ("every leaf frozen", frozen_leaves, MODE),
+            ("one rate-0 node", SubtreeSchedule((("z", 10, 0),), dev),
+             G5_MODE)):
+        ms = cuda_ms(lambda: scl_subtree(a10, pm10, sched,
+                                         **dict(kw10, mode=mode)), reps=2)
+        log(f"L=32 whole-tree breakdown (5G k={G5_K} E={G5_E}, b=10, "
+            f"bs={WIDE_BATCH}): {label}, {mode}: kernel {ms:.3f} ms [{card}]")
+
     # one BP-20 decode of the CLI's shape, early stop on (the path's
     # setting) and off (fixed work); the sweeps each codeword ran, from the
     # flags at every check budget: a codeword converged within c checks
@@ -980,9 +1071,9 @@ def main():
 
     # ---- phase 8: the 5G NR CA-SCL path ----
     g5_counts = {}
-    for name, dec_type, L, bs, batches, key, key_blocks in G5_DECODERS:
+    for name, dec_type, L, bs, batches, key, key_blocks, b in G5_DECODERS:
         dec5 = Polar5GDecoder(enc5, dec_type=dec_type, list_size=L,
-                              mode=G5_MODE)
+                              mode=G5_MODE, lower_stages=b)
         model5 = SystemAWGNModel(G5_E, G5_K, enc5, dec5)
         bits, bits_hat = model5.step(gen, bs, G5_EBNO_DB)    # warm-up
         if bits_hat.shape != (bs, G5_K) or not torch.isin(
@@ -1000,8 +1091,8 @@ def main():
             run = g5_counts[name] = counts()
             with open(jsonl) as fh:
                 (row,) = [json.loads(line) for line in fh]
-        need = {"scl_subtree traced": True, "scl_subtree wide": L > 8,
-                "sc_subtree": dec_type == "hybSCL"}
+        need = {"scl_subtree": True, "scl_subtree traced": b is not None,
+                "scl_subtree wide": L > 8, "sc_subtree": dec_type == "hybSCL"}
         missing = [k for k, v in need.items() if v and run[k] == 0]
         if missing or row["num_blocks"] != bs * batches:
             raise AssertionError(f"{name}: {row['num_blocks']} blocks, "
@@ -1035,11 +1126,13 @@ def main():
         if abs(got_bler - want) > tol:
             raise AssertionError(f"{name} BLER {got_bler} is off the "
                                  f"yardstick {want}")
-    for label, key, L in (("CA-SCL-8", "traced", 8),
-                          ("CA-SCL-32", "wide", 32)):
+    for label, key, calls in (
+            ("CA-SCL-8", "CA-SCL-8", g5_calls[8]),
+            ("CA-SCL-32", "wide", g5_calls[32]),
+            (f"CA-SCL-8 at b={TRACED_B}", "traced", traced_calls[8])):
         t = scl_times[key]
         log(f"phase 8: scl_subtree per {label} decode: {t['ms']:.3f} ms over "
-            f"{len(traced_calls[L])} launches; plain {t['plain_ms']:.3f} ms; "
+            f"{len(calls)} launches; plain {t['plain_ms']:.3f} ms; "
             f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}) [{card}]")
 
     # ---- phase 9: BP's two-pass serving path ----

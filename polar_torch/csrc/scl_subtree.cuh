@@ -1,7 +1,9 @@
-// Fast-SCL subtree decode of one codeword (one batch column), shared by the
-// CUDA kernel (scl_subtree.cu, nvcc for sm_90a) and a host build
+// Fast-SCL subtree decode of one codeword by a group of L lanes, one lane
+// per path. Shared by the CUDA kernel (scl_subtree.cu, nvcc for sm_90a),
+// where the group is L threads of one warp, and a host build
 // (scl_subtree_host.cpp, g++) that the CPU tests hold against the plain
-// PyTorch version.
+// PyTorch version, where one thread runs the L lanes in turn between the
+// group's barriers.
 //
 // Contract (polar_torch/models/polar/cuda_scl.py, scl_subtree): given the
 // stage-b LLRs a [2^b, L, bs], the path metrics pm [L, bs] and an op
@@ -16,20 +18,35 @@
 // 't' leaf pays only its path-metric update, as an 'f' leaf does.
 //
 // Design:
-// * every array is batch-minor [row, L, bs], so neighbouring threads
-//   (neighbouring codewords) touch neighbouring addresses;
-// * workspaces live in global scratch with the compact stage layout
-//   (stage s at row 2^s - 1): lloc f32 LLR segments and uloc int8 partial
-//   sums, stages 0..b-1; stage b is read straight from the input a;
-// * forks copy no workspace rows. Each stage has a path pointer (logical
-//   path -> physical row slot): L <= 8 nibbles in one uint32, or for
-//   L = 16, 32 one byte per path. A fork composes the pointers that are
-//   still live (liveness rules of _lptr_live / _uptr_live) and every read
-//   goes through its stage pointer;
-// * top-L of 2L candidates is L rounds of minimum, ties to the lower
-//   candidate index; rate-1 / SPC reliability order ties to the lower row.
-//   Per-path flags (flips, SPC toggles) are bits of one uint32 (L <= 32).
+// * lane l owns logical path l: its path metric, its slot of every stage's
+//   path pointer (5 bits per stage, LLR stages 1..b in one uint64 and
+//   partial-sum stages 0..b-1 in another), its parent, its node-entry path
+//   and its rate-1 / SPC flip bits live in the lane's registers;
+// * workspaces (lloc f32 LLR segments, uloc int8 partial sums) have the
+//   compact stage layout (stage s at row 2^s - 1), path slot minor: stages
+//   below n_shared in the block's shared memory, [row][codeword][slot], the
+//   rest in a global scratch [row][bs][slot]; stage b's LLRs are read
+//   straight from the input a, and its partial sums (the codeword) rise
+//   into the global scratch like any stage's, from where a transpose
+//   writes cw. Every lane computes its own path's f/g rows; a g reads
+//   through its stage pointers, so forks copy no workspace rows;
+// * a fork is top-L by rank: lane l holds candidates l and L + l, counts the
+//   candidates with a smaller metric or an equal one and a lower index, and
+//   a candidate of rank < L writes its index to slot `rank`; so equal
+//   metrics keep candidate order, as L rounds of minimum and a stable sort
+//   do. Lane l then takes its survivor's metric and copies the parent
+//   lane's state, which composes the live pointers (liveness rules of
+//   _lptr_live / _uptr_live) in one exchange;
+// * exchanges go through the codeword's small shared arrays (GroupShared)
+//   between group barriers, so the host build runs the same arithmetic in
+//   the same order. A rate-1 / SPC node keeps each node-entry path's
+//   reliability order (rows, ties to the lower row) there, and reads the
+//   values again from the node's LLRs.
+// Node path-metric sums run row by row per path, as the plain version's
+// _row_sum does, so exact ties break alike in both.
 #pragma once
+
+#include <stddef.h>
 
 #include "fg.cuh"
 
@@ -40,7 +57,8 @@ enum OpKind { OP_Z = 0, OP_R = 1, OP_O = 2, OP_S = 3, OP_F = 4, OP_I = 5,
               OP_T = 6 };
 
 constexpr int kMaxB = 12;          // subtree depth limit (n <= 4096)
-constexpr uint32_t kIdent = 0x76543210u;
+constexpr int kThreads = 128;      // threads of a block on the card
+constexpr int kPtrBits = 5;        // one path slot (0..31) per stage
 
 struct SubtreeArgs {
   const float* a;          // [2^b, L, bs], column stride 1
@@ -53,55 +71,28 @@ struct SubtreeArgs {
   int32_t* cw;             // [2^b, L, bs]
   int32_t* p_out;          // [L, bs]
   float* pm_out;           // [L, bs]
-  float* lloc;             // [2^b - 1, L, bs] scratch
-  int8_t* uloc;            // [2^b - 1, L, bs] scratch
+  float* lloc;             // global stages: [2^b - 2^n_shared, bs, L] or null
+  int8_t* uloc;            // the same for the partial sums, and stage b
+                           // (the codeword): [2^(b+1) - 2^n_shared, bs, L]
   int b;
   int bs;
   float llr_max;
   int exact;               // 1: exact boxplus f, 0: min-sum f
+  int n_shared;            // stages 0..n_shared-1 in shared memory
 };
 
-// A path pointer: slot l holds the physical row of logical path l.
-// blank() gives a pointer whose every slot is about to be put().
-template <int L, bool kNibbles = (L <= 8)>
-struct PathPtr {           // L = 16, 32: one byte per path
-  uint8_t v[L];
-  PT_HD PT_INLINE int operator[](int l) const { return v[l]; }
-  PT_HD PT_INLINE void put(int l, int p) { v[l] = (uint8_t)p; }
-  static PT_HD PT_INLINE PathPtr blank() { return PathPtr(); }
-  static PT_HD PT_INLINE PathPtr ident() {
-    PathPtr p;
-    for (int l = 0; l < L; ++l) p.v[l] = (uint8_t)l;
-    return p;
-  }
-};
-
-template <int L>
-struct PathPtr<L, true> {  // L <= 8: nibbles of one uint32
-  uint32_t v;
-  PT_HD PT_INLINE int operator[](int l) const { return (v >> (4 * l)) & 0xF; }
-  PT_HD PT_INLINE void put(int l, int p) { v |= (uint32_t)p << (4 * l); }
-  static PT_HD PT_INLINE PathPtr blank() { return PathPtr{0u}; }
-  static PT_HD PT_INLINE PathPtr ident() { return PathPtr{kIdent}; }
-};
-
-// new[l] = p[parent[l]]
-template <int L>
-PT_HD PT_INLINE PathPtr<L> compose(const PathPtr<L>& p,
-                                   const PathPtr<L>& parent) {
-  PathPtr<L> r = PathPtr<L>::blank();
-#pragma unroll
-  for (int l = 0; l < L; ++l) r.put(l, p[parent[l]]);
-  return r;
+// ---- per-stage path pointers, one 5-bit field per stage ----
+PT_HD PT_INLINE int field(uint64_t x, int k) {
+  return (int)((x >> (kPtrBits * k)) & 31u);
 }
-
-// bit l of the result = bit parent[l] of m (a per-path flag follows its path)
-template <int L>
-PT_HD PT_INLINE uint32_t permute_bits(uint32_t m, const PathPtr<L>& parent) {
-  uint32_t r = 0;
-#pragma unroll
-  for (int l = 0; l < L; ++l) r |= ((m >> parent[l]) & 1u) << l;
-  return r;
+PT_HD PT_INLINE uint64_t field_mask(int k) {
+  return (uint64_t)31u << (kPtrBits * k);
+}
+// the value v in every field (a lane's identity pointers)
+PT_HD PT_INLINE uint64_t every_field(int v) {
+  uint64_t x = 0;
+  for (int k = 0; k < kMaxB; ++k) x |= (uint64_t)v << (kPtrBits * k);
+  return x;
 }
 
 // lloc stage s still has a pending g-read after a fork ending at leaf i_end
@@ -115,291 +106,419 @@ PT_HD PT_INLINE bool uptr_live(int s, int i_end, int s_node) {
   return s >= s_node && ((i_end >> s) & 1) == 1;
 }
 
-// one codeword's view of the [row, L, bs] arrays
-template <int L>
-struct Column {
-  const SubtreeArgs& A;
-  int col;
+// what a surviving path inherits from its parent at a fork
+struct PathState {
+  uint64_t lp;       // LLR stage pointers: stage s (1..b) in field s - 1
+  uint64_t up;       // partial-sum stage pointers: stage s (0..b-1), field s
+  uint32_t flips;    // bit t: the path took flip t of the current node
+  uint8_t P;         // input path of this output path
+  uint8_t qn;        // node-entry path (rate-1 / SPC forks)
+  uint8_t e;         // SPC parity toggle
+};
 
-  PT_HD PT_INLINE size_t at(int row, int p) const {
-    return ((size_t)row * L + p) * (size_t)A.bs + col;
+struct Lane : PathState {
+  float pm;
+  float c0, c1;      // this fork's candidates l and L + l
+  int bit;           // the bit the survivor's candidate decided
+};
+
+// one codeword's exchange arrays, in shared memory on the card
+template <int L>
+struct GroupShared {
+  PathState xs[L];
+  float cm[2 * L];
+  uint16_t srows[L][L];   // [t][q]: rate-1 / SPC order of node-entry path q
+  uint8_t slot[L];
+};
+
+PT_HD PT_INLINE size_t align8(size_t x) { return (x + 7) & ~(size_t)7; }
+
+// dynamic shared memory of a block of C codewords: the shared workspace
+// stages (f32, then int8) and the codewords' exchange arrays
+template <int L>
+PT_HD PT_INLINE size_t smem_bytes(int n_shared, int C, size_t* off_gs,
+                                  size_t* off_u) {
+  const size_t rows = ((size_t)1 << n_shared) - 1;
+  const size_t gs = align8(rows * C * L * sizeof(float));
+  const size_t u = gs + (size_t)C * sizeof(GroupShared<L>);
+  if (off_gs) *off_gs = gs;
+  if (off_u) *off_u = u;
+  return align8(u + rows * C * L);
+}
+
+// the same for a block on the card (kThreads / L codewords); -1 for a list
+// size the kernel does not take
+inline long long block_smem_bytes(int L, int n_shared) {
+  switch (L) {
+    case 1: return (long long)smem_bytes<1>(n_shared, kThreads / 1, 0, 0);
+    case 2: return (long long)smem_bytes<2>(n_shared, kThreads / 2, 0, 0);
+    case 4: return (long long)smem_bytes<4>(n_shared, kThreads / 4, 0, 0);
+    case 8: return (long long)smem_bytes<8>(n_shared, kThreads / 8, 0, 0);
+    case 16: return (long long)smem_bytes<16>(n_shared, kThreads / 16, 0, 0);
+    case 32: return (long long)smem_bytes<32>(n_shared, kThreads / 32, 0, 0);
+    default: return -1;
   }
-  // stage-s LLR element j of physical path slot p (stage b is the input)
-  PT_HD PT_INLINE float lread(int s, int j, int p) const {
+}
+
+// the lanes of one codeword on the host: one thread runs all L in turn
+template <int L>
+struct HostGroup {
+  static constexpr int kPer = L;
+  PT_HD int lane(int i) const { return i; }
+  PT_HD void sync() const {}
+};
+
+// the rows of one stage and path slot: element j at p[j * stride]
+template <class T>
+struct Row {
+  T* p;
+  long long stride;
+  PT_HD PT_INLINE T& operator[](int j) const { return p[j * stride]; }
+};
+
+// out(j, load(j)) for j < h, the loads of four rows issued before their
+// stores: each caller reads rows that it does not write (another stage, or
+// the other half of the rise destination), so the order is free
+template <class Load, class Store>
+PT_HD PT_INLINE void rows4(int h, Load load, Store out) {
+  int j = 0;
+  for (; j + 4 <= h; j += 4) {
+    const auto v0 = load(j), v1 = load(j + 1), v2 = load(j + 2),
+               v3 = load(j + 3);
+    out(j, v0);
+    out(j + 1, v1);
+    out(j + 2, v2);
+    out(j + 3, v3);
+  }
+  for (; j < h; ++j) out(j, load(j));
+}
+
+// one codeword's view of its workspaces and outputs
+template <int L>
+struct Workspace {
+  const SubtreeArgs& A;
+  float* lsh;             // shared stages [2^s - 1 + j][C][L]
+  int8_t* ush;
+  int C, c;               // codewords of the block, this one's index
+  int col;                // batch column
+
+  // offset of row 0 of stage s (< b) and the row stride, in elements
+  PT_HD PT_INLINE bool shared(int s) const { return s < A.n_shared; }
+  PT_HD PT_INLINE long long base(int s) const {
+    return shared(s)
+        ? ((long long)((1 << s) - 1) * C + c) * L
+        : ((long long)((1 << s) - (1 << A.n_shared)) * A.bs + col) * L;
+  }
+  PT_HD PT_INLINE long long stride(int s) const {
+    return shared(s) ? (long long)C * L : (long long)A.bs * L;
+  }
+  // the LLRs of stage s and physical path slot p (stage b is the input)
+  PT_HD PT_INLINE Row<const float> lrow(int s, int p) const {
     if (s == A.b)
-      return A.a[(long long)j * A.a_row_stride + (long long)p * A.a_l_stride + col];
-    return A.lloc[at((1 << s) - 1 + j, p)];
+      return {A.a + (long long)p * A.a_l_stride + col, A.a_row_stride};
+    return {(shared(s) ? lsh : A.lloc) + base(s) + p, stride(s)};
   }
-  PT_HD PT_INLINE void lwrite(int s, int j, int p, float v) const {
-    A.lloc[at((1 << s) - 1 + j, p)] = v;
+  PT_HD PT_INLINE Row<float> lrow_w(int s, int p) const {
+    return {(shared(s) ? lsh : A.lloc) + base(s) + p, stride(s)};
   }
-  PT_HD PT_INLINE int uread(int s, int j, int p) const {
-    return A.uloc[at((1 << s) - 1 + j, p)];
+  PT_HD PT_INLINE Row<int8_t> urow(int s, int p) const {
+    return {(shared(s) ? ush : A.uloc) + base(s) + p, stride(s)};
   }
 };
 
-// a set of the 2L candidates of a fork
-template <bool kWide> struct CandSet { using type = uint32_t; };
-template <> struct CandSet<true> { using type = uint64_t; };
+#define PT_FOR_LANES for (int i_ = 0; i_ < G::kPer; ++i_)
 
-// top-L of the 2L candidates: L rounds of minimum, ties to the lower index.
-// L <= 8 unrolls both loops; L = 16, 32 only the inner one.
-template <int L>
-PT_HD PT_INLINE void top_l(const float* cand, float* pm, int* sel) {
-  using Set = typename CandSet<(2 * L > 32)>::type;
-  Set taken = 0;
-#pragma unroll (L <= 8 ? L : 1)
-  for (int r = 0; r < L; ++r) {
-    int bi = -1;
-    float best = 0.0f;
-#pragma unroll
-    for (int c = 0; c < 2 * L; ++c) {
-      if (!((taken >> c) & 1u) && (bi < 0 || cand[c] < best)) {
-        best = cand[c];
-        bi = c;
-      }
+template <int L, class G>
+struct SubtreeGroup {
+  const G& g;
+  const SubtreeArgs& A;
+  const Workspace<L>& W;
+  GroupShared<L>& gs;
+  Lane S[G::kPer];
+  // the current op's node geometry (uniform over the group)
+  int r;          // cto(i_end): stage the node's partial sums rise to
+  int tail;       // first row of the node's sums in the rise destination
+  uint64_t live_l, live_u;   // pointer fields a fork composes
+
+
+  // top-L of the lanes' candidates (c0, c1) by rank; each lane takes its
+  // survivor's metric, its parent's state with the live pointer fields
+  // composed, and the survivor's bit
+  PT_HD void fork() {
+    PT_FOR_LANES {
+      const int l = g.lane(i_);
+      gs.cm[l] = S[i_].c0;
+      gs.cm[L + l] = S[i_].c1;
+      gs.xs[l] = S[i_];
     }
-    pm[r] = best;
-    sel[r] = bi;
-    taken |= (Set)1 << bi;
+    g.sync();
+    PT_FOR_LANES {
+      const int l = g.lane(i_);
+      const float v0 = S[i_].c0, v1 = S[i_].c1;
+      int r0 = 0, r1 = 0;
+#pragma unroll
+      for (int k = 0; k < 2 * L; ++k) {
+        const float u = gs.cm[k];
+        r0 += (u < v0) | ((u == v0) & (k < l));
+        r1 += (u < v1) | ((u == v1) & (k < L + l));
+      }
+      if (r0 < L) gs.slot[r0] = (uint8_t)l;
+      if (r1 < L) gs.slot[r1] = (uint8_t)(L + l);
+    }
+    g.sync();
+    PT_FOR_LANES {
+      const int l = g.lane(i_);
+      Lane& st = S[i_];
+      const int sel = gs.slot[l];
+      const PathState x = gs.xs[sel % L];
+      st.pm = gs.cm[sel];
+      st.bit = sel / L;
+      st.lp = (x.lp & live_l) | (st.lp & ~live_l);
+      st.up = (x.up & live_u) | (st.up & ~live_u);
+      st.flips = x.flips;
+      st.P = x.P;
+      st.qn = x.qn;
+      st.e = x.e;
+    }
+    g.sync();
   }
-}
 
-// the parent pointer of a fork's survivors
-template <int L>
-PT_HD PT_INLINE PathPtr<L> parents_of(const int* sel) {
-  PathPtr<L> par = PathPtr<L>::blank();
-  for (int l = 0; l < L; ++l) par.put(l, sel[l] % L);
-  return par;
-}
-
-template <int L>
-PT_HD void subtree_column(const SubtreeArgs& A, int col) {
-  using Ptr = PathPtr<L>;
-  constexpr int kRank = L > 8 ? L : 8;   // rows of the rate-1 / SPC state
-  const Column<L> C{A, col};
-  const int b = A.b;
-  const float m = A.llr_max;
-  float pm[L];
-  for (int l = 0; l < L; ++l) pm[l] = A.pm_in[(size_t)l * A.bs + col];
-  Ptr lptr[kMaxB + 1];        // stages 0..b (b = input)
-  Ptr uptr[kMaxB];            // stages 0..b-1
-  for (int s = 0; s <= b; ++s) lptr[s] = Ptr::ident();
-  for (int s = 0; s < b; ++s) uptr[s] = Ptr::ident();
-  Ptr P = Ptr::ident();
-
-  float cand[2 * L];
-  int sel[L];
-  // rate-1 / SPC node state: reliability order per node-entry path
-  float svals[kRank][kRank];
-  int srows[kRank][kRank];
-  uint32_t flips[kRank];
-
-  for (int op = 0; op < A.n_ops; ++op) {
-    int kind = A.sched[3 * op];
-    const int s_nd = A.sched[3 * op + 1];
-    const int lo = A.sched[3 * op + 2];
-    // traced leaf: frozen or info by the run-time flag (uniform branch)
-    if (kind == OP_T) kind = A.frz[lo] != 0 ? OP_F : OP_I;
-    const int w = 1 << s_nd;
-    const int i_end = lo + w - 1;
-
-    // ---- descent to the node root; the root value is stored at its own
-    // stage (stage b when the node is the whole subtree) ----
+  // f/g from the last stored stage down to the node root at stage s_nd;
+  // the stages written are read through identity pointers from then on
+  PT_HD void descend(Lane& st, int l, int lo, int s_nd) const {
+    const float m = A.llr_max;
     int s_top;
     if (lo == 0) {
-      s_top = b;
+      s_top = A.b;
     } else {
       const int d = ctz(lo);
       const int h = 1 << d;
-      for (int l = 0; l < L; ++l) {
-        const int p = lptr[d + 1][l];
-        const int q = uptr[d][l];
-        for (int j = 0; j < h; ++j)
-          C.lwrite(d, j, l, g_op(C.lread(d + 1, j, p), C.lread(d + 1, j + h, p),
-                                 C.uread(d, j, q)));
-      }
-      lptr[d] = Ptr::ident();
+      const Row<const float> x = W.lrow(d + 1, field(st.lp, d));
+      const Row<int8_t> u = W.urow(d, field(st.up, d));
+      const Row<float> y = W.lrow_w(d, l);
+      rows4(h, [=](int j) { return g_op(x[j], x[j + h], u[j]); },
+            [=](int j, float v) { y[j] = v; });
       s_top = d;
     }
     for (int s = s_top; s > s_nd; --s) {
       const int h = 1 << (s - 1);
-      for (int l = 0; l < L; ++l) {
-        const int p = lptr[s][l];
-        for (int j = 0; j < h; ++j)
-          C.lwrite(s - 1, j, l, f_op(C.lread(s, j, p), C.lread(s, j + h, p), m, A.exact));
-      }
-      lptr[s - 1] = Ptr::ident();
+      const Row<const float> x = W.lrow(s, l);
+      const Row<float> y = W.lrow_w(s - 1, l);
+      const int exact = A.exact;
+      rows4(h, [=](int j) { return f_op(x[j], x[j + h], m, exact); },
+            [=](int j, float v) { y[j] = v; });
     }
-    // node values of node-entry path q: C.lread(s_nd, j, node_ptr[q])
-    const Ptr node_ptr = lptr[s_nd];
+    const int hi = lo == 0 ? A.b - 1 : s_top;
+    uint64_t reset = 0;
+    for (int s = s_nd > 1 ? s_nd : 1; s <= hi; ++s) reset |= field_mask(s - 1);
+    st.lp = (st.lp & ~reset) | (every_field(l) & reset);
+  }
 
-    // ---- node ----
-    // the node's partial sums go to the tail of the rise destination
-    const int r = cto(i_end);
-    const int R = r < b ? r : b;
-    const int Wd = 1 << R;
-    const int tail = Wd - w;
-    int8_t* udst = A.uloc;
-    int32_t* cdst = A.cw;
-    auto put = [&](int row, int l, int v) {
-      if (r >= b) cdst[C.at(row, l)] = v;
-      else udst[C.at((1 << r) - 1 + row, l)] = (int8_t)v;
-    };
-    auto get = [&](int row, int l) -> int {
-      return r >= b ? (int)cdst[C.at(row, l)] : (int)udst[C.at((1 << r) - 1 + row, l)];
-    };
+  // |a| of the t-th least reliable row of node-entry path q (node at s_nd)
+  PT_HD PT_INLINE float order_val(int s_nd, int t, int q) const {
+    return fabsf(clipf(W.lrow(s_nd, q)[gs.srows[t][q]], A.llr_max));
+  }
 
-    bool forked = false;
-    Ptr qn = Ptr::ident();   // node-local composition of the node's forks
-    if (kind == OP_F || kind == OP_Z) {
-      // frozen leaf / rate-0 node: bulk PM update, all-zero partial sums
-      for (int l = 0; l < L; ++l) {
-        const int p = node_ptr[l];
-        float acc = 0.0f;
-        for (int j = 0; j < w; ++j) acc += softplus(-clipf(C.lread(s_nd, j, p), m));
-        pm[l] = pm[l] + acc;
-        for (int j = 0; j < w; ++j) put(tail + j, l, 0);
-      }
-    } else if (kind == OP_R || kind == OP_I) {
-      // repetition node / info leaf: one fork for the (repeated) bit
-      for (int l = 0; l < L; ++l) {
-        const int p = node_ptr[l];
-        if (kind == OP_I) {
-          const float v = clipf(C.lread(s_nd, 0, p), m);
-          cand[l] = pm[l] + softplus(-v);
-          cand[L + l] = pm[l] + softplus(v);
-        } else {
-          float s0 = 0.0f, s1 = 0.0f;
-          for (int j = 0; j < w; ++j) {
-            const float v = clipf(C.lread(s_nd, j, p), m);
-            s0 += softplus(-v);
-            s1 += softplus(v);
-          }
-          cand[l] = pm[l] + s0;
-          cand[L + l] = pm[l] + s1;
-        }
-      }
-      top_l<L>(cand, pm, sel);
-      qn = parents_of<L>(sel);
-      forked = true;
-      for (int l = 0; l < L; ++l) {
-        const int bit = sel[l] / L;
-        for (int j = 0; j < w; ++j) put(tail + j, l, bit);
-      }
-    } else {
-      // rate-1 ('o') or single-parity-check ('s') node, decoded at its top:
-      // hard decisions plus theta sequential least-reliable-flip forks
+  PT_HD void run() {
+    const int b = A.b;
+    const float m = A.llr_max;
+    PT_FOR_LANES {
+      const int l = g.lane(i_);
+      Lane& st = S[i_];
+      st.pm = A.pm_in[(size_t)l * A.bs + W.col];
+      st.lp = st.up = every_field(l);
+      st.flips = 0;
+      st.P = st.qn = (uint8_t)l;
+      st.e = 0;
+      st.c0 = st.c1 = 0.0f;
+      st.bit = 0;
+    }
+    for (int op = 0; op < A.n_ops; ++op) {
+      int kind = A.sched[3 * op];
+      const int s_nd = A.sched[3 * op + 1];
+      const int lo = A.sched[3 * op + 2];
+      // traced leaf: frozen or info by the run-time flag (uniform branch)
+      if (kind == OP_T) kind = A.frz[lo] != 0 ? OP_F : OP_I;
+      const int w = 1 << s_nd;
+      const int i_end = lo + w - 1;
+      r = cto(i_end);
+      const int R = r < b ? r : b;
+      const int Wd = 1 << R;
+      tail = Wd - w;
+      live_l = live_u = 0;
+      for (int s = 1; s <= b; ++s)
+        if (lptr_live(s, i_end)) live_l |= field_mask(s - 1);
+      for (int s = 0; s < b; ++s)
+        if (uptr_live(s, i_end, s_nd)) live_u |= field_mask(s);
+
+      // ---- descent, then the node; the node's LLRs were just written, so
+      // node-entry path q's values are in slot q ----
       const bool spc = kind == OP_S;
       const int theta = spc ? (L < w ? L : w) : (L - 1 < w ? L - 1 : w);
       const bool small = !spc && w <= L - 1;   // row-order forks, no sort
-      uint32_t e = 0;                          // SPC toggle state per path
-      for (int l = 0; l < L; ++l) {
-        const int p = node_ptr[l];
-        float acc = 0.0f;
-        int par = 0;
-        for (int j = 0; j < w; ++j) {
-          const float v = clipf(C.lread(s_nd, j, p), m);
-          acc += softplus(-fabsf(v));
-          par ^= v < 0.0f;
-        }
-        if (!small) {
-          // ascending (|a|, row) order: the t-th pick is the least pair
-          // strictly after the previous pick
-          float pv = -1.0f;
-          int pr = -1;
-          for (int t = 0; t < theta; ++t) {
-            int br = -1;
-            float bv = 0.0f;
-            for (int j = 0; j < w; ++j) {
-              const float v = fabsf(clipf(C.lread(s_nd, j, p), m));
-              const bool after = v > pv || (v == pv && j > pr);
-              if (after && (br < 0 || v < bv)) {
-                bv = v;
-                br = j;
-              }
-            }
-            svals[t][l] = bv;
-            srows[t][l] = br;
-            pv = bv;
-            pr = br;
+      PT_FOR_LANES {
+        const int l = g.lane(i_);
+        Lane& st = S[i_];
+        descend(st, l, lo, s_nd);
+        const Row<const float> x = W.lrow(s_nd, l);
+        if (kind == OP_F || kind == OP_Z) {
+          // frozen leaf / rate-0 node: bulk PM update, all-zero sums
+          float acc = 0.0f;
+          for (int j = 0; j < w; ++j) acc += softplus(-clipf(x[j], m));
+          st.pm = st.pm + acc;
+          const Row<int8_t> o = W.urow(r, l);
+          for (int j = 0; j < w; ++j) o[tail + j] = 0;
+        } else if (kind == OP_I) {
+          const float v = clipf(x[0], m);
+          st.c0 = st.pm + softplus(-v);
+          st.c1 = st.pm + softplus(v);
+        } else if (kind == OP_R) {
+          float s0 = 0.0f, s1 = 0.0f;
+          for (int j = 0; j < w; ++j) {
+            const float v = clipf(x[j], m);
+            s0 += softplus(-v);
+            s1 += softplus(v);
           }
-        }
-        if (spc) {
-          pm[l] = (pm[l] + acc) + (par ? svals[0][l] : 0.0f);
-          e |= (uint32_t)par << l;
+          st.c0 = st.pm + s0;
+          st.c1 = st.pm + s1;
         } else {
-          pm[l] = pm[l] + acc;
-        }
-      }
-      for (int t = spc ? 1 : 0; t < theta; ++t) {
-        for (int l = 0; l < L; ++l) {
-          const int q = qn[l];
-          float pen;
-          if (small) {
-            pen = fabsf(clipf(C.lread(s_nd, t, node_ptr[q]), m));
-          } else if (spc) {
-            const float v0 = svals[0][q];
-            pen = ((e >> l) & 1u) ? svals[t][q] - v0 : svals[t][q] + v0;
+          // rate-1 ('o') or SPC ('s') node, decoded at its top: hard
+          // decisions plus theta sequential least-reliable-flip forks
+          float acc = 0.0f;
+          int par = 0;
+          for (int j = 0; j < w; ++j) {
+            const float v = clipf(x[j], m);
+            acc += softplus(-fabsf(v));
+            par ^= v < 0.0f;
+          }
+          float v0 = 0.0f;
+          if (!small) {
+            // ascending (|a|, row) order: the t-th pick is the least pair
+            // strictly after the previous pick
+            float pv = -1.0f;
+            int pr = -1;
+            for (int t = 0; t < theta; ++t) {
+              int br = -1;
+              float bv = 0.0f;
+              for (int j = 0; j < w; ++j) {
+                const float v = fabsf(clipf(x[j], m));
+                const bool after = v > pv || (v == pv && j > pr);
+                if (after && (br < 0 || v < bv)) {
+                  bv = v;
+                  br = j;
+                }
+              }
+              gs.srows[t][l] = (uint16_t)br;
+              if (t == 0) v0 = bv;
+              pv = bv;
+              pr = br;
+            }
+          }
+          if (spc) {
+            st.pm = (st.pm + acc) + (par ? v0 : 0.0f);
+            st.e = (uint8_t)par;
           } else {
-            pen = svals[t][q];
+            st.pm = st.pm + acc;
           }
-          cand[l] = pm[l];
-          cand[L + l] = pm[l] + pen;
-        }
-        top_l<L>(cand, pm, sel);
-        const Ptr par = parents_of<L>(sel);
-        uint32_t flip = 0;
-        for (int l = 0; l < L; ++l) flip |= (uint32_t)(sel[l] / L) << l;
-        qn = compose<L>(qn, par);
-        for (int u = spc ? 1 : 0; u < t; ++u) flips[u] = permute_bits<L>(flips[u], par);
-        flips[t] = flip;
-        if (spc) e = permute_bits<L>(e, par) ^ flip;
-        for (int s = 0; s <= b; ++s)
-          if (lptr_live(s, i_end)) lptr[s] = compose<L>(lptr[s], par);
-        for (int s = 0; s < b; ++s)
-          if (uptr_live(s, i_end, s_nd)) uptr[s] = compose<L>(uptr[s], par);
-        P = compose<L>(P, par);
-      }
-      // codeword of output path l: node-entry path q's hard decisions with
-      // the surviving flips applied (rows read through the final q)
-      for (int l = 0; l < L; ++l) {
-        const int q = qn[l];
-        const int p = node_ptr[q];
-        for (int j = 0; j < w; ++j) {
-          int c = C.lread(s_nd, j, p) < 0.0f;
-          for (int t = spc ? 1 : 0; t < theta; ++t) {
-            const int row = small ? t : srows[t][q];
-            c ^= (row == j) & (int)((flips[t] >> l) & 1u);
-          }
-          if (spc) c ^= (srows[0][q] == j) & (int)((e >> l) & 1u);
-          put(tail + j, l, c);
+          st.qn = (uint8_t)l;      // the node's forks start from here
+          st.flips = 0;
         }
       }
-    }
-    if (forked) {
-      for (int s = 0; s <= b; ++s)
-        if (lptr_live(s, i_end)) lptr[s] = compose<L>(lptr[s], qn);
-      for (int s = 0; s < b; ++s)
-        if (uptr_live(s, i_end, s_nd)) uptr[s] = compose<L>(uptr[s], qn);
-      P = compose<L>(P, qn);
-    }
 
-    // ---- rise: combine partial sums upward into the destination ----
-    for (int s = s_nd; s < R; ++s) {
-      const int h = 1 << s;
-      const int base = Wd - 2 * h;
-      for (int l = 0; l < L; ++l) {
-        const int q = uptr[s][l];
-        for (int j = 0; j < h; ++j) put(base + j, l, C.uread(s, j, q) ^ get(base + h + j, l));
+      if (kind == OP_I || kind == OP_R) {
+        fork();
+        PT_FOR_LANES {
+          const Row<int8_t> o = W.urow(r, g.lane(i_));
+          for (int j = 0; j < w; ++j) o[tail + j] = (int8_t)S[i_].bit;
+        }
+      } else if (kind == OP_O || kind == OP_S) {
+        g.sync();          // the orders and node LLRs of every path
+        for (int t = spc ? 1 : 0; t < theta; ++t) {
+          PT_FOR_LANES {
+            Lane& st = S[i_];
+            const int q = st.qn;
+            float pen;
+            if (small) {
+              pen = fabsf(clipf(W.lrow(s_nd, q)[t], m));
+            } else if (spc) {
+              const float v0 = order_val(s_nd, 0, q);
+              const float vt = order_val(s_nd, t, q);
+              pen = st.e ? vt - v0 : vt + v0;
+            } else {
+              pen = order_val(s_nd, t, q);
+            }
+            st.c0 = st.pm;
+            st.c1 = st.pm + pen;
+          }
+          fork();
+          PT_FOR_LANES {
+            Lane& st = S[i_];
+            st.flips |= (uint32_t)st.bit << t;
+            if (spc) st.e ^= (uint8_t)st.bit;
+          }
+        }
+        // codeword of output path l: node-entry path q's hard decisions
+        // with the surviving flips applied (rows of q's order)
+        PT_FOR_LANES {
+          const Lane& st = S[i_];
+          const int q = st.qn;
+          const Row<const float> x = W.lrow(s_nd, q);
+          const Row<int8_t> o = W.urow(r, g.lane(i_));
+          for (int j = 0; j < w; ++j) o[tail + j] = x[j] < 0.0f;
+          for (int t = spc ? 1 : 0; t < theta; ++t) {
+            if ((st.flips >> t) & 1u) {
+              const int row = tail + (small ? t : gs.srows[t][q]);
+              o[row] ^= 1;
+            }
+          }
+          if (spc && st.e) {
+            const int row = tail + gs.srows[0][q];
+            o[row] ^= 1;
+          }
+        }
       }
+
+      // ---- rise: combine partial sums upward into the destination ----
+      PT_FOR_LANES {
+        const int l = g.lane(i_);
+        Lane& st = S[i_];
+        const Row<int8_t> o = W.urow(r, l);
+        for (int s = s_nd; s < R; ++s) {
+          const int h = 1 << s;
+          const int base = Wd - 2 * h;
+          const Row<int8_t> u = W.urow(s, field(st.up, s));
+          rows4(h, [=](int j) { return (int8_t)(u[j] ^ o[base + h + j]); },
+                [=](int j, int8_t v) { o[base + j] = v; });
+        }
+        if (r < b)
+          st.up = (st.up & ~field_mask(r)) | ((uint64_t)l << (kPtrBits * r));
+      }
+      g.sync();            // no lane starts the next op's writes early
     }
-    if (r < b) uptr[r] = Ptr::ident();
+    PT_FOR_LANES {
+      const int l = g.lane(i_);
+      A.p_out[(size_t)l * A.bs + W.col] = S[i_].P;
+      A.pm_out[(size_t)l * A.bs + W.col] = S[i_].pm;
+    }
   }
-  for (int l = 0; l < L; ++l) {
-    A.p_out[(size_t)l * A.bs + col] = P[l];
-    A.pm_out[(size_t)l * A.bs + col] = pm[l];
-  }
+};
+
+#undef PT_FOR_LANES
+
+// the stage-b partial sums of every codeword, [2^b, bs, L] int8
+PT_HD PT_INLINE const int8_t* stage_b_sums(const SubtreeArgs& A, int L) {
+  return A.uloc + (size_t)((1 << A.b) - (1 << A.n_shared)) * A.bs * L;
+}
+
+// decode one codeword with group g; lsh / ush are its block's shared
+// workspace stages, C the block's codewords and c this one's index
+template <int L, class G>
+PT_HD PT_INLINE void subtree_codeword(const G& g, const SubtreeArgs& A,
+                                      GroupShared<L>& gs, float* lsh,
+                                      int8_t* ush, int C, int c, int col) {
+  const Workspace<L> W{A, lsh, ush, C, c, col};
+  SubtreeGroup<L, G> dec{g, A, W, gs, {}, 0, 0, 0, 0};
+  dec.run();
 }
 
 }  // namespace polar_torch

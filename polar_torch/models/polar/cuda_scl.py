@@ -24,14 +24,27 @@ The schedule comes in two forms:
   version; nothing falls back from one to the other. It counts its
   launches in ``launches``, and of those the traced ones in
   ``launches_traced`` and those at L > 8 in ``launches_wide``.
+* The kernel gives each codeword a group of L threads of one warp, one
+  thread per path, and a block of ``THREADS`` threads holds THREADS / L
+  codewords. A thread keeps its path's metric and its slot of every
+  stage's path pointer in registers and computes its own path's f/g rows,
+  reading through those pointers, so forks copy no workspace rows. The
+  workspaces sit in shared memory as far as ``SMEM_BUDGET`` bytes a block
+  allow (``shared_stages``: stages from 0 up); the wrapper allocates a
+  global scratch for the stages above. A fork is top-L by rank: each
+  thread counts, for its two candidates, the candidates with a smaller
+  metric or an equal one and a lower index, and takes the survivor in its
+  slot with its parent's state.
 * ``scl_subtree_plain`` repeats the computation with whole-buffer gathers:
   a fork physically re-orders the workspaces. The kernel instead composes
   per-stage path pointers lazily, pruned by ``_lptr_live`` / ``_uptr_live``;
-  both give the same result. Node sums run row by row in the kernel's
-  order, so the two round path metrics alike wherever their softplus
-  agrees.
+  both give the same result. Node sums run row by row per path in the
+  kernel's order, so the two round path metrics alike wherever their
+  softplus agrees.
 * ``scl_subtree_host`` runs the kernel's per-codeword routine built for the
-  CPU with g++, so the tests can check the CUDA source's logic.
+  CPU with g++ (one thread runs a codeword's L lanes in turn), so the tests
+  can check the CUDA source's logic, with any split of the stages between
+  shared memory and the global scratch.
 
 Top-L of the 2L candidates keeps equal path metrics in candidate order
 (lower index first), and the rate-1/SPC reliability order keeps equal
@@ -40,6 +53,7 @@ a few ulp (softplus and sum order), never the min-sum f/g values.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -105,20 +119,24 @@ class SubtreeSchedule:
 # the wrapper
 # ----------------------------------------------------------------------
 def scl_subtree(a, pm, sched: SubtreeSchedule, *, b: int, llr_max: float,
-                mode: str, frz=None):
+                mode: str, frz=None, n_shared=None):
     """Decode one subtree; see the module docstring. ``frz`` is None
     unless the schedule has ``'t'`` ops. CUDA tensors launch the kernel,
-    CPU tensors run ``scl_subtree_plain``."""
+    CPU tensors run ``scl_subtree_plain``. ``n_shared`` is the number of
+    workspace stages the kernel keeps in shared memory (by default
+    ``shared_stages(b, L)``); the plain version has no such split."""
     if a.device.type == "cpu":
         return scl_subtree_plain(a, pm, sched.ops, b=b, llr_max=llr_max,
                                  mode=mode, frz=frz)
     if a.device.type != "cuda":
         raise ValueError(f"scl_subtree: unsupported device {a.device}")
     lib = _build.load("scl_subtree", "cuda")
+    if n_shared is None:
+        n_shared = shared_stages(b, a.shape[1])
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         out = _native_call(lib.scl_subtree_launch, a, pm, frz, sched, b,
-                           llr_max, mode, stream)
+                           llr_max, mode, n_shared, stream)
         scl_subtree.launches += 1
         scl_subtree.launches_traced += sched.traced
         scl_subtree.launches_wide += a.shape[1] > 8
@@ -129,26 +147,54 @@ scl_subtree.launches = 0
 scl_subtree.launches_traced = 0
 scl_subtree.launches_wide = 0
 
+THREADS = 128                 # a block: THREADS // L codewords (kThreads)
+SMEM_BUDGET = 48 * 1024       # dynamic shared memory a block may take
+
+
+def block_smem_bytes(L: int, n_shared: int, route: str = "cuda") -> int:
+    """Dynamic shared memory of one block of the kernel with workspace
+    stages 0..n_shared-1 in shared memory, as the routine lays it out
+    (``smem_bytes`` in csrc/scl_subtree.cuh, asked of the ``route``'s
+    build): per codeword 4 + 1 bytes per row and path, plus its exchange
+    arrays."""
+    fn = _build.load("scl_subtree", route).scl_subtree_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_longlong
+    return int(fn(L, n_shared))
+
+
+@functools.lru_cache(maxsize=None)
+def shared_stages(b: int, L: int, route: str = "cuda") -> int:
+    """The most workspace stages (from stage 0 up) that fit
+    ``SMEM_BUDGET`` bytes of shared memory a block; the stages above go to
+    a global scratch."""
+    n = b
+    while n > 0 and block_smem_bytes(L, n, route) > SMEM_BUDGET:
+        n -= 1
+    return n
+
 
 def scl_subtree_host(a, pm, sched: SubtreeSchedule, *, b: int,
-                     llr_max: float, mode: str, frz=None):
+                     llr_max: float, mode: str, frz=None, n_shared=None):
     """The kernel's per-codeword routine built for the CPU (g++); CPU
-    tensors only. For tests: the main path never calls it."""
+    tensors only. ``n_shared`` (default b) splits the workspace stages
+    between the codeword's "shared" arrays and the global scratch, as on
+    the card. For tests: the main path never calls it."""
     if a.device.type != "cpu":
         raise ValueError("scl_subtree_host takes CPU tensors")
     lib = _build.load("scl_subtree", "host")
     return _native_call(lib.scl_subtree_host, a, pm, frz, sched, b,
-                        llr_max, mode, None)
+                        llr_max, mode, b if n_shared is None else n_shared,
+                        None)
 
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_float, ctypes.c_int]
+             ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int]
 
 
-def _native_call(fn, a, pm, frz, sched, b, llr_max, mode, stream):
+def _native_call(fn, a, pm, frz, sched, b, llr_max, mode, n_shared, stream):
     w, L, bs = a.shape
     if a.dtype != torch.float32 or pm.dtype != torch.float32:
         raise TypeError("scl_subtree takes f32 LLRs and path metrics")
@@ -164,6 +210,8 @@ def _native_call(fn, a, pm, frz, sched, b, llr_max, mode, stream):
         raise ValueError(f"pm has shape {tuple(pm.shape)}, need {(L, bs)}")
     if mode not in F_FUNCTIONS:
         raise ValueError(f"unknown mode {mode!r}")
+    if not 0 <= n_shared <= b:
+        raise ValueError(f"n_shared={n_shared} stages not in [0, b={b}]")
     table = sched.table
     if table.device != a.device or pm.device != a.device:
         raise ValueError("a, pm and the schedule table must share a device")
@@ -180,16 +228,20 @@ def _native_call(fn, a, pm, frz, sched, b, llr_max, mode, stream):
     cw = torch.empty((w, L, bs), dtype=torch.int32, device=dev)
     P = torch.empty((L, bs), dtype=torch.int32, device=dev)
     pm_out = torch.empty((L, bs), dtype=torch.float32, device=dev)
-    lloc = torch.empty((w - 1, L, bs), dtype=torch.float32, device=dev)
-    uloc = torch.empty((w - 1, L, bs), dtype=torch.int8, device=dev)
+    # the global scratch of the stages that stay out of shared memory; the
+    # partial sums' also holds stage b, the codeword before its transpose
+    rows = w - (1 << n_shared)
+    lloc = torch.empty((rows, bs, L), dtype=torch.float32, device=dev)
+    uloc = torch.empty((rows + w, bs, L), dtype=torch.int8, device=dev)
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES + ([] if stream is None
                                    else [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     args = [a.data_ptr(), a.stride(0), a.stride(1), pm.data_ptr(), frz_ptr,
             table.data_ptr(), table.shape[0], cw.data_ptr(), P.data_ptr(),
-            pm_out.data_ptr(), lloc.data_ptr(), uloc.data_ptr(), b, L, bs,
-            float(llr_max), int(F_FUNCTIONS[mode] is f_exact)]
+            pm_out.data_ptr(), lloc.data_ptr() if rows else None,
+            uloc.data_ptr(), b, L, bs, float(llr_max),
+            int(F_FUNCTIONS[mode] is f_exact), n_shared]
     rc = fn(*args) if stream is None else fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"scl_subtree: native call failed with code {rc}")

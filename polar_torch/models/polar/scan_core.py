@@ -39,14 +39,20 @@ from polar_torch.ops.fg import F_FUNCTIONS, _clip, g as g_op, softplus
 # SPC ('s') nodes are off unless a threshold stage is given
 SPC_MIN_STAGE_OFF = 99
 # subtree depth b when none is given: the fastest of b = 5..10 for the
-# k=512 n=1024 SCL-8 chain on an H100 (the depth survey of chip_smoke.py)
-DEFAULT_LOWER_STAGES = 6
-# the same for lists of 16 and 32: the fastest of b = 4..8 for the CA-SCL-32
-# decoder of the 5G k=400 E=1000 code (n=1024) at a batch of 2048 on an H100
-# (chip_smoke.py's CA-SCL-32 depth survey). One thread per codeword holds 32
-# paths here, so the kernel is slower per leaf than at L=8, and more of the
-# tree goes to the outer sweep's whole-batch torch ops.
-DEFAULT_WIDE_LOWER_STAGES = 4
+# k=512 n=1024 SCL-8 chain on an H100 (the depth survey of chip_smoke.py),
+# and of b = 4..10 for the plain SCL-8 sweep of the same code. The kernel
+# runs a thread per path with its workspaces in shared memory as far as
+# they fit, so a deeper subtree costs it less than the outer sweep's
+# whole-batch torch ops and host launches that it replaces: at n=1024 the
+# whole tree is one kernel call.
+DEFAULT_LOWER_STAGES = 10
+# the same for lists of 16 and 32: the fastest of b = 3..10 for the
+# CA-SCL-32 decoder of the 5G k=400 E=1000 code (n=1024) at a batch of 2048
+# on an H100 (chip_smoke.py's CA-SCL-32 depth survey). Each subtree call
+# costs the outer sweep whole-batch torch ops and host launches that cost
+# more than the kernel's top stages, so here too the whole n=1024 tree is
+# one call. The two constants come from separate surveys.
+DEFAULT_WIDE_LOWER_STAGES = 10
 # the same for SC: the fastest of b = 4..10 for the k=512 n=1024 SC decoder
 # on an H100 (chip_smoke.py's SC depth survey; the whole tree, b=10, is
 # half again as slow: one thread per codeword leaves the card idle where

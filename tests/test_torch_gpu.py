@@ -79,6 +79,37 @@ def test_kernel_equals_plain_on_card(cuda, case, L):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["minsum", "exact"])
+@pytest.mark.parametrize("L,b", [(8, 10), (32, 8)])
+def test_kernel_split_stages_equals_plain_on_card(cuda, L, b, mode):
+    """Depths whose workspace outgrows the block's shared-memory budget:
+    the upper stages go to the global scratch (the default split, and all
+    stages global), against the plain version."""
+    from polar_torch.models.polar.cuda_scl import shared_stages
+    mask = _mask_5g(512, 1024)
+    units, _ = split_fast_schedule(mask, b, rate1=True)
+    rng = np.random.default_rng(b + L)
+    n_default = shared_stages(b, L)
+    assert n_default < b
+    for ops in [u[2] for u in units if u[0] == "sub"][:2]:
+        a = torch.from_numpy(rng.normal(0, 3, (1 << b, L, 512)).astype(
+            np.float32)).to(cuda)
+        pm = torch.from_numpy(rng.exponential(2.0, (L, 512)).astype(
+            np.float32)).to(cuda)
+        kw = dict(b=b, llr_max=LLR_MAX, mode=mode)
+        sched = SubtreeSchedule(ops, cuda)
+        got = scl_subtree(a, pm, sched, **kw)
+        all_global = scl_subtree(a, pm, sched, n_shared=0, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, all_global))
+        want = scl_subtree_plain(a, pm, ops, **kw)
+        assert_blocks_agree(
+            tuple(x.cpu().numpy() for x in want[:2]),
+            tuple(x.cpu().numpy() for x in got[:2]),
+            want[2].cpu().numpy(), got[2].cpu().numpy())
+
+
+@pytest.mark.gpu
 def test_wrapper_rejects_bad_cuda_inputs(cuda):
     sched = SubtreeSchedule((("i", 0, 0), ("i", 0, 1)), cuda)
     pm = torch.zeros(8, 4, device=cuda)
@@ -93,6 +124,9 @@ def test_wrapper_rejects_bad_cuda_inputs(cuda):
         scl_subtree(torch.zeros(4, 8, 4, device=cuda), pm,
                     SubtreeSchedule(traced_schedule(2), cuda), b=2,
                     llr_max=LLR_MAX, mode="minsum")
+    with pytest.raises(ValueError):       # more shared stages than b
+        scl_subtree(torch.zeros(2, 8, 4, device=cuda), pm, sched, b=1,
+                    llr_max=LLR_MAX, mode="minsum", n_shared=2)
 
 
 @pytest.mark.gpu

@@ -261,6 +261,78 @@ def test_traced_form_equals_static_form(L):
                                    rtol=PM_RTOL)
 
 
+@pytest.mark.parametrize("L,n_shared", [(8, 0), (8, 3), (32, 0), (32, 2)])
+def test_host_build_split_stages_equals_plain(L, n_shared):
+    """Workspace stages from ``n_shared`` up in the global scratch, the
+    rest in the codeword's shared arrays, as the card splits them when a
+    subtree does not fit the block's budget: bit-equal to the all-shared
+    layout and equal to the plain version."""
+    cases = [(_mask_5g(128, 256), 6, None), (_random_mask(256, L + 5), 6, 2)]
+    for c, (mask, b, spc) in enumerate(cases):
+        for i, ops in enumerate(_sub_units(mask, b, True, spc)[:2]):
+            a, pm = _inputs(b, L, 32, seed=3000 * c + i)
+            a_t, pm_t = torch.from_numpy(a), torch.from_numpy(pm)
+            kw = dict(b=b, llr_max=LLR_MAX, mode="minsum")
+            sched = SubtreeSchedule(ops, "cpu")
+            split = scl_subtree_host(a_t, pm_t, sched, n_shared=n_shared,
+                                     **kw)
+            whole = scl_subtree_host(a_t, pm_t, sched, **kw)
+            for x, y in zip(split, whole):
+                assert torch.equal(x, y)
+            want = scl_subtree_plain(a_t, pm_t, ops, **kw)
+            for x, y in zip(split[:2], want[:2]):
+                assert torch.equal(x, y)
+            np.testing.assert_allclose(split[2].numpy(), want[2].numpy(),
+                                       rtol=PM_RTOL)
+
+
+@pytest.mark.parametrize("L", [2, 8, 32])
+def test_host_build_breaks_exact_ties_as_top_l(L):
+    """Candidates with exactly equal path metrics: every path holds the
+    same LLRs (a broadcast input) and starts from equal metrics or the
+    sweep's clone metrics, and clipped LLRs make the fork penalties equal
+    llr_max. The rank top-L must keep candidate order, as ``_top_l``'s
+    stable sort does: the same survivors, parents and bits."""
+    b, bs = 4, 16
+    rng = np.random.default_rng(L)
+    row = rng.choice([-1.5, 1.5, -40.0, 40.0], (1 << b, bs)).astype(
+        np.float32)
+    a = torch.from_numpy(row)[:, None, :].expand(1 << b, L, bs)
+    clones = np.full((L, bs), LLR_MAX, np.float32)
+    clones[0] = 0.0
+    for pm in (np.full((L, bs), 2.5, np.float32), clones):
+        pm_t = torch.from_numpy(pm)
+        for ops in (leaf_schedule(np.zeros(1 << b, bool)),
+                    (("r", 2, 0), ("i", 0, 4), ("i", 0, 5), ("o", 1, 6),
+                     ("o", 3, 8)),
+                    (("s", 3, 0), ("o", 3, 8))):
+            kw = dict(b=b, llr_max=LLR_MAX, mode="minsum")
+            want = scl_subtree_plain(a, pm_t, ops, **kw)
+            got = scl_subtree_host(a, pm_t, SubtreeSchedule(ops, "cpu"), **kw)
+            for x, y in zip(got[:2], want[:2]):
+                assert torch.equal(x, y)
+            np.testing.assert_allclose(got[2].numpy(), want[2].numpy(),
+                                       rtol=PM_RTOL)
+
+
+def test_shared_stages_fit_the_budget():
+    """A block's shared memory grows with the stages kept there (5 bytes
+    per row, path and codeword, plus the codewords' exchange arrays), and
+    the wrapper keeps the most stages that fit its budget."""
+    size = lambda L, n: cuda_scl.block_smem_bytes(L, n, route="host")
+    for L in cuda_scl.LIST_SIZES:
+        C = cuda_scl.THREADS // L
+        for n in range(cuda_scl.MAX_B):
+            rows = (1 << n + 1) - (1 << n)
+            assert size(L, n + 1) - size(L, n) in range(5 * rows * C * L,
+                                                        5 * rows * C * L + 8)
+        for b in range(1, cuda_scl.MAX_B + 1):
+            n = cuda_scl.shared_stages(b, L, route="host")
+            assert 0 <= n <= b
+            assert size(L, n) <= cuda_scl.SMEM_BUDGET
+            assert n == b or size(L, n + 1) > cuda_scl.SMEM_BUDGET
+
+
 def test_traced_form_needs_its_frozen_flags():
     sched = SubtreeSchedule(traced_schedule(2), "cpu")
     a, pm = torch.zeros(4, 8, 4), torch.zeros(8, 4)
