@@ -26,14 +26,17 @@ and prints no result):
    Codewords and parent maps must agree on >= 99.8% of blocks, path
    metrics to 1e-5 relative on the agreeing blocks. The same holds for the plain (unpruned) SCL-8 sweep at k=512
    n=1024. The SC subtree kernel (``sc_subtree``) against
-   ``sc_subtree_plain``: random masks at b = 3..8, static (ops z/f/i) and
-   traced (op t) forms, and the 5G k=512 n=1024 code at the SC decoder's
-   depth and as the whole tree. Min-sum must agree on every block, exact
+   ``sc_subtree_plain``: random masks at b = 1..10, static (ops z/f/i) and
+   traced (op t) forms, at the default group size and split, at 32 lanes
+   and at 4 lanes with every workspace stage in the global scratch, on a
+   batch no block's codeword count divides, and the 5G k=512 n=1024 code
+   at the SC decoder's depth and as the whole tree. Min-sum must agree on every block, exact
    mode on >= 99.9% of blocks. The BP kernel (``bp_decode``) against
-   ``bp_decode_plain``: n = 64, 256, 1024 and 2048 with the lattice in
-   shared memory, n = 4096 and n = 1024 with it in global memory; scaled
+   ``bp_decode_plain``: n = 64..2048 with the lattice in shared memory
+   (one to six CTA stages after the warp stages, one or two resident
+   blocks a warp), n = 4096 and n = 1024 with it in global memory; scaled
    and unscaled min-sum, early stop on and off, odd sweep counts and
-   check_every 1 and 2, the convergence flags returned; exact mode at
+   check_every 1, 2 and 3, the convergence flags returned; exact mode at
    n = 1024. Min-sum must be bit-equal (every LLR and flag); in exact mode
    the hard decisions must agree on every block the plain version marks
    converged and on >= 99% of all blocks, since ``expf``/``log1pf`` and
@@ -61,8 +64,10 @@ and prints no result):
    default), a breakdown of a whole-tree L=32 call (as decoded, min-sum,
    every leaf frozen, the descent alone), kernel, plain and bound times
    over one decode, one BP-20 decode (bs=8192, 2.0 dB) with early stop on
-   and off and its mean sweeps per codeword, and one profiled main-path
-   step;
+   and off and its mean sweeps per codeword, the BP and SC kernels'
+   registers, stack and shared memory, their resident blocks per SM (BP at
+   n = 1024, 2048 and 4096), SC's time at b = 8..10 with 4..32 lanes and
+   other shared splits, and one profiled main-path step;
 8. the 5G path: ``Polar5GEncoder`` (uplink k=400 E=1000, CRC11,
    n_polar=1024) -> QPSK -> AWGN -> demapper -> ``Polar5GDecoder`` in exact
    mode through ``sim_ber`` at 1.5 dB: CA-SCL-8 and hybSCL-8 at bs=8192,
@@ -108,7 +113,7 @@ SC_SURVEY_DEPTHS = range(4, 11)
 PLAIN_SURVEY_DEPTHS = range(4, 11)  # the plain SCL-8 sweep's depths
 BLOCK_AGREEMENT, PM_RTOL = 0.998, 1e-5
 SC_EXACT_AGREEMENT = 0.999          # min-sum SC must agree on every block
-SC_CHECK_BATCH = 4096
+SC_CHECK_BATCH = 4099            # no block's codeword count divides it
 CLI_EBNO_DB, CLI_MC_ITER = (1.5, 2.0), 4
 CLI_GATES = (("SC", "sc_n1024", 2.0, 0.011),
              ("SCL-8", "scl8_n1024", 1.5, 0.007),
@@ -117,12 +122,19 @@ CLI_GATES = (("SC", "sc_n1024", 2.0, 0.011),
 # sweeps) and the kernel checks, (n, bs, lattice, msf, early stop, sweeps,
 # check_every, mode); n <= 1024 on the 5G code, beyond on the RM-style one
 BP_ITER, BP_EBNO_DB = 20, 2.0
+# (n, bs, lattice, msf, early stop, sweeps, check_every, mode): S = 6..11
+# put one to six CTA stages after the five warp stages; n = 2048 keeps two
+# 64-row blocks resident a warp
 BP_CASES = ((64, 4096, "auto", 1.0, True, 21, 1, "minsum"),
+            (128, 4096, "auto", 0.9375, True, 11, 3, "minsum"),
             (256, 4096, "auto", 0.9375, True, 21, 2, "minsum"),
+            (512, 4096, "auto", 0.9375, True, 13, 3, "minsum"),
             (1024, BATCH, "auto", 0.9375, True, BP_ITER, 2, "minsum"),
             (1024, BATCH, "auto", 0.9375, False, BP_ITER, 2, "minsum"),
+            (1024, 4096, "auto", 1.0, True, 9, 1, "minsum"),
             (1024, 2048, "global", 0.9375, True, BP_ITER, 2, "minsum"),
             (2048, 2048, "auto", 0.9375, True, 13, 1, "minsum"),
+            (2048, 2048, "auto", 0.9375, True, 13, 3, "minsum"),
             (4096, 256, "auto", 0.9375, True, 9, 2, "minsum"),
             (1024, BATCH, "auto", 0.9375, True, BP_ITER, 2, "exact"))
 BP_EXACT_AGREEMENT = 0.99
@@ -763,7 +775,11 @@ def main():
     # constructed masks and codeword LLRs: the exact boxplus loses all
     # precision below ~1e-7 in f32, so an info leaf at an unreliable
     # position would be decided by rounding in either version
-    for b in range(3, 9):
+    # b = 1..10 (b=10: a whole n=1024 tree), SC_CHECK_BATCH columns, which
+    # no block's codeword count divides; the default group size and split,
+    # 32 lanes (segments narrower than the group from stage 5 down), and 4
+    # lanes with every workspace stage in the global scratch
+    for b in range(1, 11):
         m_rand = rng.random(1 << b) < rng.uniform(0.2, 0.8)
         m_cons = constructed_mask(1 << b)
         for mode, m, a in (
@@ -776,10 +792,19 @@ def main():
                     ("static", scan_core.fast_schedule(m, rep=False)),
                     ("traced", traced_schedule(b))):
                 kw = dict(b=b, llr_max=30.0, mode=mode)
-                got = sc_subtree(a, frz, sc_schedule(ops, dev), **kw)
                 want = sc_subtree_plain(a, frz, ops, **kw)
-                sc_check.add(f"b={b}, {form} ({len(ops)} ops), bs="
-                             f"{SC_CHECK_BATCH}", mode, want, got)
+                sched = sc_schedule(ops, dev)
+                for lanes, n_sh in ((None, None), (32, None), (4, 0)):
+                    if mode == "exact" and lanes is not None:
+                        continue
+                    got = sc_subtree(a, frz, sched, lanes=lanes,
+                                     n_shared=n_sh, **kw)
+                    g = lanes or cuda_sc.DEFAULT_LANES
+                    n_sh = cuda_sc.shared_stages(b, g) if n_sh is None \
+                        else n_sh
+                    sc_check.add(f"b={b}, {form} ({len(ops)} ops), {g} "
+                                 f"lanes, {n_sh} shared stages, bs="
+                                 f"{SC_CHECK_BATCH}", mode, want, got)
 
     sc_b = PolarSCDecoder(frozen, N, mode=MODE, device=dev).lower_stages
 
@@ -846,8 +871,9 @@ def main():
             got, want = (got, torch.zeros(bs, device=dev)), \
                 (want, torch.zeros(bs, device=dev))
         bp_check.add(f"n={n}, bs={bs}, {cuda_bp.resolve_lattice(n, lattice)} "
-                     f"lattice, msf {msf}, early stop {es}, {iters} sweeps, "
-                     f"check every {every}", mode, prior == 0, want, got)
+                     f"lattice, msf {msf}, early stop {es}, "
+                     f"{iters} sweeps, check every {every}", mode, prior == 0,
+                     want, got)
     torch.cuda.synchronize()
     log(f"phase 3: bp: {bp_check.n_bad} of {bp_check.n_blocks} blocks "
         f"differ; min-sum llr max abs gap {bp_check.max_abs:.3g}")
@@ -1067,6 +1093,42 @@ def main():
             f"{p_ms:.3f} ms; {n_sweeps / BATCH:.3f} sweeps and "
             f"{n_checks / BATCH:.3f} checks per codeword; bound {bnd:.4f} ms "
             f"({by}: {n_bytes} B, {n_ops} f32 ops); library: none [{card}]")
+
+    # the redesigned BP and SC kernels: resources, resident blocks per SM,
+    # BP's launch plans and SC's time at other launch choices
+    log("phase 7: bp and sc_subtree kernel resources:")
+    for line in resource_usage(libs[1:]):
+        log(f"  {line}")
+    bp_lib, sc_lib = _build.load("bp", "cuda"), _build.load("sc_subtree",
+                                                             "cuda")
+    for n_bp in (N, 2048, 4096):
+        lat = cuda_bp.resolve_lattice(n_bp)
+        threads, wb_, smem = cuda_bp.launch_plan(n_bp)
+        per_sm = bp_lib.bp_blocks_per_sm(n_bp.bit_length() - 1,
+                                         int(lat == "shared"))
+        log(f"bp launch plan: n={n_bp}, {lat} lattice: {threads} threads, "
+            f"warp_blocks {wb_}, {smem} B shared, {per_sm} CTAs per SM")
+    for b in sorted({8, 9, 10, sc_b}):
+        calls = []
+        scan_core.sc_sweep_hybrid(llr_ch, mask, mode=MODE, lower_stages=b,
+                                  subtree=recorder(calls, sc_subtree))
+        for lanes in cuda_sc.LANES:
+            for n_sh in sorted({cuda_sc.shared_stages(b, lanes), b, 0},
+                               reverse=True):
+                if cuda_sc.block_smem_bytes(b, lanes, n_sh) > SMEM_OPT_IN:
+                    continue
+                ms = cuda_ms(lambda: [sc_subtree(*args, lanes=lanes,
+                                                 n_shared=n_sh, **kw)
+                                      for args, kw in calls], reps=5)
+                default = (lanes == cuda_sc.DEFAULT_LANES
+                           and n_sh == cuda_sc.shared_stages(b, lanes))
+                log(f"sc_subtree launch survey: one SC decode ({len(calls)} "
+                    f"calls, b={b}, bs={BATCH}), {lanes} lanes, {n_sh} of "
+                    f"{b} workspace stages shared "
+                    f"({cuda_sc.block_smem_bytes(b, lanes, n_sh)} B a block, "
+                    f"{sc_lib.sc_subtree_blocks_per_sm(b, lanes, n_sh)} "
+                    f"blocks per SM{', the default' if default else ''}): "
+                    f"kernel {ms:.3f} ms [{card}]")
     profile_step(model, gen)
 
     # ---- phase 8: the 5G NR CA-SCL path ----

@@ -7,23 +7,45 @@
 // and the optional convergence flag. The schedule and the arithmetic live in
 // bp.cuh and are shared with the host build that the CPU tests run.
 //
-// Design: one CTA per codeword. The TPU kernel holds a whole batch tile's
-// lattice in VMEM and runs every chunk for every lane; here a codeword's
-// lattice, 2 (S + 1) n floats (90,112 B at n = 1024, 196,608 B at n = 2048),
-// sits in dynamic shared memory, and the CTA's threads loop over the n/2
-// butterflies of a stage with a barrier between stages. A codeword stops at
-// its first passing check; the flag is uniform in the CTA, so the exit does
-// not diverge. From n = 4096 the lattice does not fit the 232,448-byte
-// opt-in limit, and the same kernel keeps it in a global scratch that the
-// wrapper allocates (kShared = false); the check's n bytes of bits stay in
-// shared memory in both forms.
-//
 // What bounds it: operations. At n = 1024, bs = 8192 and 20 sweeps with no
 // early stop, about 3.4e10 f32 operations (two check-node updates, two adds
-// and two scalings per butterfly and stage), 0.5 ms at 67 TFLOP/s; the
-// bytes (llr in, out back, 64 MiB) take 0.02 ms. Each stage is a few dozen
-// instructions per thread between two barriers, so the barriers and the
-// shared-memory latency, not the ALUs, set the pace of this first design.
+// and two scalings per element and stage), 0.5 ms at 67 TFLOP/s; the bytes
+// (llr in, out back, 64 MiB) take 0.02 ms. The first design (one thread per
+// element of a stage, the whole 90,112-byte lattice in shared memory, a
+// __syncthreads() after every stage: 2 S = 20 per sweep and S + 2 per
+// check) ran at 13.5-15x that bound.
+//
+// Design: one CTA per codeword, as before; what changed is where the
+// messages live, how often the CTA waits, and what an element costs.
+// * Warp stages. Lane k of a warp owns rows 2k, 2k + 1 of each of its
+//   64-row blocks, so stages 0..4 exchange by __shfl_xor_sync inside the
+//   warp and need no CTA barrier. A lane and its partner split their two
+//   elements, one each, so no lane idles on the other's branch (three
+//   shuffles an element). The l and r messages of these stages stay in
+//   the lane's registers across sweeps, and shared memory holds only
+//   stages 5..S: 49,152 B at n = 1024 (was 90,112), 114,688 B at n = 2048.
+//   A warp keeps one block (512 threads at n = 1024) or two (n = 2048),
+//   run side by side.
+// * CTA stages. Stages 5..S-1 run one at a time, a barrier after each: at
+//   n = 1024 a sweep waits 10 times (was 20). A trial that ran them two at
+//   a time (6 barriers a sweep) tied this with early stop, so the simpler
+//   schedule stayed (PERF.md §6).
+// * The check in bits. A warp's hard decisions are two ballots a block;
+//   the XOR butterfly's stages 1..5 are shifts and masks of those words,
+//   its upper stages XORs of words in warp 0, and one __syncthreads_and
+//   hands the verdict to the CTA: 3 barriers a check at n = 1024 (was 12).
+// * A cheaper min-sum (fg.cuh minsum: 5 instructions, the same bits as
+//   the sign-product form).
+// What the card showed (PERF.md §6): the first design was issue-bound more
+// than barrier-bound (about 50 instructions an element, an estimate from
+// the code; no profiler counted them), and so is this one. The lane split
+// and the cheaper f paid the most; cutting barriers alone bought nothing.
+// 512 threads a CTA, held to 64 registers so that two CTAs share an SM,
+// beat 256 threads with two resident blocks a warp.
+// From n = 4096 (or with the global form forced) the lattice sits in a
+// global scratch that the wrapper allocates, 512 threads loop over the
+// blocks, and the warp stages' messages go through the scratch around each
+// use: the same schedule, without the register residency.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libbp.so bp.cu
@@ -33,27 +55,95 @@
 
 namespace polar_torch {
 
-constexpr int kBpMaxThreads = 512;
-
-template <bool kShared>
-__global__ void __launch_bounds__(kBpMaxThreads) bp_kernel(BpArgs A) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const long long lat_elems = bp_lattice_elems(A.S);
-  float* lat;
-  uint8_t* bits;
-  if (kShared) {
-    lat = reinterpret_cast<float*>(smem);
-    bits = smem + lat_elems * sizeof(float);
-  } else {
-    lat = A.lattice + blockIdx.x * lat_elems;
-    bits = smem;
+// one CTA, a lane per thread; host-callable so that the routine's template
+// needs no __device__-only calls, but only the device pass reaches the
+// CUDA builtins
+struct BpCta {
+  PT_HD PT_INLINE int per() const { return 1; }
+  PT_HD PT_INLINE int tid(int) const {
+#ifdef __CUDA_ARCH__
+    return threadIdx.x;
+#else
+    return 0;
+#endif
   }
-  bp_column(CtaTeam{}, A, blockIdx.x, lat, bits);
+  PT_HD PT_INLINE int size() const {
+#ifdef __CUDA_ARCH__
+    return blockDim.x;
+#else
+    return 1;
+#endif
+  }
+  PT_HD PT_INLINE void sync() const {
+#ifdef __CUDA_ARCH__
+    __syncthreads();
+#endif
+  }
+  PT_HD PT_INLINE void warp_sync() const {
+#ifdef __CUDA_ARCH__
+    __syncwarp();
+#endif
+  }
+  // a lane's partner is itself: its value comes by shuffle
+  PT_HD PT_INLINE int partner(int i, int) const { return i; }
+  PT_HD PT_INLINE float peer(float mine, float, int m) const {
+#ifdef __CUDA_ARCH__
+    return __shfl_xor_sync(0xffffffffu, mine, m);
+#else
+    return mine;
+#endif
+  }
+  template <class Lane>
+  PT_HD PT_INLINE uint32_t ballot(const Lane* x, int i, int q) const {
+#ifdef __CUDA_ARCH__
+    return __ballot_sync(0xffffffffu, (x[i].bits >> q) & 1u);
+#else
+    return (x[i].bits >> q) & 1u;
+#endif
+  }
+  template <class Lane>
+  PT_HD PT_INLINE bool all(const Lane* x) const {
+#ifdef __CUDA_ARCH__
+    return __syncthreads_and(x[0].ok) != 0;
+#else
+    return x[0].ok != 0;
+#endif
+  }
+};
+
+// one resident block a warp at 512 threads: at most 64 registers, so that
+// two CTAs share an SM
+template <int kB, bool kRes>
+__global__ void __launch_bounds__(kBpMaxThreads, kB == 1 && kRes ? 2 : 1)
+    bp_kernel(BpArgs A) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  BpLane<kB> lane;
+  float* lat;
+  uint32_t* words;
+  if (kRes) {
+    lat = reinterpret_cast<float*>(smem);
+    words = reinterpret_cast<uint32_t*>(smem + 4 * bp_shared_elems(A.S));
+  } else {
+    lat = A.lattice + blockIdx.x * bp_lattice_elems(A.S);
+    words = reinterpret_cast<uint32_t*>(smem);
+  }
+  bp_column<kB, kRes>(BpCta{}, A, blockIdx.x, lat, words, &lane);
+}
+
+template <int kB, bool kRes>
+int launch(const BpArgs& A, const BpPlan& p, cudaStream_t st) {
+  const size_t smem = (size_t)bp_smem_bytes(A.S, kRes);
+  cudaError_t err = cudaFuncSetAttribute(
+      bp_kernel<kB, kRes>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  bp_kernel<kB, kRes><<<A.bs, p.threads, smem, st>>>(A);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace polar_torch
 
-// lattice == nullptr: the lattice in shared memory; else in lattice, a
+// lattice == nullptr: the shared form; else the global form in lattice, a
 // [bs, 2 (S + 1) n] f32 scratch. Returns a cudaError_t.
 extern "C" int bp_launch(const float* llr, long long llr_rs, long long llr_cs,
                          const float* prior, float* out, long long out_rs,
@@ -65,17 +155,31 @@ extern "C" int bp_launch(const float* llr, long long llr_rs, long long llr_cs,
   BpArgs A{llr, llr_rs, llr_cs, prior, out, out_rs, out_cs, done, lattice,
            S, bs, num_iter, check_every, early_stop, exact, negate, msf,
            llr_max};
-  const int n = 1 << S;
-  int threads = n / 2;
-  if (threads < 32) threads = 32;
-  if (threads > kBpMaxThreads) threads = kBpMaxThreads;
-  const size_t bits_bytes = (size_t)n;
-  const size_t smem = lattice == nullptr
-      ? bp_lattice_elems(S) * sizeof(float) + bits_bytes : bits_bytes;
-  auto kernel = lattice == nullptr ? bp_kernel<true> : bp_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<bs, threads, smem, static_cast<cudaStream_t>(stream)>>>(A);
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool shared = lattice == nullptr;
+  if (S < 1 || S > 16 || (shared && S > kBpMaxSharedS))
+    return (int)cudaErrorInvalidValue;
+  const BpPlan p = bp_plan(S, shared);
+  if (!shared) return launch<1, false>(A, p, st);
+  if (p.warp_blocks == 2) return launch<2, true>(A, p, st);
+  return launch<1, true>(A, p, st);
+}
+
+// CTAs of the kernel that one SM holds at once (the occupancy API), for
+// the form (shared != 0) of a launch at 2^S rows; -1 on error
+extern "C" int bp_blocks_per_sm(int S, int shared) {
+  using namespace polar_torch;
+  const BpPlan p = bp_plan(S, shared != 0);
+  const size_t smem = (size_t)bp_smem_bytes(S, shared != 0);
+  void (*kernel)(BpArgs) = shared == 0 ? bp_kernel<1, false>
+      : p.warp_blocks == 2 ? bp_kernel<2, true> : bp_kernel<1, true>;
+  if (cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess)
+    return -1;
+  int n = -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, p.threads,
+                                                    smem) != cudaSuccess)
+    return -1;
+  return n;
 }

@@ -17,19 +17,17 @@
 
 namespace polar_torch {
 
-// trailing zeros of i > 0
+// trailing zeros of i != 0
 PT_HD PT_INLINE int ctz(int i) {
-  int c = 0;
-  while (!(i & 1)) { i >>= 1; ++c; }
-  return c;
+#ifdef __CUDA_ARCH__
+  return __ffs(i) - 1;
+#else
+  return __builtin_ctz((unsigned)i);
+#endif
 }
 
-// trailing ones of i
-PT_HD PT_INLINE int cto(int i) {
-  int c = 0;
-  while (i & 1) { i >>= 1; ++c; }
-  return c;
-}
+// trailing ones of i (i != -1)
+PT_HD PT_INLINE int cto(int i) { return ctz(~i); }
 
 PT_HD PT_INLINE float clipf(float x, float m) { return fminf(fmaxf(x, -m), m); }
 
@@ -44,12 +42,22 @@ PT_HD PT_INLINE float logaddexp(float x, float y) {
 
 PT_HD PT_INLINE float sgn(float x) { return (float)((x > 0.0f) - (x < 0.0f)); }
 
+// min-sum check-node update after clipping to +-m, sgn(x) sgn(y)
+// min(|x|, |y|) with the same bits: its magnitude is min(|x|, |y|, m); its
+// sign is negative exactly when x < 0 and y < 0 differ (a product with
+// sgn(0) = +0 carries the other factor's sign onto a zero), so -0.0 comes
+// out where the product gives it
+PT_HD PT_INLINE float minsum(float x, float y, float m) {
+  const float a = fminf(fminf(fabsf(x), fabsf(y)), m);
+  return (x < 0.0f) != (y < 0.0f) ? -a : a;
+}
+
 // check-node update after clipping to +-m: exact boxplus or min-sum
 PT_HD PT_INLINE float f_op(float x, float y, float m, int exact) {
+  if (!exact) return minsum(x, y, m);
   x = clipf(x, m);
   y = clipf(y, m);
-  if (exact) return logaddexp(0.0f, x + y) - logaddexp(x, y);
-  return sgn(x) * sgn(y) * fminf(fabsf(x), fabsf(y));
+  return logaddexp(0.0f, x + y) - logaddexp(x, y);
 }
 
 // (1 - 2u) x + y; the product is exact, so the select is bit-identical

@@ -19,7 +19,14 @@ first of its checks (every ``check_every`` sweeps) that passes.
   (``PolarBPDecoder._run``): whole-batch tensor ops, a converged lane frozen
   by a select, the loop left when every lane has converged.
 * ``bp_decode_host`` runs the kernel's schedule built for the CPU with g++,
-  so the tests can check the CUDA source's logic.
+  one thread running the CTA's lanes in turn, so the tests can check the
+  CUDA source's logic.
+
+The kernel runs one CTA per codeword. Stages 0..4 exchange inside a warp
+(shuffles, no CTA barrier) and keep their messages in registers; stages
+5..S sit in shared memory up to n = 2048 and run one at a time between
+barriers (``launch_plan``: 49,408 B at n = 1024); from n = 4096 the
+lattice sits in a global scratch (``csrc/bp.cuh`` explains the schedule).
 
 In scaled min-sum the ``l_v``/``r_v`` outputs round ``msf * minsum + v``
 once, as XLA fuses them on the CPU (``ops/fg.scaled_minsum_add`` here,
@@ -36,24 +43,16 @@ from polar_torch.ops.fg import (F_FUNCTIONS, f_exact, make_scaled_minsum,
                                 scaled_minsum_add)
 
 MAX_S = 16
-# the opt-in shared memory of one block on sm_90 (H100): the lattice and
-# the check's n bytes must fit for the shared-memory form
-SHARED_LIMIT = 232448
+MAX_SHARED_S = 11           # kBpMaxSharedS in csrc/bp.cuh
 LATTICES = ("auto", "shared", "global")
 
 
-def lattice_bytes(n: int) -> int:
-    """Shared memory of the shared-lattice form at block length ``n``."""
-    return 4 * 2 * n.bit_length() * n + n
-
-
 def resolve_lattice(n: int, lattice: str = "auto") -> str:
-    """Where the kernel keeps the lattice: ``"shared"`` when it fits (n up
-    to 2048), else ``"global"``; a forced ``"shared"`` that does not fit
-    raises."""
+    """Where the kernel keeps the lattice: ``"shared"`` up to n = 2048,
+    else ``"global"``; a forced ``"shared"`` beyond it raises."""
     if lattice not in LATTICES:
         raise ValueError(f"lattice must be one of {LATTICES}")
-    fits = lattice_bytes(n) <= SHARED_LIMIT
+    fits = n.bit_length() - 1 <= MAX_SHARED_S
     if lattice == "shared" and not fits:
         raise ValueError(f"the lattice of n={n} does not fit shared memory")
     if lattice == "auto":
@@ -82,7 +81,8 @@ def bp_decode(llr, prior, *, num_iter: int, check_every: int,
     lib = _build.load("bp", "cuda")
     with torch.cuda.device(llr.device):
         stream = torch.cuda.current_stream(llr.device).cuda_stream
-        res = _native_call(lib.bp_launch, llr, prior, lattice, stream, **kw)
+        res = _native_call(lib.bp_launch, llr, prior, lattice,
+                           (ctypes.c_void_p, stream), **kw)
         bp_decode.launches += llr.shape[1] > 0      # an empty batch: none
     return res
 
@@ -90,13 +90,30 @@ def bp_decode(llr, prior, *, num_iter: int, check_every: int,
 bp_decode.launches = 0
 
 
-def bp_decode_host(llr, prior, *, lattice: str = "auto", **kw):
-    """The kernel's schedule built for the CPU (g++); CPU tensors only. For
-    tests: the main path never calls it."""
+def bp_decode_host(llr, prior, *, lattice: str = "auto",
+                   warp_blocks: int = 0, **kw):
+    """The kernel's schedule built for the CPU (g++), with the card's launch
+    plan, or with ``warp_blocks`` (1 or 2) resident blocks per warp in the
+    shared form, so that tests reach the two-block form (the card's at
+    n = 2048) at small n; CPU tensors only. The main path never calls it."""
     if llr.device.type != "cpu":
         raise ValueError("bp_decode_host takes CPU tensors")
+    if int(warp_blocks) not in (0, 1, 2):
+        raise ValueError("warp_blocks must be 0 (the card's plan), 1 or 2")
     return _native_call(_build.load("bp", "host").bp_host, llr, prior,
-                        lattice, None, **kw)
+                        lattice, (ctypes.c_int, int(warp_blocks)), **kw)
+
+
+def launch_plan(n: int, lattice: str = "auto"):
+    """(threads per CTA, resident blocks per warp, dynamic shared memory
+    bytes) of the kernel's launch at block length ``n`` (from the host
+    build, which shares the plan's code with the kernel)."""
+    fn = _build.load("bp", "host").bp_plan_of
+    fn.restype = None
+    out = (ctypes.c_int * 3)()
+    fn(ctypes.c_int(n.bit_length() - 1),
+       ctypes.c_int(int(resolve_lattice(n, lattice) == "shared")), out)
+    return tuple(out)
 
 
 _ARGTYPES = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
@@ -122,9 +139,12 @@ def _check(llr, prior, num_iter, check_every, early_stop, mode, return_done):
         raise ValueError("return_done needs early_stop")
 
 
-def _native_call(fn, llr, prior, lattice, stream, *, num_iter, check_every,
+def _native_call(fn, llr, prior, lattice, last, *, num_iter, check_every,
                  early_stop, mode, msf, llr_max, return_done=False,
                  negate=False):
+    """Call ``bp_launch`` or ``bp_host``; ``last`` is the (ctypes type,
+    value) of the entry point's last argument: the stream, or the host's
+    ``warp_blocks``."""
     _check(llr, prior, num_iter, check_every, early_stop, mode, return_done)
     n, bs = llr.shape
     where = resolve_lattice(n, lattice)
@@ -142,8 +162,7 @@ def _native_call(fn, llr, prior, lattice, stream, *, num_iter, check_every,
         scratch = torch.empty(bs * 2 * n.bit_length() * n,
                               dtype=torch.float32, device=dev)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES + ([] if stream is None
-                                   else [ctypes.c_void_p])
+        fn.argtypes = _ARGTYPES + [last[0]]
         fn.restype = ctypes.c_int
     args = [llr.data_ptr(), llr.stride(0), llr.stride(1), prior.data_ptr(),
             out.data_ptr(), out.stride(0), out.stride(1),
@@ -151,8 +170,8 @@ def _native_call(fn, llr, prior, lattice, stream, *, num_iter, check_every,
             None if scratch is None else scratch.data_ptr(),
             n.bit_length() - 1, bs, int(num_iter), int(check_every),
             int(bool(early_stop)), int(F_FUNCTIONS[mode] is f_exact),
-            int(bool(negate)), float(msf), float(llr_max)]
-    rc = fn(*args) if stream is None else fn(*args, stream)
+            int(bool(negate)), float(msf), float(llr_max), last[1]]
+    rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"bp_decode: native call failed with code {rc}")
     return (out, done) if return_done else out

@@ -19,7 +19,16 @@ sums are zero whatever its LLRs.
   version; nothing falls back from one to the other.
 * ``sc_subtree_plain`` repeats the computation with tensor ops.
 * ``sc_subtree_host`` runs the kernel's per-codeword routine built for the
-  CPU with g++, so the tests can check the CUDA source's logic.
+  CPU with g++, one thread looping over a codeword's lanes, so the tests
+  can check the CUDA source's logic with any group size and split.
+
+The kernel decodes a codeword with a group of ``lanes`` threads of one
+warp (4..32; ``DEFAULT_LANES``), 128 threads a block. A stage's segment is
+split across the group, with a group barrier after each stage. The
+workspaces sit in shared memory as far as ``SMEM_BUDGET`` bytes a block
+allow (``shared_stages``: stages from 0 up), the rest in a global scratch
+that the wrapper allocates; the block reads ``a`` and writes ``cw``
+through per-codeword tiles in shared memory.
 
 Hard decisions take ``llr <= 0`` as bit 1. Min-sum f/g are exact in f32,
 so kernel, host build and plain version agree bit for bit; the exact
@@ -28,6 +37,7 @@ and may flip a leaf whose LLR lies within rounding of 0.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -39,6 +49,39 @@ from polar_torch.ops.fg import F_FUNCTIONS, f_exact, g as g_op
 
 # op codes of csrc/sc_subtree.cuh (z/f/i as in the SCL kernel's table)
 SC_KIND_CODES = {"z": 0, "f": 4, "i": 5, "t": 6}
+LANES = (4, 8, 16, 32)          # group sizes the kernel is built for
+SMEM_BUDGET = 48 * 1024         # dynamic shared memory a block may take
+SMEM_LIMIT = 232448             # the opt-in limit of a block on sm_90
+
+
+# lanes per codeword: the fastest group of the SC decode at b = 8 and 9 on
+# an H100 (chip_smoke.py's sc_subtree launch survey): most of a decode's
+# stages are narrow, and wider groups leave their lanes idle there
+DEFAULT_LANES = 8
+
+
+def block_smem_bytes(b: int, lanes: int, n_shared: int,
+                     route: str = "cuda") -> int:
+    """Dynamic shared memory of one block (128 / lanes codewords) with
+    workspace stages 0..n_shared-1 in shared memory, as the kernel lays it
+    out (``sc_smem_bytes`` in csrc/sc_subtree.cuh, asked of the
+    ``route``'s build): the input and codeword tiles, 5 bytes a shared
+    workspace row."""
+    fn = _build.load("sc_subtree", route).sc_subtree_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    return int(fn(b, lanes, n_shared))
+
+
+@functools.lru_cache(maxsize=None)
+def shared_stages(b: int, lanes: int, route: str = "cuda") -> int:
+    """The most workspace stages (from stage 0 up) that fit
+    ``SMEM_BUDGET`` bytes a block; the stages above go to a global
+    scratch."""
+    n = b
+    while n > 0 and block_smem_bytes(b, lanes, n, route) > SMEM_BUDGET:
+        n -= 1
+    return n
 
 
 def sc_schedule(ops, device) -> SubtreeSchedule:
@@ -50,10 +93,11 @@ def sc_schedule(ops, device) -> SubtreeSchedule:
 # the wrapper
 # ----------------------------------------------------------------------
 def sc_subtree(a, frz, sched: SubtreeSchedule, *, b: int, llr_max: float,
-               mode: str):
+               mode: str, lanes=None, n_shared=None):
     """Decode one subtree; see the module docstring. ``frz`` is None
-    unless the schedule has ``'t'`` ops. CUDA tensors launch the kernel,
-    CPU tensors run ``sc_subtree_plain``."""
+    unless the schedule has ``'t'`` ops. CUDA tensors launch the kernel
+    (``lanes`` and ``n_shared`` override its group size and its shared
+    workspace stages), CPU tensors run ``sc_subtree_plain``."""
     if a.device.type == "cpu":
         return sc_subtree_plain(a, frz, sched.ops, b=b, llr_max=llr_max,
                                 mode=mode)
@@ -63,7 +107,7 @@ def sc_subtree(a, frz, sched: SubtreeSchedule, *, b: int, llr_max: float,
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         out = _native_call(lib.sc_subtree_launch, a, frz, sched, b, llr_max,
-                           mode, stream)
+                           mode, lanes, n_shared, "cuda", stream)
         sc_subtree.launches += 1
     return out
 
@@ -72,23 +116,25 @@ sc_subtree.launches = 0
 
 
 def sc_subtree_host(a, frz, sched: SubtreeSchedule, *, b: int,
-                    llr_max: float, mode: str):
-    """The kernel's per-codeword routine built for the CPU (g++); CPU
-    tensors only. For tests: the main path never calls it."""
+                    llr_max: float, mode: str, lanes=None, n_shared=None):
+    """The kernel's per-codeword routine built for the CPU (g++), with the
+    card's group size and split unless given; CPU tensors only. For tests:
+    the main path never calls it."""
     if a.device.type != "cpu":
         raise ValueError("sc_subtree_host takes CPU tensors")
     lib = _build.load("sc_subtree", "host")
     return _native_call(lib.sc_subtree_host, a, frz, sched, b, llr_max,
-                        mode, None)
+                        mode, lanes, n_shared, "host", None)
 
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-             ctypes.c_int]
+             ctypes.c_int, ctypes.c_int, ctypes.c_int]
 
 
-def _native_call(fn, a, frz, sched, b, llr_max, mode, stream):
+def _native_call(fn, a, frz, sched, b, llr_max, mode, lanes, n_shared,
+                 route, stream):
     if a.dim() != 2 or a.dtype != torch.float32:
         raise TypeError("sc_subtree takes f32 LLRs of shape [2^b, bs]")
     w, bs = a.shape
@@ -110,18 +156,35 @@ def _native_call(fn, a, frz, sched, b, llr_max, mode, stream):
                              f"{a.device}")
         frz = frz.contiguous()
         frz_ptr = frz.data_ptr()
+    lanes = DEFAULT_LANES if lanes is None else int(lanes)
+    if lanes not in LANES:
+        raise ValueError(f"lanes must be one of {LANES}")
+    n_shared = (shared_stages(b, lanes, route) if n_shared is None
+                else int(n_shared))
+    if not 0 <= n_shared <= b:
+        raise ValueError(f"n_shared={n_shared} not in [0, {b}]")
+    if block_smem_bytes(b, lanes, n_shared, route) > SMEM_LIMIT:
+        raise ValueError(f"b={b}, {lanes} lanes, {n_shared} shared stages: "
+                         "a block does not fit shared memory")
     dev = a.device
     cw = torch.empty((w, bs), dtype=torch.int32, device=dev)
-    lloc = torch.empty((w - 1, bs), dtype=torch.float32, device=dev)
-    uloc = torch.empty((w - 1, bs), dtype=torch.int8, device=dev)
+    # the global workspace stages n_shared..b-1, [bs, 2^b - 2^n_shared]
+    g_rows = w - (1 << n_shared)
+    lloc = uloc = None
+    if g_rows and bs:
+        lloc = torch.empty((bs, g_rows), dtype=torch.float32, device=dev)
+        uloc = torch.empty((bs, g_rows), dtype=torch.int8, device=dev)
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES + ([] if stream is None
                                    else [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    if bs == 0:
+        return cw
     args = [a.data_ptr(), a.stride(0), frz_ptr, sched.table.data_ptr(),
-            sched.table.shape[0], cw.data_ptr(), lloc.data_ptr(),
-            uloc.data_ptr(), b, bs, float(llr_max),
-            int(F_FUNCTIONS[mode] is f_exact)]
+            sched.table.shape[0], cw.data_ptr(),
+            None if lloc is None else lloc.data_ptr(),
+            None if uloc is None else uloc.data_ptr(), b, bs, float(llr_max),
+            int(F_FUNCTIONS[mode] is f_exact), n_shared, lanes]
     rc = fn(*args) if stream is None else fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"sc_subtree: native call failed with code {rc}")

@@ -54,10 +54,13 @@ DEFAULT_LOWER_STAGES = 10
 # one call. The two constants come from separate surveys.
 DEFAULT_WIDE_LOWER_STAGES = 10
 # the same for SC: the fastest of b = 4..10 for the k=512 n=1024 SC decoder
-# on an H100 (chip_smoke.py's SC depth survey; the whole tree, b=10, is
-# half again as slow: one thread per codeword leaves the card idle where
-# whole-batch tensor ops fill it)
-DEFAULT_SC_LOWER_STAGES = 8
+# on an H100 (chip_smoke.py's SC depth survey). The kernel runs a group of
+# lanes per codeword with its workspaces in shared memory, so a deeper
+# subtree saves the outer sweep's whole-batch ops and launches, up to the
+# whole tree: at b=10 the input and codeword tiles and the workspaces of
+# a block's 16 codewords outgrow the budget that keeps four blocks an SM,
+# and the decode is half again as slow as at b=9.
+DEFAULT_SC_LOWER_STAGES = 9
 
 
 # with more subtrees than this the plain sweep runs them on the traced

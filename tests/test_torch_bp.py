@@ -21,8 +21,7 @@ from polar_torch.models.polar.bp import PolarBPDecoder
 from polar_torch.models.polar.construction import (generate_5g_ranking,
                                                    get_kern_frozen_bits)
 from polar_torch.models.polar.cuda_bp import (
-    bp_decode, bp_decode_host, bp_decode_plain, lattice_bytes,
-    resolve_lattice)
+    bp_decode, bp_decode_host, bp_decode_plain, launch_plan, resolve_lattice)
 from polar_torch.models.polar.encode import PolarEncoder
 from polar_torch.ops.fg import (fma_f32, make_scaled_minsum,
                                 scaled_minsum_add)
@@ -36,8 +35,10 @@ EXACT_AGREEMENT = 0.99
 
 def _fixture(n, k, ebno_db=2.0, bs=256, seed=0):
     """(frozen, logits [bs, n], u [bs, k]) of random codewords of the 5G
-    k-of-n code, QPSK-equivalent BPSK over AWGN at ``ebno_db``."""
-    frozen, _ = generate_5g_ranking(k, n)
+    k-of-n code (below n = 32, the RM-style construction), QPSK-equivalent
+    BPSK over AWGN at ``ebno_db``."""
+    frozen = (generate_5g_ranking(k, n)[0] if n >= 32
+              else get_kern_frozen_bits(n, k)[2])
     rng = np.random.default_rng(seed)
     u = rng.integers(0, 2, size=(bs, k)).astype(np.float32)
     c = PolarEncoder(frozen, n, device="cpu")(torch.from_numpy(u)).numpy()
@@ -190,16 +191,29 @@ def test_from_numpy_state_builds_bp_decoder():
 # the host build of the kernel's schedule against the plain version
 # ----------------------------------------------------------------------
 @pytest.mark.parametrize("lattice", ["shared", "global"])
-@pytest.mark.parametrize("n,msf,early_stop,num_iter,check_every", [
-    (64, 0.9375, True, 21, 2),
-    (256, 1.0, True, 12, 1),
-    (256, 0.9375, False, 9, 2),
-    (1024, 0.9375, True, 20, 2),
-])
+@pytest.mark.parametrize(
+    "n,msf,early_stop,num_iter,check_every,warp_blocks", [
+        (64, 0.9375, True, 21, 2, 0),
+        (256, 1.0, True, 12, 1, 0),
+        (256, 0.9375, False, 9, 2, 0),
+        (1024, 0.9375, True, 20, 2, 0),
+        # S = 3..5: warp stages only; S = 6..8: one to three CTA stages;
+        # odd sweep counts, check_every 1..3; two resident 64-row blocks a
+        # warp (the card's form at n = 2048)
+        (8, 0.9375, True, 9, 1, 0),
+        (16, 1.0, True, 7, 2, 0),
+        (32, 0.9375, False, 5, 1, 0),
+        (64, 0.9375, True, 11, 3, 0),
+        (128, 0.9375, True, 13, 2, 0),
+        (128, 1.0, True, 10, 3, 2),
+        (256, 0.9375, True, 15, 1, 2),
+    ])
 def test_host_build_equals_plain(lattice, n, msf, early_stop, num_iter,
-                                 check_every):
+                                 check_every, warp_blocks):
     """Min-sum: bit-equal LLRs and flags. The host build reads the logits
-    through a transposed view and negates them on load."""
+    through a transposed view and negates them on load, with the card's
+    launch plan or, in the shared form, warp_blocks resident blocks a
+    warp."""
     bs = 32 if n == 1024 else 96
     frozen, logits, _ = _fixture(n, n // 2, bs=bs, seed=n)
     prior = torch.from_numpy(_prior(frozen, n))
@@ -208,7 +222,8 @@ def test_host_build_equals_plain(lattice, n, msf, early_stop, num_iter,
               llr_max=LLR_MAX, return_done=early_stop)
     want = bp_decode_plain(torch.from_numpy(-logits.T), prior, **kw)
     got = bp_decode_host(torch.from_numpy(logits).t(), prior,
-                         lattice=lattice, negate=True, **kw)
+                         lattice=lattice, warp_blocks=warp_blocks,
+                         negate=True, **kw)
     if early_stop:
         assert got[1].dtype == torch.int32
         np.testing.assert_array_equal(got[1].numpy(), want[1].numpy())
@@ -271,9 +286,26 @@ def test_wrapper_runs_plain_version_on_cpu():
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+def test_launch_plan():
+    """(threads, resident 64-row blocks a warp, shared bytes): one block a
+    warp up to n = 1024, two at n = 2048, the global form's 512 threads
+    looping over its blocks."""
+    assert launch_plan(8) == (32, 1, 4 * 2 * 1 * 8 + 16)
+    assert launch_plan(1024) == (512, 1, 49408)
+    assert launch_plan(512) == (256, 1, 4 * 2 * 5 * 512 + 128)
+    assert launch_plan(2048) == (512, 2, 115200)
+    assert launch_plan(1024, "global") == (512, 1, 256)
+    assert launch_plan(4096) == (512, 4, 1024)
+    with pytest.raises(ValueError):
+        bp_decode_host(torch.zeros(8, 4), torch.zeros(8), num_iter=2,
+                       check_every=1, early_stop=False, mode="minsum",
+                       msf=1.0, llr_max=LLR_MAX, warp_blocks=3)
+
+
 def test_lattice_choice_and_bad_inputs():
-    assert lattice_bytes(1024) == 90112 + 1024
-    assert lattice_bytes(2048) == 196608 + 2048
+    # stages 5..S of lmsg and rmsg, and four check words per 64 rows
+    assert launch_plan(1024, "shared")[2] == 49152 + 256
+    assert launch_plan(2048, "shared")[2] == 114688 + 512
     assert resolve_lattice(2048) == "shared"
     assert resolve_lattice(1024, "global") == "global"
     with pytest.raises(ValueError):

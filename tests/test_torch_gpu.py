@@ -183,21 +183,28 @@ def test_decoder_on_card_equals_cpu(cuda, b):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["minsum", "exact"])
-@pytest.mark.parametrize("b", [3, 6, 10])
-def test_sc_kernel_equals_plain_on_card(cuda, b, mode):
+@pytest.mark.parametrize("b,lanes,n_shared", [
+    (3, None, None), (6, None, None), (10, None, None),
+    # one leaf; segments narrower than 32 lanes; the workspace split
+    # between shared memory and the global scratch, or all global
+    (1, None, None), (8, 32, None), (9, None, None), (9, 16, 4),
+    (10, 4, 0)])
+def test_sc_kernel_equals_plain_on_card(cuda, b, lanes, n_shared, mode):
+    """On 2051 columns, which no block's codeword count divides."""
     from polar_torch.models.polar.cuda_sc import (
         sc_schedule, sc_subtree, sc_subtree_plain, traced_schedule)
     from polar_torch.models.polar.scan_core import fast_schedule
     rng = np.random.default_rng(b)
     mask = _mask_5g(1 << (b - 1), 1 << b) if b >= 5 else _random_mask(
         1 << b, b)
-    a = torch.from_numpy(rng.normal(0, 3, (1 << b, 2048)).astype(
+    a = torch.from_numpy(rng.normal(0, 3, (1 << b, 2051)).astype(
         np.float32)).to(cuda)
     frz = torch.from_numpy(mask.astype(np.int32)).to(cuda)
     for ops in (fast_schedule(mask, rep=False), traced_schedule(b)):
         before = sc_subtree.launches
         got = sc_subtree(a, frz, sc_schedule(ops, cuda), b=b,
-                         llr_max=LLR_MAX, mode=mode)
+                         llr_max=LLR_MAX, mode=mode, lanes=lanes,
+                         n_shared=n_shared)
         torch.cuda.synchronize()
         assert sc_subtree.launches == before + 1
         assert got.device == a.device and got.dtype == torch.int32
@@ -317,6 +324,13 @@ def _bp_inputs(n, bs, ebno_db, seed):
     (1024, "auto", 0.9375, False, 20, 1),
     (2048, "auto", 0.9375, True, 13, 2),
     (4096, "auto", 0.9375, True, 9, 2),
+    # two to six CTA stages after the five warp stages (S = 7, 9, 10, 11),
+    # two resident blocks a warp at n = 2048; check_every 1 and 3 with odd
+    # sweep counts
+    (128, "auto", 0.9375, True, 11, 3),
+    (512, "auto", 1.0, True, 13, 1),
+    (1024, "auto", 0.9375, True, 21, 3),
+    (2048, "auto", 0.9375, True, 15, 3),
 ])
 def test_bp_kernel_equals_plain_on_card(cuda, n, lattice, msf, early_stop,
                                         num_iter, check_every):

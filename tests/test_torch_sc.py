@@ -18,8 +18,9 @@ from polar_torch import from_numpy_state
 from polar_torch.models.polar.construction import (generate_5g_ranking,
                                                    get_kern_frozen_bits)
 from polar_torch.models.polar.cuda_sc import (
-    SC_KIND_CODES, sc_schedule, sc_subtree, sc_subtree_host,
-    sc_subtree_plain, traced_schedule)
+    DEFAULT_LANES, SC_KIND_CODES, SMEM_BUDGET, block_smem_bytes, sc_schedule,
+    sc_subtree, sc_subtree_host, sc_subtree_plain, shared_stages,
+    traced_schedule)
 from polar_torch.models.polar.sc import PolarSCDecoder
 from polar_torch.models.polar.scan_core import fast_schedule, sc_sweep_hybrid
 from polar_torch.ops.butterfly import polar_transform
@@ -128,13 +129,17 @@ def test_plain_subtree_equals_pallas_interpret(b, form):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("lanes", [None, 32])
 @pytest.mark.parametrize("form", ["static", "traced"])
 @pytest.mark.parametrize("mode", ["minsum", "exact"])
-def test_host_build_equals_plain(mode, form):
+def test_host_build_equals_plain(mode, form, lanes):
     """Min-sum on uniformly random masks and N(0, 3^2) LLRs: bit-equal.
     Exact mode on constructed masks and codeword LLRs: the exact boxplus
     loses all precision below ~1e-7 in f32, so an info leaf at an
-    unreliable position would be decided by rounding in either version."""
+    unreliable position would be decided by rounding in either version.
+    The card's group size and split, or 32 lanes (segments narrower than
+    the group from stage 5 down) with the upper half of the workspace
+    stages in the global scratch."""
     rng = np.random.default_rng(7 if mode == "minsum" else 8)
     blocks = differ = 0
     for b in range(1, 9):
@@ -151,8 +156,9 @@ def test_host_build_equals_plain(mode, form):
             frz = torch.from_numpy(mask.astype(np.int32))
             kw = dict(b=b, llr_max=LLR_MAX, mode=mode)
             want = sc_subtree_plain(a_t, frz, ops, **kw).numpy()
-            got = sc_subtree_host(a_t, frz, sc_schedule(ops, "cpu"),
-                                  **kw).numpy()
+            got = sc_subtree_host(
+                a_t, frz, sc_schedule(ops, "cpu"), lanes=lanes,
+                n_shared=None if lanes is None else b // 2, **kw).numpy()
             if mode == "minsum":
                 np.testing.assert_array_equal(got, want)
             blocks += want.shape[1]
@@ -160,6 +166,28 @@ def test_host_build_equals_plain(mode, form):
     print(f"host build against plain, {mode} {form}: {differ} of {blocks} "
           "blocks differ")
     assert differ <= (1.0 - EXACT_AGREEMENT) * blocks
+
+
+def test_group_size_and_shared_budget():
+    """The host build lays out a block as the card does: the stages that
+    fit SMEM_BUDGET go to shared memory, from stage 0 up."""
+    assert DEFAULT_LANES == 8
+    assert block_smem_bytes(8, 8, 8, "host") == 41008
+    for b, lanes in ((8, 8), (9, 8), (10, 16), (10, 4)):
+        n = shared_stages(b, lanes, "host")
+        assert n == b or block_smem_bytes(b, lanes, n + 1, "host") > \
+            SMEM_BUDGET
+        assert n == 0 or block_smem_bytes(b, lanes, n, "host") <= \
+            SMEM_BUDGET
+    assert shared_stages(9, 8, "host") == 6
+    with pytest.raises(ValueError):       # 32 codewords of b=10 tiles
+        sc_subtree_host(torch.zeros(1024, 4), torch.zeros(
+            1024, dtype=torch.int32), sc_schedule(traced_schedule(10), "cpu"),
+            b=10, llr_max=LLR_MAX, mode="minsum", lanes=4, n_shared=10)
+    with pytest.raises(ValueError):
+        sc_subtree_host(torch.zeros(4, 4), torch.zeros(4, dtype=torch.int32),
+                        sc_schedule(traced_schedule(2), "cpu"), b=2,
+                        llr_max=LLR_MAX, mode="minsum", lanes=12)
 
 
 @pytest.mark.parametrize("b", range(1, 9))
