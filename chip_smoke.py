@@ -2,10 +2,11 @@
 
     python3 chip_smoke.py            # from the repo root; one card, nvcc
 
-It drives four paths: the fast-SCL chain (phases 4 and 5), the CLI sweep
-with SC, SCL-8 and BP-20 (phase 6), the 5G NR CA-SCL chain (phase 8) and
-BP's two-pass serving path (phase 9). Phases (any failure exits non-zero
-and prints no result):
+It drives six paths: the fast-SCL chain (phases 4 and 5), the CLI sweep
+with SC, SCL-8 and BP-20 (phase 6), the 5G NR CA-SCL chain (phase 8),
+BP's two-pass serving path (phase 9), the ``--kern`` CLI path with OSD
+(phase 10) and the BEC link (phase 11). Phases (any failure exits
+non-zero and prints no result):
 
 1. the card: CUDA must be available; prints the card's name and power
    limit as ``nvidia-smi`` reports them;
@@ -40,7 +41,12 @@ and prints no result):
    n = 1024. Min-sum must be bit-equal (every LLR and flag); in exact mode
    the hard decisions must agree on every block the plain version marks
    converged and on >= 99% of all blocks, since ``expf``/``log1pf`` and
-   ``torch.logaddexp`` round differently;
+   ``torch.logaddexp`` round differently. On BEC inputs (the logits of
+   ``BinaryErasureChannel(return_llrs=True)`` at pe = 0.3 and 0.45, 8192
+   blocks each: +-100, erasures as -0.0 and +0.0) the SCL kernel on the
+   plain SCL-8 sweep and the fast sweep with rate-1 nodes (the block rule
+   above) and the SC kernel at the SC decoder's depth (every block), whose
+   decisions must not change when the zeros change sign;
 4. the main path: ``SystemAWGNModel.step`` (source -> 5G k=512 n=1024
    polar encoder -> QPSK -> AWGN -> demapper -> SCL-8 min-sum fast-SCL
    decoder with rate-1 nodes) at a batch of 8192 codewords and 2.0 dB,
@@ -81,7 +87,23 @@ and prints no result):
    first_pass_iters=8)`` bit-identical to the single-pass decoder on one
    batch of 8192 (hard and soft outputs), then through ``sim_ber`` (4
    batches of 8192) with the launch counts reset just before and read just
-   after; BLER on the ``bp_n1024`` gate, info bit/s.
+   after; BLER on the ``bp_n1024`` gate, info bit/s;
+10. the ``--kern`` CLI path: ``polar_torch.main.sweep`` with ``--kern G16
+    --n 256 --k 128 --construction rm-ref --osd_t 2`` (dense-G encoder,
+    OSD-2; no CUDA kernel) at bs=1024, 4 batches at 2.0 and 3.0 dB, and
+    OSD-2 on the 5G (64, 128) F2 code with codeword estimates
+    (``pattern_chunk=1024``) through ``sim_ber``, 8 batches of 1024 at
+    2.0 dB. Gates: each BLER within 4 sigma of both samples combined of
+    its yardstick (``PORT_YARDSTICKS``: the JAX package on the CPU); on one
+    batch the card's OSD against the same decoder on the CPU, every card
+    codeword valid and a block differing only where the two codewords'
+    float64 distances agree to 1e-6 relative. Prints info bit/s, ms per
+    batch and the OSD's split into sort and elimination and pattern sweep;
+11. the BEC link: ``SystemBECModel`` (5G k=512 n=1024) with the CLI's SC
+    and SCL-8 decoders through ``sim_ber`` at pe = 0.38 and 0.42, 4
+    batches of 8192 each, BLER gated as in phase 10; the GA construction
+    (``generate_ga_code(512, 1024, 2.0)``, g++ build) equal to its NumPy
+    twin's.
 
 The line before the card's line is one JSON object ``{"kernels": [...]}``
 with each kernel form's launches on its path (``scl_subtree`` static
@@ -89,7 +111,8 @@ L <= 8: the fast-SCL chain; ``scl_subtree`` L=16/32: the 5G path's
 CA-SCL-32; ``scl_subtree`` traced: the 5G path's CA-SCL-8 at b=6;
 ``sc_subtree`` and ``bp``: the CLI sweep), its disagreement with the
 plain version (for ``bp``: the largest min-sum LLR gap, and the blocks
-that differ in min-sum or, in exact mode, in their decisions), and its
+that differ in min-sum or, in exact mode, in their decisions; for
+``scl_subtree`` and ``sc_subtree`` also the BEC blocks checked), and its
 time, the plain version's time and its bound at the path's shape. The
 last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -157,6 +180,33 @@ G5_DECODERS = (("CA-SCL-8", "SCL", 8, 8192, 8, "5g_cascl8_k400_n1000",
 WIDE_BATCH = 2048                   # the L=16/32 rows' batch
 WIDE_SURVEY_DEPTHS = range(3, 11)   # the CA-SCL-32 decoder's depths
 SEED = 0
+# BEC logits (+-100, erasures as signed zeros) for the SC and SCL kernel
+# checks of phase 3, BATCH blocks at each erasure probability
+BEC_CHECK_PE = (0.3, 0.45)
+# phase 10: the --kern CLI path (dense-G encoder over the reference zoo's
+# G16 kernel, OSD-2) and OSD-2 on the 5G (64, 128) F2 code with codeword
+# estimates (the osd2_k64_n128 row of benchmarks/throughput_suite.py)
+KERN_CODE = dict(k=128, n=256, kern="G16", construction="rm-ref", osd_t=2)
+KERN_BS, KERN_MC_ITER, KERN_EBNO_DB = 1024, 4, (2.0, 3.0)
+OSD2_K, OSD2_N, OSD2_BS, OSD2_BATCHES = 64, 128, 1024, 8
+OSD2_CHUNK, OSD2_EBNO_DB = 1024, 2.0
+# a card codeword may differ from the CPU's only where the two float64
+# distances agree to this relative gap (an equally good codeword)
+OSD_TIE_RTOL = 1e-6
+# phase 11: the BEC link, SC and SCL-8 on the 5G k=512 n=1024 code
+BEC_PE, BEC_BATCHES = (0.38, 0.42), 4
+GA_CODE = (512, 1024, 2.0)          # generate_ga_code(k, n, design Eb/N0)
+# BLER yardsticks of phases 10 and 11, (block errors, blocks): the JAX
+# package on the CPU through polar_tpu.sim.sim_ber, seed 7, 64 batches of
+# 256, made with
+#   JAX_PLATFORMS=cpu python tests/make_torch_yardsticks.py --blocks 16384
+#       --bs 256
+PORT_YARDSTICKS = {
+    "g16_osd2_2.0": (3037, 16384), "g16_osd2_3.0": (427, 16384),
+    "osd2_k64_n128": (1336, 16384),
+    "bec_sc_0.38": (4138, 16384), "bec_sc_0.42": (12128, 16384),
+    "bec_scl8_0.38": (73, 16384), "bec_scl8_0.42": (1048, 16384),
+}
 
 # NVIDIA H100 SXM data sheet: HBM bandwidth and fp32 rate outside the
 # tensor cores, at the full 700 W power limit
@@ -286,6 +336,68 @@ def bound_ms(n_bytes, n_ops):
     ops_ms = 1e3 * n_ops / FP32_OPS_PER_S
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations")
+
+
+def binomial_gate(name, errors, blocks, key):
+    """Fails unless the BLER ``errors / blocks`` lies within 4 sigma of
+    both samples combined of the yardstick ``PORT_YARDSTICKS[key]``."""
+    import numpy as np
+    want_err, want_blocks = PORT_YARDSTICKS[key]
+    want, got = want_err / want_blocks, errors / blocks
+    tol = 4.0 * np.sqrt(want * (1.0 - want)
+                        * (1.0 / blocks + 1.0 / want_blocks))
+    log(f"{name} BLER {got:.5f} over {blocks} blocks; yardstick {key} "
+        f"{want:.5f} over {want_blocks} +- {tol:.5f}")
+    if abs(got - want) > tol:
+        raise AssertionError(f"{name} BLER {got} is off the yardstick {want}")
+
+
+def osd_distance(llr, c, llr_max):
+    """Float64 OSD distance of codewords ``c [bs, n]`` for the logits
+    ``llr [bs, n]``: mean softplus(clip(llr) * (1 - 2c))."""
+    import torch
+    llr = llr.double().clamp(-llr_max, llr_max)
+    sgn = llr * (1.0 - 2.0 * c.double())
+    return torch.logaddexp(torch.zeros((), dtype=torch.float64,
+                                       device=sgn.device), sgn).mean(-1)
+
+
+def osd_card_against_cpu(label, osd, cpu_osd, llr, valid):
+    """One batch through ``osd`` on the card and ``cpu_osd``, the same
+    decoder on the CPU: every card codeword valid (``valid(c) -> [bs]``
+    bools), and a block may differ only under the tie rule. Returns the
+    (differing, blocks) counts."""
+    import torch
+    card = osd(llr)
+    cpu = cpu_osd(llr.cpu()).to(llr.device)
+    if not bool(valid(card).all()):
+        raise AssertionError(f"{label}: an invalid codeword on the card")
+    bad = (card != cpu).any(-1)
+    gap = (osd_distance(llr[bad], card[bad], osd._llr_max)
+           - osd_distance(llr[bad], cpu[bad], osd._llr_max)).abs()
+    rel = gap / osd_distance(llr[bad], cpu[bad], osd._llr_max).clamp_min(
+        1e-12)
+    worst = rel.max().item() if rel.numel() else 0.0
+    n_bad = int(bad.sum().item())
+    log(f"  {label}: card against CPU, {n_bad} of {bad.numel()} blocks "
+        f"differ, largest distance gap {worst:.3g} relative (tie rule "
+        f"{OSD_TIE_RTOL}); every card codeword valid")
+    if worst > OSD_TIE_RTOL:
+        raise AssertionError(f"{label}: the card's OSD differs from the "
+                             "CPU's beyond a distance tie")
+    torch.cuda.synchronize()
+    return n_bad, bad.numel()
+
+
+def osd_split_ms(osd, llr, reps):
+    """Device ms of one OSD decode of ``llr``: the whole decode, its
+    reliability sort and elimination (``basis``) and its pattern sweep
+    (``sweep``), CUDA events."""
+    total = cuda_ms(lambda: osd.decode(llr), reps=reps)
+    front = cuda_ms(lambda: osd.basis(llr), reps=reps)
+    _, llr_sort, c, gm_mrb = osd.basis(llr)
+    sweep = cuda_ms(lambda: osd.sweep(llr_sort, c, gm_mrb), reps=reps)
+    return total, front, sweep
 
 
 class ScCheck:
@@ -475,6 +587,153 @@ def profile_step(model, gen, top=8):
         log(f"  {ms:9.3f} ms  {count:4d}x  {key[:90]}")
 
 
+def kern_phase(dev, gen, card, reset_counts, counts):
+    """Phase 10: the ``--kern`` CLI sweep (G16, OSD-2) and OSD-2 on the 5G
+    (64, 128) code through ``sim_ber``, each BLER against its yardstick;
+    the card's OSD against the CPU's on one batch; OSD's time split."""
+    import torch
+    from polar_torch import from_numpy_state, generate_5g_ranking
+    from polar_torch.config import PolarConfig
+    from polar_torch.main import gen_code, sweep
+    from polar_torch.models.osd import OSDecoder
+    from polar_torch.models.polar.dense import DenseKernelEncoder
+    from polar_torch.models.polar.encode import PolarEncoder
+    from polar_torch.sim import sim_ber
+
+    kern_cfg = PolarConfig(bs=KERN_BS, mc_iter=KERN_MC_ITER,
+                           target_block_errs=None, seed=SEED,
+                           device=str(dev), **KERN_CODE)
+    log(f"phase 10: CLI sweep {kern_cfg}")
+    with tempfile.TemporaryDirectory() as tmp:
+        jsonl = os.path.join(tmp, "kern.jsonl")
+        reset_counts()
+        torch.cuda.synchronize()
+        sweep(kern_cfg, ebno_dbs=KERN_EBNO_DB, jsonl_path=jsonl)
+        torch.cuda.synchronize()
+        kern_counts = counts()
+        with open(jsonl) as fh:
+            rows = [json.loads(line) for line in fh]
+    if [row["ebno_db"] for row in rows] != list(KERN_EBNO_DB) or any(
+            row["num_blocks"] != KERN_BS * KERN_MC_ITER for row in rows):
+        raise AssertionError(f"the --kern sweep gave {rows}")
+    kern_k = KERN_CODE["k"]
+    for row in rows:
+        log(f"phase 10: G16 OSD-2 at {row['ebno_db']} dB: "
+            f"{row['runtime_s']:.3f} s, "
+            f"{kern_k * row['num_blocks'] / row['runtime_s']:.4g} info "
+            f"bit/s; launches {kern_counts} (OSD runs in torch ops) "
+            f"[{card}]")
+        binomial_gate(f"phase 10: G16 OSD-2 at {row['ebno_db']} dB",
+                      row["block_errors"], row["num_blocks"],
+                      f"g16_osd2_{row['ebno_db']}")
+    kern_model, _ = gen_code(kern_cfg, "G16 OSD-2", mode="osd")
+    kern_dec = kern_model.decoder
+    llr = kern_model.front(gen, KERN_BS, KERN_EBNO_DB[0])[2]
+    enc_cpu = DenseKernelEncoder(kern_model.encoder.frozen_pos,
+                                 KERN_CODE["n"], kern_model.encoder.kern,
+                                 device="cpu")
+    osd_card_against_cpu(f"G16 OSD-2, bs={KERN_BS}, {KERN_EBNO_DB[0]} dB",
+                         kern_dec._osd, OSDecoder(t=KERN_CODE["osd_t"],
+                                                  encoder=enc_cpu),
+                         llr, kern_model.encoder.parity_check)
+    total, front, sweep_ms = osd_split_ms(kern_dec._osd, llr, reps=2)
+    dec_ms = cuda_ms(lambda: kern_dec(llr), reps=2)
+    log(f"phase 10: G16 OSD-2 decoder {dec_ms:.3f} ms per batch of "
+        f"{KERN_BS} ({kern_k * KERN_BS / dec_ms * 1e3:.4g} info bit/s); "
+        f"OSD {total:.3f} ms: sort and elimination {front:.3f} ms, pattern "
+        f"sweep {sweep_ms:.3f} ms [{card}]")
+
+    frozen_o, _ = generate_5g_ranking(OSD2_K, OSD2_N)
+    osd2_model = from_numpy_state(dict(
+        frozen_pos=frozen_o, n=OSD2_N, k=OSD2_K, decoder="osd", osd_t=2,
+        pattern_chunk=OSD2_CHUNK, cw_estimates=True), device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        jsonl = os.path.join(tmp, "osd2.jsonl")
+        sim_ber(osd2_model, [OSD2_EBNO_DB], batch_size=OSD2_BS,
+                max_mc_iter=OSD2_BATCHES, early_stop=False, verbose=False,
+                seed=SEED, jsonl_path=jsonl)
+        with open(jsonl) as fh:
+            (row,) = [json.loads(line) for line in fh]
+    log(f"phase 10: OSD-2 5G ({OSD2_K}, {OSD2_N}), chunk {OSD2_CHUNK}, "
+        f"codeword estimates, {OSD2_EBNO_DB} dB: {row['runtime_s']:.3f} s, "
+        f"{OSD2_K * row['num_blocks'] / row['runtime_s']:.4g} info bit/s "
+        f"[{card}]")
+    binomial_gate("phase 10: OSD-2 (64, 128)", row["block_errors"],
+                  row["num_blocks"], "osd2_k64_n128")
+    osd2 = osd2_model.decoder
+    llr = osd2_model.front(gen, OSD2_BS, OSD2_EBNO_DB)[2]
+    enc_o = PolarEncoder(frozen_o, OSD2_N, device="cpu")
+    osd_card_against_cpu(f"OSD-2 ({OSD2_K}, {OSD2_N}), bs={OSD2_BS}", osd2,
+                         OSDecoder(t=2, encoder=enc_o,
+                                   pattern_chunk=OSD2_CHUNK), llr,
+                         osd2_model.encoder.parity_check)
+    total, front, sweep_ms = osd_split_ms(osd2, llr, reps=3)
+    log(f"phase 10: OSD-2 ({OSD2_K}, {OSD2_N}) {total:.3f} ms per batch of "
+        f"{OSD2_BS} ({OSD2_K * OSD2_BS / total * 1e3:.4g} info bit/s): sort "
+        f"and elimination {front:.3f} ms, pattern sweep {sweep_ms:.3f} ms "
+        f"[{card}]")
+
+
+def bec_link_phase(dev, gen, card, encoder, frozen, reset_counts, counts):
+    """Phase 11: ``SystemBECModel`` with the CLI's SC and SCL-8 decoders on
+    the k=512 n=1024 code through ``sim_ber``, each BLER against its
+    yardstick; the GA construction's g++ build against its NumPy twin."""
+    import numpy as np
+    import torch
+    from polar_torch.models.polar.construction import generate_ga_code
+    from polar_torch.models.polar.ga import ga_bit_channel_means
+    from polar_torch.models.polar.sc import PolarSCDecoder
+    from polar_torch.models.polar.scl import PolarSCLDecoder
+    from polar_torch.models.systems import SystemBECModel
+    from polar_torch.sim import sim_ber
+
+    for name, key, bec_dec in (
+            ("SC", "bec_sc", PolarSCDecoder(frozen, N, mode=MODE,
+                                            device=dev)),
+            (f"SCL-{LIST_SIZE}", f"bec_scl{LIST_SIZE}",
+             PolarSCLDecoder(frozen, N, list_size=LIST_SIZE, mode=MODE,
+                             device=dev))):
+        bec_model = SystemBECModel(N, K, encoder, bec_dec)
+        with tempfile.TemporaryDirectory() as tmp:
+            jsonl = os.path.join(tmp, "bec.jsonl")
+            reset_counts()
+            torch.cuda.synchronize()
+            sim_ber(bec_model, BEC_PE, batch_size=BATCH,
+                    max_mc_iter=BEC_BATCHES, early_stop=False,
+                    verbose=False, seed=SEED, jsonl_path=jsonl)
+            torch.cuda.synchronize()
+            run = counts()
+            with open(jsonl) as fh:
+                rows = [json.loads(line) for line in fh]
+        kernel = "sc_subtree" if name == "SC" else "scl_subtree"
+        if run[kernel] == 0 or len(rows) != len(BEC_PE):
+            raise AssertionError(f"BEC link {name}: {len(rows)} points, "
+                                 f"launches {run}")
+        for row in rows:
+            pe = round(row["ebno_db"], 2)
+            log(f"phase 11: BEC link, {name} (k={K} n={N} 5G, {MODE}), "
+                f"pe={pe}: {row['runtime_s']:.3f} s, "
+                f"{K * row['num_blocks'] / row['runtime_s']:.4g} info bit/s;"
+                f" launches {run} [{card}]")
+            binomial_gate(f"phase 11: BEC {name} at pe={pe}",
+                          row["block_errors"], row["num_blocks"],
+                          f"{key}_{pe}")
+    t0 = time.perf_counter()
+    ga_k, ga_n, ga_db = GA_CODE
+    ga_frozen, _ = generate_ga_code(ga_k, ga_n, ga_db)
+    ga_s = time.perf_counter() - t0
+    m0 = 4.0 * (ga_k / ga_n) * 10.0 ** (ga_db / 10.0)
+    twin = ga_bit_channel_means(ga_n, m0, force_numpy=True)
+    want = np.sort(np.argsort(twin, kind="stable")[: ga_n - ga_k])
+    same = np.array_equal(ga_frozen, want)
+    log(f"phase 11: GA frozen set k={ga_k} n={ga_n} at {ga_db} dB from the "
+        f"g++ build ({ga_s:.2f} s, build included) equal to the NumPy "
+        f"twin's: {same}")
+    if not same:
+        raise AssertionError("the GA build's frozen set differs from the "
+                             "NumPy twin's")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -505,6 +764,8 @@ def main():
     from polar_torch.models.polar.encode import Polar5GEncoder
     from polar_torch.models.systems import SystemAWGNModel
     from polar_torch.sim import count_block_errors, count_errors, sim_ber
+    from polar_torch.ops.channels import BinaryErasureChannel
+    from polar_torch.ops.source import binary_source
 
     def reset_counts():
         """Every kernel wrapper's launch counts to 0."""
@@ -631,6 +892,40 @@ def main():
     check.add(f"k={K} n={N} plain sweep, b={plain_b}, bs={BATCH}, "
               f"{EBNO_MAIN_DB} dB", (u_p, torch.zeros_like(pm_p), pm_p),
               (u_k, torch.zeros_like(pm_k), pm_k))
+
+    # BEC inputs: the channel's logits (+-100, clipped to 30 in the sweeps;
+    # erasures are -0.0 for a 0 bit, +0.0 for a 1 bit) of codewords of the
+    # same code, negated into channel LLRs; the plain SCL-8 sweep and the
+    # fast sweep with rate-1 nodes, at their decoders' depths
+    bec_channel = BinaryErasureChannel(return_llrs=True)
+    bec_llr = {}
+    for pe in BEC_CHECK_PE:
+        cw = model.encoder(binary_source(gen, (BATCH, K)))
+        logits = bec_channel(gen, (cw, pe))
+        zeros = logits == 0
+        neg = int((zeros & torch.signbit(logits)).sum().item())
+        log(f"  BEC at pe={pe}: {int(zeros.sum().item())} erasures, {neg} "
+            f"of them -0.0")
+        if neg == 0 or neg == int(zeros.sum().item()):
+            raise AssertionError("the BEC logits lack one sign of zero")
+        bec_llr[pe] = (-logits).t().contiguous()
+    scl_bec = check.n_blocks
+    for pe, llr_b in bec_llr.items():
+        for label, sweep_fn, kw in (
+                ("plain sweep", scan_core.scl_sweep_hybrid,
+                 dict(lower_stages=plain_b)),
+                ("fast sweep, rate-1", scan_core.scl_sweep_hybrid_fast,
+                 dict(lower_stages=main_b, rate1=True))):
+            kw = dict(kw, mode=MODE, llr_max=30.0)
+            u_k, pm_k = sweep_fn(llr_b, mask, LIST_SIZE, subtree=scl_subtree,
+                                 **kw)
+            u_p, pm_p = sweep_fn(llr_b, mask, LIST_SIZE,
+                                 subtree=plain_subtree, **kw)
+            check.add(f"k={K} n={N} {label} on BEC logits, pe={pe}, "
+                      f"b={kw['lower_stages']}, bs={BATCH}",
+                      (u_p, torch.zeros_like(pm_p), pm_p),
+                      (u_k, torch.zeros_like(pm_k), pm_k))
+    scl_bec = check.n_blocks - scl_bec
     torch.cuda.synchronize()
     log(f"phase 3: scl_subtree static, L <= 8: {check.n_bad} of "
         f"{check.n_blocks} blocks differ; pm max abs {check.max_abs:.3g}, "
@@ -823,7 +1118,27 @@ def main():
                                             lower_stages=b, subtree=plain_sc)
             sc_check.add(f"k={K} n={N} SC sweep, b={b}, bs={BATCH}, "
                          f"{EBNO_MAIN_DB} dB", mode, u_p, u_k)
+    # the BEC logits of the SCL checks at the SC decoder's depth (static
+    # form); the -0.0 and +0.0 erasures must decide the same bits
+    sc_bec = sc_check.n_blocks
+    for pe, llr_b in bec_llr.items():
+        u_k = scan_core.sc_sweep_hybrid(llr_b, mask, mode=MODE,
+                                        lower_stages=sc_b)
+        u_p = scan_core.sc_sweep_hybrid(llr_b, mask, mode=MODE,
+                                        lower_stages=sc_b, subtree=plain_sc)
+        sc_check.add(f"k={K} n={N} SC sweep on BEC logits, pe={pe}, "
+                     f"b={sc_b}, bs={BATCH}", MODE, u_p, u_k)
+        flipped = torch.where(llr_b == 0, -llr_b, llr_b)
+        same = torch.equal(u_k, scan_core.sc_sweep_hybrid(
+            flipped, mask, mode=MODE, lower_stages=sc_b))
+        log(f"  SC on BEC logits, pe={pe}: zeros of the other sign decide "
+            f"the same bits: {same}")
+        if not same:
+            raise AssertionError("SC decides -0.0 and +0.0 erasures apart")
+    sc_bec = sc_check.n_blocks - sc_bec
     torch.cuda.synchronize()
+    log(f"phase 3: BEC logits checked: scl_subtree {scl_bec} blocks, "
+        f"sc_subtree {sc_bec} blocks")
     log(f"phase 3: sc_subtree: min-sum {sc_check.bad['minsum']} of "
         f"{sc_check.blocks['minsum']} blocks differ, exact "
         f"{sc_check.bad['exact']} of {sc_check.blocks['exact']}")
@@ -1240,11 +1555,17 @@ def main():
         f"bucket {bp_two._cap_hwm} rows; launches {two_counts} [{card}]")
     gate(f"phase 9: two-pass {bp_name}", bp_key, bp_ebno, bp_tol, row)
 
-    def entry(name, source, replaces, launches, c, times):
+    # ---- phases 10 and 11: the --kern CLI path, the BEC link and GA ----
+    kern_phase(dev, gen, card, reset_counts, counts)
+    bec_link_phase(dev, gen, card, model.encoder, frozen, reset_counts,
+                   counts)
+
+    def entry(name, source, replaces, launches, c, times, **extra):
         return dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=launches,
                     max_abs_err=c.max_abs, mismatch_blocks=c.n_bad,
-                    checked_blocks=c.n_blocks, **times, library_ms=None)
+                    checked_blocks=c.n_blocks, **extra, **times,
+                    library_ms=None)
 
     scl_src, pallas = ("polar_torch/csrc/scl_subtree.cu",
                        "polar_tpu/models/polar/pallas_scl.py")
@@ -1252,7 +1573,7 @@ def main():
                 for k in ("scl_subtree traced", "scl_subtree wide")}
     kernels = [
         entry("scl_subtree", scl_src, f"{pallas}:142", launches, check,
-              scl_times["static"]),
+              scl_times["static"], bec_checked_blocks=scl_bec),
         entry("scl_subtree L=16/32", scl_src, f"{pallas}:515",
               g5_total["scl_subtree wide"], check_wide, scl_times["wide"]),
         entry("scl_subtree traced", scl_src, f"{pallas}:407",
@@ -1261,7 +1582,7 @@ def main():
         entry("sc_subtree", "polar_torch/csrc/sc_subtree.cu",
               f"{pallas}:832", cli_launches["sc_subtree"], sc_check,
               dict(ms=sc_kernel_ms, plain_ms=sc_plain_ms, bound_ms=sc_bound,
-                   bound_by=sc_bound_by)),
+                   bound_by=sc_bound_by), bec_checked_blocks=sc_bec),
         entry("bp", "polar_torch/csrc/bp.cu",
               "polar_tpu/models/polar/pallas_bp.py:57", cli_launches["bp"],
               bp_check, dict(bp_times[True], **{

@@ -15,7 +15,7 @@ class PolarConfig:
     k: int = 32            # number of information bits per codeword
     n: int = 64            # desired codeword length
     algos: List[str] = field(default_factory=lambda: ["scl"])
-    kern: str = "F2"       # kernel name (only F2 is ported)
+    kern: str = "F2"       # kernel of the zoo; other than F2: dense-G + OSD
     verbose: bool = False
     bs: int = 3            # Monte-Carlo batch size
     snr_end: float = 5.0   # sweep = arange(0, snr_end, 0.5)
@@ -24,12 +24,13 @@ class PolarConfig:
     mode: str = "max"      # f-function: "max"/"minsum" or "llr"/"exact"
     spec: bool = False     # apply special cases (unused, as in the reference)
     seed: int = 42
-    construction: str = "rm"   # "rm" (lowest row weight, stable ties) or
-    # "5g" (NR reliability table); "rm-ref" and "ga" are not ported
+    construction: str = "rm"   # "rm" (lowest row weight, stable ties),
+    # "rm-ref" (the reference CLI's own ties), and on F2 only "5g" (NR
+    # reliability table) or "ga" (Gaussian approximation at design_snr)
     num_devices: int = 0       # data-parallel devices; > 1 is not ported
     target_block_errs: int = 1000
     bp_iter: int = 20          # BP decoder iterations (sweeps)
-    osd_t: int = 2             # OSD order for non-F2 kernels (not ported)
+    osd_t: int = 2             # OSD order for kernels other than F2
     # fast-SCL pruning, tri-state: None = the decoder's default by n (fast
     # below n=256, plain from 256 up); true/false pins it
     fast_scl: bool | None = None

@@ -7,21 +7,46 @@ and scalars, so both packages decode the same code.
 
 import numpy as np
 
+from polar_torch.models.osd import OSDecoder
 from polar_torch.models.polar.bp import PolarBPDecoder
 from polar_torch.models.polar.decode5g import Polar5GDecoder
+from polar_torch.models.polar.dense import (DenseKernelDecoder,
+                                            DenseKernelEncoder)
 from polar_torch.models.polar.encode import Polar5GEncoder, PolarEncoder
 from polar_torch.models.polar.sc import PolarSCDecoder
 from polar_torch.models.polar.scl import PolarSCLDecoder
-from polar_torch.models.systems import SystemAWGNModel
+from polar_torch.models.systems import SystemAWGNModel, SystemBECModel
+
+_CHANNELS = {"awgn": SystemAWGNModel, "bec": SystemBECModel}
 
 
-def from_numpy_state(state: dict, device=None) -> SystemAWGNModel:
-    """``SystemAWGNModel`` (with its ``encoder`` and ``decoder``) from
-    ``state``.
+def _system(state: dict, n: int, k: int, encoder, decoder):
+    """The link model of ``state["channel"]`` (``"awgn"``, the default, or
+    ``"bec"``) around the code, with ``cw_estimates`` when given."""
+    kind = state.get("channel", "awgn")
+    if kind not in _CHANNELS:
+        raise ValueError(f"unknown channel {kind!r}: 'awgn' or 'bec'")
+    return _CHANNELS[kind](n, k, encoder, decoder,
+                          cw_estimates=bool(state.get("cw_estimates",
+                                                      False)))
+
+
+def _osd_kwargs(state: dict) -> dict:
+    return dict(t=int(state["osd_t"]),
+                pattern_chunk=int(state.get("pattern_chunk", 4096)),
+                llr_max=float(state.get("llr_max", 100.0)))
+
+
+def from_numpy_state(state: dict, device=None):
+    """The link model (with its ``encoder`` and ``decoder``) of ``state``:
+    a ``SystemAWGNModel``, or with ``channel="bec"`` a ``SystemBECModel``;
+    ``cw_estimates`` (default False) goes to either.
 
     A code given by its frozen set (``code`` absent or ``"polar"``) reads
-    ``frozen_pos``, ``n``, ``k``, ``mode``, ``llr_max`` and ``decoder``
-    (``"scl"``, the default, ``"sc"`` or ``"bp"``). An SCL decoder also
+    ``frozen_pos``, ``n``, ``k``, ``llr_max`` and ``decoder`` (``"scl"``,
+    the default, ``"sc"``, ``"bp"`` or ``"osd"``), and ``mode`` for all
+    but OSD. An OSD decoder reads ``osd_t`` and ``pattern_chunk`` (default
+    4096) and returns codewords. An SCL decoder also
     reads ``list_size``, ``use_fast_scl`` (None or absent: the decoder's
     default by n), ``fast_rate1`` and ``spc_min_stage`` (None: no SPC). A
     BP decoder reads ``num_iter``, ``msf``, ``early_stop``,
@@ -32,16 +57,31 @@ def from_numpy_state(state: dict, device=None) -> SystemAWGNModel:
     targets), ``channel_type``, ``enable_pc``, ``dec_type`` (``"SC"``,
     ``"SCL"`` or ``"hybSCL"``), ``list_size``, ``mode`` and
     ``use_fast_scl``. The port builds the code itself; a ``frozen_pos``
-    given beside them must equal the port's mother-code frozen set."""
-    if state.get("code", "polar") == "5g":
+    given beside them must equal the port's mother-code frozen set.
+
+    A code over any kernel (``code="dense"``) reads ``kern`` (the kernel
+    matrix), ``frozen_pos``, ``n``, ``k``, ``osd_t``, ``pattern_chunk``
+    and ``llr_max``: the dense-G encoder and its OSD decoder."""
+    code = state.get("code", "polar")
+    if code == "5g":
         return _from_5g_state(state, device)
+    if code not in ("polar", "dense"):
+        raise ValueError(f"unknown code {code!r}: 'polar', '5g' or 'dense'")
     frozen = np.asarray(state["frozen_pos"], dtype=np.int64)
     n, k = int(state["n"]), int(state["k"])
     if n - len(frozen) != k:
         raise ValueError(f"frozen set of {len(frozen)} positions does not "
                          f"give k={k} at n={n}")
+    if code == "dense":
+        encoder = DenseKernelEncoder(frozen, n, np.asarray(state["kern"]),
+                                     device=device)
+        decoder = DenseKernelDecoder(encoder, **_osd_kwargs(state))
+        return _system(state, n, k, encoder, decoder)
     kind = state.get("decoder", "scl")
     encoder = PolarEncoder(frozen, n, device=device)
+    if kind == "osd":
+        decoder = OSDecoder(encoder=encoder, **_osd_kwargs(state))
+        return _system(state, n, k, encoder, decoder)
     common = dict(mode=state["mode"], llr_max=float(state["llr_max"]),
                   device=device)
     if kind == "sc":
@@ -64,8 +104,9 @@ def from_numpy_state(state: dict, device=None) -> SystemAWGNModel:
             first_pass_iters=int(state.get("first_pass_iters", 8)),
             **common)
     else:
-        raise ValueError(f"unknown decoder {kind!r}: 'sc', 'scl' or 'bp'")
-    return SystemAWGNModel(n, k, encoder, decoder)
+        raise ValueError(f"unknown decoder {kind!r}: 'sc', 'scl', 'bp' or "
+                         "'osd'")
+    return _system(state, n, k, encoder, decoder)
 
 
 def _from_5g_state(state: dict, device) -> SystemAWGNModel:
@@ -84,4 +125,4 @@ def _from_5g_state(state: dict, device) -> SystemAWGNModel:
         list_size=int(state.get("list_size", 8)),
         mode=state.get("mode", "minsum"),
         use_fast_scl=None if fast is None else bool(fast))
-    return SystemAWGNModel(n, k, encoder, decoder)
+    return _system(state, n, k, encoder, decoder)

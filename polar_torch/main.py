@@ -1,16 +1,23 @@
-"""CLI entry point: BER/BLER sweep of SC against SCL and BP polar decoding
-over AWGN, on the card unless ``--device cpu``.
+"""CLI entry point: BER/BLER sweep of polar decoders over AWGN, on the
+card unless ``--device cpu``.
 
     python -m polar_torch.main --k 512 --n 1024 --construction 5g --bs 8192
     python -m polar_torch.main --k 512 --n 1024 --construction 5g \
         --algos [scl,bp] --bs 8192
+    python -m polar_torch.main --kern G16 --n 256 --k 128 \
+        --construction rm-ref --osd_t 2 --bs 1024
 
-Always simulates SC; adds SCL-<list_size> when ``scl`` is in ``--algos``
-(the default) and BP-<bp_iter> when ``bp`` is. Frozen sets come from the
-lowest-row-weight construction (``--construction rm``, the default) or the
-5G NR reliability table (``--construction 5g``). ``sweep`` runs the
-decoders and returns the curves; ``main`` also draws them to a PNG (needs
-matplotlib).
+``--kern`` (a name of the kernel zoo, ``models/polar/kernels.py``) picks
+the kernel of both the construction and the encoder. On F2 the sweep
+always simulates SC, adds SCL-<list_size> when ``scl`` is in ``--algos``
+(the default) and BP-<bp_iter> when ``bp`` is. Any other kernel runs the
+dense-G encoder with order-``osd_t`` OSD alone ("<KERN> OSD-<t>"): SC, SCL
+and BP work on F2 only. Frozen sets come from the lowest-row-weight
+construction (``--construction rm``, the default, stable ties; ``rm-ref``,
+the reference CLI's own tie order), or, on F2 only, the 5G NR reliability
+table (``5g``) or the Gaussian approximation at ``--design_snr`` (``ga``).
+``sweep`` runs the decoders and returns the curves; ``main`` also draws
+them to a PNG (needs matplotlib).
 """
 
 import os
@@ -19,9 +26,13 @@ import numpy as np
 
 from polar_torch.config import PolarConfig, parse_config
 from polar_torch.models.polar.construction import (
-    ARIKAN_F2, generate_5g_ranking, get_kern_frozen_bits)
+    ARIKAN_F2, generate_5g_ranking, generate_ga_code, get_kern_frozen_bits,
+    get_ref_rm_frozen_bits)
 from polar_torch.models.polar.bp import PolarBPDecoder
+from polar_torch.models.polar.dense import (DenseKernelDecoder,
+                                            DenseKernelEncoder)
 from polar_torch.models.polar.encode import PolarEncoder
+from polar_torch.models.polar.kernels import get_kernel
 from polar_torch.models.polar.sc import PolarSCDecoder
 from polar_torch.models.polar.scl import PolarSCLDecoder
 from polar_torch.models.systems import SystemAWGNModel
@@ -32,23 +43,30 @@ from polar_torch.utils.profiling import (bp_complexity, complexity_line,
 
 def gen_code(c: PolarConfig, name: str, mode: str = "sc"):
     """``[SystemAWGNModel, name]`` for the configured code with an SC
-    (``mode="sc"``), SCL (``mode="scl"``) or BP (``mode="bp"``) decoder."""
+    (``mode="sc"``), SCL (``mode="scl"``), BP (``mode="bp"``) or dense-G
+    OSD (``mode="osd"``) decoder. A kernel other than F2 always gives the
+    dense-G encoder and OSD."""
     if c.n < 2 or c.n & (c.n - 1):
         raise ValueError("n must be a power of 2")
     kern_name = (c.kern or "F2").upper()
-    if kern_name != "F2":
-        raise NotImplementedError(f"--kern {kern_name} (dense-G encoder and "
-                                  "OSD) is not ported yet (ROADMAP Queue 1 "
-                                  "item 14)")
+    kern = ARIKAN_F2 if kern_name == "F2" else get_kernel(kern_name)
     if c.construction == "rm":
-        _, _, frozen_pos = get_kern_frozen_bits(c.n, c.n - c.k, ARIKAN_F2)
+        _, _, frozen_pos = get_kern_frozen_bits(c.n, c.n - c.k, kern)
+    elif c.construction == "rm-ref":
+        frozen_pos = get_ref_rm_frozen_bits(c.n, c.n - c.k, kern_name)
+    elif kern_name != "F2":
+        raise ValueError(f"--construction {c.construction} is F2-only; use "
+                         f"rm/rm-ref with --kern {kern_name}")
     elif c.construction == "5g":
         frozen_pos, _ = generate_5g_ranking(c.k, c.n)
-    elif c.construction in ("rm-ref", "ga"):
-        raise NotImplementedError(f"--construction {c.construction} is not "
-                                  "ported yet (ROADMAP Queue 1 item 14)")
+    elif c.construction == "ga":
+        frozen_pos, _ = generate_ga_code(c.k, c.n, c.design_snr)
     else:
         raise ValueError(f"unknown construction {c.construction!r}")
+    if mode == "osd" or kern_name != "F2":
+        enc = DenseKernelEncoder(frozen_pos, c.n, kern, device=c.device)
+        dec = DenseKernelDecoder(enc, t=c.osd_t)
+        return [SystemAWGNModel(c.n, c.k, enc, dec), name]
     f_mode = "minsum" if c.mode in ("max", "minsum") else "exact"
     enc = PolarEncoder(frozen_pos, c.n, device=c.device)
     if mode == "sc":
@@ -66,26 +84,36 @@ def gen_code(c: PolarConfig, name: str, mode: str = "sc"):
 
 def sweep(c: PolarConfig, ebno_dbs=None, jsonl_path=None) -> PlotBER:
     """Simulate SC (and SCL-<L> when ``scl`` is in ``c.algos``, BP-<iter>
-    when ``bp`` is) over ``ebno_dbs`` (default ``arange(0, c.snr_end,
-    0.5)``), printing each decoder's complexity line and progress table.
+    when ``bp`` is), or "<KERN> OSD-<t>" alone for a kernel other than F2,
+    over ``ebno_dbs`` (default ``arange(0, c.snr_end, 0.5)``), printing
+    each decoder's complexity line (none for OSD) and progress table.
     ``jsonl_path`` collects one JSON line per point and decoder, in that
     order. Returns the curves."""
     if c.num_devices > 1:
         raise NotImplementedError("num_devices > 1 (data-parallel sweep) is "
-                                  "not ported yet (ROADMAP Queue 1 item 16)")
+                                  "not ported yet (ROADMAP Queue 1, "
+                                  "\"Multi-GPU data parallel\")")
     if ebno_dbs is None:
         ebno_dbs = np.arange(0, c.snr_end, 0.5)
-    codes_under_test = [gen_code(c, "SC", mode="sc")]
-    if "scl" in c.algos:
-        codes_under_test.append(gen_code(c, f"SCL-{c.list_size}",
-                                         mode="scl"))
-    if "bp" in c.algos:
-        codes_under_test.append(gen_code(c, f"BP-{c.bp_iter}", mode="bp"))
+    kern_name = (c.kern or "F2").upper()
+    if kern_name != "F2":
+        codes_under_test = [gen_code(c, f"{kern_name} OSD-{c.osd_t}",
+                                     mode="osd")]
+    else:
+        codes_under_test = [gen_code(c, "SC", mode="sc")]
+        if "scl" in c.algos:
+            codes_under_test.append(gen_code(c, f"SCL-{c.list_size}",
+                                             mode="scl"))
+        if "bp" in c.algos:
+            codes_under_test.append(gen_code(c, f"BP-{c.bp_iter}",
+                                             mode="bp"))
     ber_plot = PlotBER(f"Performance of Short Len Codes (k={c.k}, n={c.n})")
     for model, name in codes_under_test:
         print("\nRunning: " + name)
         dec = model.decoder
-        if name.startswith("BP"):
+        if "OSD" in name:
+            comp = None     # no closed-form count for the pattern sweep
+        elif name.startswith("BP"):
             comp = bp_complexity(c.n, c.k, c.bp_iter)
         else:
             L = c.list_size if name.startswith("SCL") else 1
@@ -93,7 +121,8 @@ def sweep(c: PolarConfig, ebno_dbs=None, jsonl_path=None) -> PlotBER:
             comp = decode_complexity(
                 c.n, c.k, L, fast=fast, frozen_mask=dec._frozen_mask,
                 rate1=bool(getattr(dec, "fast_rate1", False)))
-        print(complexity_line(name, comp))
+        if comp is not None:
+            print(complexity_line(name, comp))
         ber_plot.simulate(
             model, ebno_dbs=ebno_dbs, batch_size=c.bs,
             target_block_errs=c.target_block_errs, legend=name,

@@ -33,7 +33,8 @@ from polar_torch.models.polar.cuda_bp import bp_decode
 from polar_torch.ops.fg import F_FUNCTIONS
 
 BF16_NOT_PORTED = ("msg_dtype other than float32 (the bf16 message lattice) "
-                   "is not ported yet (ROADMAP Queue 1 item 22)")
+                   "is not ported yet (ROADMAP Queue 1, \"BP's bf16 message "
+                   "lattice\")")
 
 
 class PolarBPDecoder:

@@ -1,5 +1,9 @@
-"""Host-side polar code construction (frozen-set selection), pure NumPy:
-the 5G NR reliability table and the lowest-row-weight (RM-style) rule."""
+"""Host-side polar code construction (frozen-set selection), NumPy: the 5G
+NR reliability table, the lowest-row-weight (RM-style) rule with stable
+ties or with the reference CLI's own tie order (``rm-ref``), the
+Reed-Muller code and the Gaussian-approximation (GA) construction."""
+
+import os
 
 import numpy as np
 
@@ -64,3 +68,58 @@ def get_kern_frozen_bits(n: int, f_num: int, kern=ARIKAN_F2):
     weights = g.sum(axis=1)
     frozen_pos = np.sort(np.argsort(weights, kind="stable")[:f_num])
     return g, weights, frozen_pos
+
+
+def get_ref_rm_frozen_bits(n: int, f_num: int, kern_name: str = "F2"):
+    """The reference CLI's exact lowest-row-weight frozen set
+    (``--construction rm-ref``).
+
+    The reference breaks ties between equal row weights in the order of
+    its (unstable) ``torch.argsort``, which no stable rule reproduces. Its
+    reliability order for each named kernel and n up to 1024 was captured
+    by running it, and ships as ``ref_rm_orders.npz``; the frozen set is
+    the sorted first ``f_num`` entries."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "ref_rm_orders.npz")
+    key = f"{kern_name}_n{n}"
+    with np.load(path) as z:
+        if key not in z:
+            raise ValueError(
+                f"no captured reference order for kernel={kern_name!r} "
+                f"n={n} (available: powers of the kernel base up to 1024)")
+        order = z[key]
+    if not 0 <= f_num <= n:
+        raise ValueError(f"f_num={f_num} outside [0, n={n}]")
+    return np.sort(order[:f_num]).astype(np.int64)
+
+
+def generate_rm_code(r: int, m: int):
+    """The Reed-Muller ``(r, m)`` code: positions whose index has Hamming
+    weight below ``m - r`` are frozen. Returns ``(frozen_pos, info_pos, n,
+    k, d_min)``."""
+    if r > m:
+        raise ValueError("order r cannot be larger than m")
+    n = 2 ** m
+    d_min = 2 ** (m - r)
+    idx = np.arange(n)
+    w = np.array([bin(i).count("1") for i in range(n)], dtype=np.int64)
+    frozen_mask = w < (m - r)
+    frozen_pos = idx[frozen_mask]
+    info_pos = idx[~frozen_mask]
+    return frozen_pos, info_pos, n, int(info_pos.shape[0]), d_min
+
+
+def generate_ga_code(k: int, n: int, design_ebno_db: float = 2.0):
+    """AWGN-matched frozen set by the Gaussian approximation of density
+    evolution (Trifonov 2012), at Eb/N0 ``design_ebno_db``: the channel
+    LLR mean is ``m0 = 4 R Eb/N0`` (QPSK with exact demapping), and the
+    ``n - k`` bit-channels of the smallest means are frozen, ties to the
+    lower index. Returns ``[frozen_pos, info_pos]``."""
+    from polar_torch.models.polar.ga import ga_bit_channel_means
+    k, n = int(k), int(n)
+    if not (0 < k < n and n & (n - 1) == 0):
+        raise ValueError(f"invalid GA code k={k}, n={n}: need 0 < k < n, "
+                         "n a power of 2")
+    m0 = 4.0 * (k / n) * 10.0 ** (float(design_ebno_db) / 10.0)
+    order = np.argsort(ga_bit_channel_means(n, m0), kind="stable")
+    return [np.sort(order[: n - k]), np.sort(order[n - k:])]

@@ -41,6 +41,16 @@ class PolarEncoder:
             raise ValueError(f"last dim must be of length k={self.k}")
         return polar_transform(self.scatter_info(u)).to(self.dtype)
 
+    def parity_check(self, c):
+        """True where ``c[..., n]`` is a codeword of this code (a test
+        aid). ``G`` is an involution over GF(2), so ``u = c G``, and ``c``
+        is valid when ``u`` is 0 at every frozen position."""
+        if c.shape[-1] != len(self._scatter_idx):
+            raise ValueError("c must be [..., n] of the polar code")
+        u = polar_transform(c.to(torch.int8))
+        frozen = torch.from_numpy(self.frozen_pos).to(c.device)
+        return ~u[..., frozen].bool().any(dim=-1)
+
 
 class Polar5GEncoder(PolarEncoder):
     """5G NR polar encoder with rate matching (TS 38.212):

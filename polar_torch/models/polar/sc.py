@@ -25,7 +25,7 @@ SCHEDULES = ("auto", "unrolled", "scan")
 # PC-aided decoding runs in the JAX package only on its unrolled trees,
 # which the port does not have
 PC_NOT_PORTED = ("pc_pos (PC-aided decoding) is not ported yet (ROADMAP "
-                 "Queue 1 item 21)")
+                 "Queue 1, \"PC-aided SC/SCL decoding\")")
 
 
 class PolarSCDecoder:

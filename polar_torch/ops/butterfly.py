@@ -6,6 +6,7 @@ lower half. The transform is an involution over GF(2), which the decoders
 use to recover ``u`` from a decoded codeword.
 """
 
+import numpy as np
 import torch
 
 
@@ -29,3 +30,16 @@ def polar_transform(x, axis=-1):
                         dim=-2).reshape(lead + (n,))
     v = v.movedim(-1, axis)
     return v.to(x.dtype) if floating else v
+
+
+def dense_generator(n: int) -> np.ndarray:
+    """The dense generator ``G = [[1,0],[1,1]]^{(x) log2(n)}`` as a host
+    int8 matrix (for parity checks and tests)."""
+    stages = n.bit_length() - 1
+    if n < 2 or 1 << stages != n:
+        raise ValueError(f"n={n} is not a power of 2, at least 2")
+    g = np.array([[1, 0], [1, 1]], dtype=np.int8)
+    m = g
+    for _ in range(stages - 1):
+        m = np.kron(g, m)
+    return m

@@ -80,7 +80,8 @@ def _counted_step(mc_fun, batch_size, soft_estimates):
     if hasattr(mc_fun, "counted_step"):
         raise NotImplementedError(
             "sim_ber: models with their own reduced counters (the sharded "
-            "system) are not ported yet (ROADMAP Queue 1 item 16)")
+            "system) are not ported yet (ROADMAP Queue 1, \"Multi-GPU data "
+            "parallel\")")
     run = mc_fun.step if hasattr(mc_fun, "step") else mc_fun
 
     def counted(generator, ebno_db):

@@ -62,3 +62,31 @@ def assert_blocks_agree(dec_a, dec_b, pm_a, pm_b):
     assert rel <= PM_RTOL, f"path metrics differ by {rel:.3g} relative"
     return share, bad
 
+
+
+# OSD: a block may differ from the reference only where the two codewords'
+# float64 distances agree to this relative gap (both found an equally good
+# codeword; torch's and JAX's softplus differ by an ulp on some inputs)
+OSD_TIE_RTOL = 1e-6
+
+
+def osd_distance(llr, c, llr_max):
+    """Float64 OSD distance, mean softplus(llr * (1 - 2c)), of codewords
+    ``c [..., n]`` for the clipped LLRs ``llr [..., n]``."""
+    llr = np.clip(np.asarray(llr, np.float64), -llr_max, llr_max)
+    sgn = llr * (1.0 - 2.0 * np.asarray(c, np.float64))
+    return np.mean(np.logaddexp(0.0, sgn), axis=-1)
+
+
+def assert_osd_agrees(llr, got, want, llr_max):
+    """Codewords ``got`` and ``want`` agree on every block, but where their
+    float64 distances tie to ``OSD_TIE_RTOL``. Returns the differing
+    blocks' count."""
+    bad = (np.asarray(got) != np.asarray(want)).any(axis=-1)
+    d_got = osd_distance(llr, got, llr_max)[bad]
+    d_want = osd_distance(llr, want, llr_max)[bad]
+    gap = np.abs(d_got - d_want) / np.maximum(np.abs(d_want), 1e-12)
+    assert np.all(gap <= OSD_TIE_RTOL), (
+        f"blocks {np.flatnonzero(bad).tolist()} differ with distance gaps "
+        f"{gap.tolist()}")
+    return int(bad.sum())

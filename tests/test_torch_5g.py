@@ -208,7 +208,7 @@ def test_decoder_options():
         Polar5GDecoder(enc, dec_type="nonsense")
     with pytest.raises(TypeError):
         Polar5GDecoder("not an encoder")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 21"):
+    with pytest.raises(NotImplementedError, match="PC-aided SC/SCL decoding"):
         Polar5GDecoder(Polar5GEncoder(16, 64, device="cpu"), dec_type="SCL")
     dec = Polar5GDecoder(enc, dec_type="SCL", list_size=32, lower_stages=3)
     assert dec._polar_dec.lower_stages == 3

@@ -1,21 +1,33 @@
-"""The polar_torch CLI: configuration parsing, the RM-style construction
-and the complexity meter against polar_tpu's, and ``main`` and ``sweep``
-(SC, SCL and BP) end to end on the CPU (as ``tests/test_config.py`` holds
-the JAX CLI's parsing)."""
+"""The polar_torch CLI: configuration parsing, the constructions (``rm``,
+``rm-ref``, ``ga``, ``5g``, over any kernel of the zoo) and the complexity
+meter against polar_tpu's, and ``main`` and ``sweep`` (SC, SCL, BP, and
+dense-G OSD for ``--kern``) end to end on the CPU (as
+``tests/test_config.py`` holds the JAX CLI's parsing)."""
 
 import dataclasses
 import os
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
+from polar_tpu import native as j_native
+from polar_tpu.config import PolarConfig as j_PolarConfig
 from polar_tpu.config import parse_config as j_parse_config
+from polar_tpu.main import gen_code as j_gen_code
+from polar_tpu.models.osd import OSDecoder as JOSDecoder
 from polar_tpu.models.polar.construction import (
     get_kern_frozen_bits as j_get_kern_frozen_bits)
+from polar_tpu.models.polar.encode import PolarEncoder as JPolarEncoder
 from polar_tpu.utils import profiling as jprof
 
+from _torch_parity import assert_osd_agrees
+from polar_torch import from_numpy_state
 from polar_torch import main as tmain
 from polar_torch.config import PolarConfig, parse_config
+from polar_torch.models.osd import OSDecoder
+from polar_torch.models.polar.dense import DenseKernelDecoder
 from polar_torch.models.polar.construction import (ARIKAN_F2, gen_arikan,
                                                    generate_5g_ranking,
                                                    get_kern_frozen_bits)
@@ -124,13 +136,83 @@ def test_sweep_with_bp_runs_sc_scl_and_bp(capsys):
     assert dec.early_stop and dec.check_every == 2
 
 
-@pytest.mark.parametrize("change,item", [
-    ({"kern": "F3"}, "Queue 1 item 14"),
-    ({"construction": "rm-ref"}, "Queue 1 item 14"),
-    ({"construction": "ga"}, "Queue 1 item 14"),
-    ({"num_devices": 2}, "Queue 1 item 16"),
+@pytest.mark.parametrize("change,error,match", [
+    ({"kern": "F3"}, KeyError, "unknown kernel"),
+    ({"num_devices": 2}, NotImplementedError, "Multi-GPU data parallel"),
 ])
-def test_cli_raises_for_later_slices(change, item):
+def test_cli_raises_for_later_slices(change, error, match):
+    """An unknown kernel raises as ``get_kernel`` does; only a
+    data-parallel sweep is left for a later slice."""
     c = dataclasses.replace(PolarConfig(device="cpu"), **change)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=match):
         tmain.sweep(c, ebno_dbs=[1.0])
+
+
+def test_kern_cli_runs_dense_osd_and_saves_its_plot(tmp_path, capsys):
+    """``--kern K16`` runs the dense-G chain with OSD alone, end to end,
+    as ``tests/test_kern.py`` runs the JAX CLI."""
+    c = PolarConfig(k=8, n=16, kern="K16", bs=32, mc_iter=1, snr_end=1.0,
+                    osd_t=1, plot_dir=str(tmp_path), device="cpu")
+    out = tmain.main(c)
+    text = capsys.readouterr().out
+    assert "Running: K16 OSD-1" in text and "# complexity" not in text
+    assert os.path.isfile(out)
+    model, name = tmain.gen_code(c, "x", mode="sc")
+    assert isinstance(model.decoder, DenseKernelDecoder)
+    assert model.decoder.t == 1 and model.encoder.kern.shape == (16, 16)
+
+
+def test_kern_cli_rejects_f2_only_construction():
+    for construction in ("5g", "ga"):
+        c = PolarConfig(k=8, n=16, kern="K16", construction=construction,
+                        device="cpu")
+        with pytest.raises(ValueError, match="F2-only"):
+            tmain.gen_code(c, "x", mode="osd")
+        with pytest.raises(ValueError, match="F2-only"):
+            j_gen_code(j_PolarConfig(k=8, n=16, kern="K16",
+                                     construction=construction), "x",
+                       mode="osd")
+
+
+@pytest.mark.parametrize("kern,construction,k,n", [
+    ("F2", "rm-ref", 32, 64), ("F2", "rm-ref", 128, 256),
+    ("F2", "ga", 32, 64), ("F2", "ga", 512, 1024), ("F2", "rm", 100, 256),
+    ("G16", "rm-ref", 128, 256), ("G16", "rm", 128, 256),
+    ("K8", "rm-ref", 30, 64), ("R4", "rm", 8, 16)])
+def test_gen_code_frozen_sets_equal_jax(monkeypatch, kern, construction, k,
+                                        n):
+    # the JAX side's GA means from its NumPy twin, so its committed native
+    # library is left as it is
+    monkeypatch.setattr(j_native, "ga_bit_channel_means",
+                        lambda n, m0: j_native._ga_means_numpy(n, m0))
+    kw = dict(k=k, n=n, kern=kern, construction=construction, osd_t=1)
+    for mode in (("sc", "osd") if kern == "F2" else ("osd",)):
+        model, _ = tmain.gen_code(PolarConfig(device="cpu", **kw), "x",
+                                  mode=mode)
+        j_model, _ = j_gen_code(j_PolarConfig(**kw), "x", mode=mode)
+        want = np.sort(np.asarray(j_model.encoder.frozen_pos
+                                  if mode == "osd" else
+                                  j_model.decoder.frozen_pos))
+        np.testing.assert_array_equal(model.encoder.frozen_pos, want)
+        assert model.k == k == n - len(want)
+
+
+def test_from_numpy_state_osd_decodes_like_jax():
+    """The throughput suite's ``osd2_k64_n128`` row (OSD-2 on the 5G
+    (64, 128) code, patterns in chunks of 1024, codeword estimates) built
+    from its state decodes as JAX's ``OSDecoder`` does."""
+    k, n = 64, 128
+    frozen, _ = generate_5g_ranking(k, n)
+    model = from_numpy_state(dict(frozen_pos=frozen, n=n, k=k,
+                                  decoder="osd", osd_t=2,
+                                  pattern_chunk=1024, cw_estimates=True),
+                             device="cpu")
+    assert isinstance(model.decoder, OSDecoder) and model.cw_estimates
+    j_dec = JOSDecoder(t=2, encoder=JPolarEncoder(frozen, n),
+                       pattern_chunk=1024)
+    llr = np.random.default_rng(3).normal(0, 2, (16, n)).astype(np.float32)
+    assert_osd_agrees(llr, model.decoder(torch.from_numpy(llr)).numpy(),
+                      np.asarray(j_dec(jnp.asarray(llr))), llr_max=100.0)
+    c, c_hat = model.step(torch.Generator().manual_seed(0), 32, 6.0)
+    assert c.shape == c_hat.shape == (32, n)
+    np.testing.assert_array_equal(c_hat.numpy(), c.numpy())

@@ -3,7 +3,8 @@ kernel against their plain versions on the same CUDA inputs (the SCL
 kernel at L up to 32 and in its traced form; BP with its lattice in shared
 and in global memory), and the decoders (fast and plain SCL, SC, the 5G
 CA-SCL and hybrid chain, BP single- and two-pass) on the card against the
-same decoders on the CPU.
+same decoders on the CPU; OSD and the dense-G decoder, the BEC channel,
+and the SC and SCL decoders on BEC logits, on the card against the CPU.
 Every test here needs a CUDA card and skips without one.
 
 The file imports no JAX, so it also runs where JAX is not installed:
@@ -22,7 +23,8 @@ from polar_torch.models.polar.scan_core import (leaf_schedule,
                                                 split_fast_schedule)
 from polar_torch.models.polar.scl import PolarSCLDecoder
 
-from _torch_parity import BLOCK_AGREEMENT, assert_blocks_agree
+from _torch_parity import (BLOCK_AGREEMENT, assert_blocks_agree,
+                           assert_osd_agrees)
 
 LLR_MAX = 30.0
 
@@ -403,3 +405,94 @@ def test_bp_wrapper_rejects_bad_cuda_inputs(cuda):
     with pytest.raises(ValueError):       # no room in shared memory
         bp_decode(torch.zeros(4096, 4, device=cuda),
                   torch.zeros(4096, device=cuda), lattice="shared", **kw)
+
+
+@pytest.mark.gpu
+def test_osd_on_card_equals_cpu(cuda):
+    """OSD-2 on the 5G (64, 128) code in chunks of 1024 patterns: valid
+    codewords, and the CPU's under the tie rule."""
+    from polar_torch.models.osd import OSDecoder
+    from polar_torch.models.polar.encode import PolarEncoder
+    frozen, _ = generate_5g_ranking(64, 128)
+    llr = np.random.default_rng(0).normal(0, 2, (512, 128)).astype(
+        np.float32)
+    enc = PolarEncoder(frozen, 128, device=cuda)
+    dec = OSDecoder(t=2, encoder=enc, pattern_chunk=1024)
+    assert dec.device == cuda
+    got = dec(torch.from_numpy(llr).to(cuda))
+    assert bool(enc.parity_check(got).all())
+    want = OSDecoder(t=2, encoder=PolarEncoder(frozen, 128, device="cpu"),
+                     pattern_chunk=1024)(torch.from_numpy(llr))
+    assert_osd_agrees(llr, got.cpu().numpy(), want.numpy(), llr_max=100.0)
+
+
+@pytest.mark.gpu
+def test_dense_decoder_on_card_equals_cpu(cuda):
+    from polar_torch.models.polar.construction import get_ref_rm_frozen_bits
+    from polar_torch.models.polar.dense import (DenseKernelDecoder,
+                                                DenseKernelEncoder)
+    from polar_torch.models.polar.kernels import get_kernel
+    n, k = 256, 128
+    kern = get_kernel("G16")
+    frozen = get_ref_rm_frozen_bits(n, n - k, "G16")
+    rng = np.random.default_rng(1)
+    u = rng.integers(0, 2, (128, k)).astype(np.float32)
+    enc_cpu = DenseKernelEncoder(frozen, n, kern, device="cpu")
+    c = enc_cpu(torch.from_numpy(u))
+    enc = DenseKernelEncoder(frozen, n, kern, device=cuda)
+    assert torch.equal(enc(torch.from_numpy(u).to(cuda)).cpu(), c)
+    llr = ((2.0 * c - 1.0) * 2.0 + torch.from_numpy(rng.normal(
+        0, 1.2, c.shape).astype(np.float32))).numpy()
+    dec, dec_cpu = DenseKernelDecoder(enc, t=1), DenseKernelDecoder(enc_cpu,
+                                                                   t=1)
+    c_got = dec._osd(torch.from_numpy(llr).to(cuda)).cpu().numpy()
+    c_want = dec_cpu._osd(torch.from_numpy(llr)).numpy()
+    assert_osd_agrees(llr, c_got, c_want, llr_max=100.0)
+    same = torch.from_numpy(~(c_got != c_want).any(axis=1))
+    got = dec(torch.from_numpy(llr).to(cuda)).cpu()
+    assert torch.equal(got[same], dec_cpu(torch.from_numpy(llr))[same])
+
+
+@pytest.mark.gpu
+def test_bec_channel_on_card(cuda):
+    from polar_torch.ops.channels import BinaryErasureChannel
+    x = torch.randint(0, 2, (200_000,), device=cuda,
+                      generator=torch.Generator(device=cuda).manual_seed(0)).float()
+    ch = BinaryErasureChannel(return_llrs=True)
+    y = ch(torch.Generator(device=cuda).manual_seed(1), (x, 0.3))
+    share = (y == 0).float().mean().item()
+    assert abs(share - 0.3) <= 4.0 * (0.3 * 0.7 / x.numel()) ** 0.5
+    live = y != 0
+    assert torch.equal(y[live] > 0, x[live] == 1)
+    erased = ch(torch.Generator(device=cuda).manual_seed(2), (x, 1.0))
+    assert bool((erased == 0).all())
+    assert torch.equal(torch.signbit(erased), x == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pe", [0.3, 0.45])
+def test_decoders_on_bec_logits_card_equal_cpu(cuda, pe):
+    """SC bit-equal, SCL-8 under the block rule, on BEC logits (+-100,
+    erasures as signed zeros) of the 5G k=512 n=1024 code."""
+    from polar_torch.models.polar.cuda_sc import sc_subtree
+    from polar_torch.models.polar.encode import PolarEncoder
+    from polar_torch.models.polar.sc import PolarSCDecoder
+    from polar_torch.ops.channels import BinaryErasureChannel
+    n, k, bs = 1024, 512, 1024
+    frozen, _ = generate_5g_ranking(k, n)
+    gen = torch.Generator(device=cuda).manual_seed(int(pe * 100))
+    u = torch.randint(0, 2, (bs, k), device=cuda, generator=gen).float()
+    c = PolarEncoder(frozen, n, device=cuda)(u)
+    logits = BinaryErasureChannel(return_llrs=True)(gen, (c, pe))
+    before = sc_subtree.launches
+    got = PolarSCDecoder(frozen, n, device=cuda)(logits)
+    assert sc_subtree.launches > before
+    assert torch.equal(got.cpu(), PolarSCDecoder(frozen, n, device="cpu")(
+        logits.cpu()))
+    before = scl_subtree.launches
+    got = PolarSCLDecoder(frozen, n, list_size=8, device=cuda)(logits)
+    assert scl_subtree.launches > before
+    want = PolarSCLDecoder(frozen, n, list_size=8, device="cpu")(
+        logits.cpu())
+    agree = (got.cpu() == want).all(dim=1).float().mean().item()
+    assert agree >= BLOCK_AGREEMENT

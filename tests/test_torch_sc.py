@@ -102,7 +102,7 @@ def test_from_numpy_state_builds_sc_decoder():
                          _logits(n, 64, 12))
     np.testing.assert_array_equal(got, want)
     with pytest.raises(ValueError, match="unknown decoder"):
-        from_numpy_state(dict(state, decoder="osd"), device="cpu")
+        from_numpy_state(dict(state, decoder="ml"), device="cpu")
 
 
 @pytest.mark.parametrize("form", ["static", "traced"])
@@ -235,7 +235,7 @@ def test_zero_llr_decides_one_and_leading_dims():
 
 def test_decoder_options_and_errors():
     frozen, _ = generate_5g_ranking(32, 64)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 21"):
+    with pytest.raises(NotImplementedError, match="PC-aided SC/SCL decoding"):
         PolarSCDecoder(frozen, 64, pc_pos=[3], device="cpu")
     with pytest.raises(ValueError):
         PolarSCDecoder(frozen, 64, mode="bad", device="cpu")

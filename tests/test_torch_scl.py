@@ -115,7 +115,7 @@ def test_decoder_equals_jax_decoder_rate1():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"pc_pos": [3]}, "Queue 1 item 21"),
+    ({"pc_pos": [3]}, "PC-aided SC/SCL decoding"),
 ])
 def test_decoder_raises_for_later_slices(kwargs, item):
     frozen, _ = generate_5g_ranking(32, 64)

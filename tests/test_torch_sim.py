@@ -182,7 +182,7 @@ def test_sharded_counters_raise():
         def counted_step(self, *args):
             raise AssertionError("not reached")
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
+    with pytest.raises(NotImplementedError, match="Multi-GPU data parallel"):
         sim_ber(Sharded(), [0.0], batch_size=4, max_mc_iter=1,
                 verbose=False)
 
