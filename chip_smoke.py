@@ -2,11 +2,12 @@
 
     python3 chip_smoke.py            # from the repo root; one card, nvcc
 
-It drives six paths: the fast-SCL chain (phases 4 and 5), the CLI sweep
+It drives eight paths: the fast-SCL chain (phases 4 and 5), the CLI sweep
 with SC, SCL-8 and BP-20 (phase 6), the 5G NR CA-SCL chain (phase 8),
 BP's two-pass serving path (phase 9), the ``--kern`` CLI path with OSD
-(phase 10) and the BEC link (phase 11). Phases (any failure exits
-non-zero and prints no result):
+(phase 10), the BEC link (phase 11), the 5G uplink UCI chain with PC bits
+(phase 12) and the data-parallel and profiling tools over it (phase 13).
+Phases (any failure exits non-zero and prints no result):
 
 1. the card: CUDA must be available; prints the card's name and power
    limit as ``nvidia-smi`` reports them;
@@ -46,7 +47,12 @@ non-zero and prints no result):
    blocks each: +-100, erasures as -0.0 and +0.0) the SCL kernel on the
    plain SCL-8 sweep and the fast sweep with rate-1 nodes (the block rule
    above) and the SC kernel at the SC decoder's depth (every block), whose
-   decisions must not change when the zeros change sign;
+   decisions must not change when the zeros change sign. PC schedules
+   (the ``'p'`` leaf, the whole tree in one call): the plain SCL sweep at
+   L = 8 and 32 and the SC sweep of the mother codes of the uplink (19,
+   864) and (12, 48) codes, min-sum and exact, on random LLRs and on the
+   noiseless +-10 logits of encoded payloads, 8192 blocks each; min-sum
+   must agree on every block with bit-equal path metrics;
 4. the main path: ``SystemAWGNModel.step`` (source -> 5G k=512 n=1024
    polar encoder -> QPSK -> AWGN -> demapper -> SCL-8 min-sum fast-SCL
    decoder with rate-1 nodes) at a batch of 8192 codewords and 2.0 dB,
@@ -103,7 +109,21 @@ non-zero and prints no result):
     and SCL-8 decoders through ``sim_ber`` at pe = 0.38 and 0.42, 4
     batches of 8192 each, BLER gated as in phase 10; the GA construction
     (``generate_ga_code(512, 1024, 2.0)``, g++ build) equal to its NumPy
-    twin's.
+    twin's;
+12. the 5G uplink UCI chain: ``Polar5GEncoder(19, 864)`` (n_polar 256,
+    CRC6, 3 PC bits, one placed by row weight) -> QPSK -> AWGN -> exact
+    demapper -> ``Polar5GDecoder`` in exact mode, SC, CA-SCL-8 and
+    hybSCL-8 through ``sim_ber`` at 4.5 dB, then CA-SCL-8 on (12, 48) at
+    2.0 dB, 4 batches of 8192 each, with the launch counts reset just
+    before each run and read just after; each BLER within 4 sigma of both
+    samples combined of its ``PORT_YARDSTICKS`` row; prints info bit/s,
+    decoder ms per batch and the kernels' ms per decode beside the bound;
+13. the tools over phase 12's CA-SCL-8 chain: ``ShardedSystem`` with a
+    world of one on NCCL (a localhost store), 2 batches through
+    ``sim_ber``, its counters equal to the unsharded model's on the same
+    derived generators; ``trace`` of one step, whose file must name the
+    SCL kernel; ``flop_estimate`` of one decode and one step beside the
+    kernel call's own work count.
 
 The line before the card's line is one JSON object ``{"kernels": [...]}``
 with each kernel form's launches on its path (``scl_subtree`` static
@@ -112,9 +132,11 @@ CA-SCL-32; ``scl_subtree`` traced: the 5G path's CA-SCL-8 at b=6;
 ``sc_subtree`` and ``bp``: the CLI sweep), its disagreement with the
 plain version (for ``bp``: the largest min-sum LLR gap, and the blocks
 that differ in min-sum or, in exact mode, in their decisions; for
-``scl_subtree`` and ``sc_subtree`` also the BEC blocks checked), and its
-time, the plain version's time and its bound at the path's shape. The
-last line is
+``scl_subtree`` and ``sc_subtree`` also the BEC blocks checked, and with
+a ``pc_`` prefix the PC path's launches in phase 12, the PC blocks checked
+in phase 3 and the times of one (19, 864) decode), and its time, the
+plain version's time and its bound at the path's shape. The last line
+is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 
@@ -206,16 +228,35 @@ PORT_YARDSTICKS = {
     "osd2_k64_n128": (1336, 16384),
     "bec_sc_0.38": (4138, 16384), "bec_sc_0.42": (12128, 16384),
     "bec_scl8_0.38": (73, 16384), "bec_scl8_0.42": (1048, 16384),
+    # phase 12, the same script and settings, made with
+    #   JAX_PLATFORMS=cpu python tests/make_torch_yardsticks.py --blocks
+    #       16384 --bs 256 --only pc_sc_k19_e864 pc_scl8_k19_e864
+    #       pc_hybscl8_k19_e864 pc_scl8_k12_e48
+    "pc_sc_k19_e864": (3306, 16384), "pc_scl8_k19_e864": (305, 16384),
+    "pc_hybscl8_k19_e864": (367, 16384), "pc_scl8_k12_e48": (1323, 16384),
 }
+# phase 3's PC schedules: the mother codes of the uplink (k, E) codes with
+# 3 PC bits, the whole tree as one call, at these list sizes
+PC_CHECK_CODES = ((19, 864), (12, 48))
+PC_CHECK_LISTS = (8, 32)
+# phase 12: the 5G uplink UCI chain (TS 38.212 5.3.1.2: CRC6 and 3 PC bits
+# for 12 <= A <= 19), Polar5GEncoder(19, 864) (n_polar 256; E - K + 3 > 192
+# puts one PC bit by row weight) in exact mode, SC, CA-SCL-8 and hybSCL-8
+# at UCI_EBNO_DB, where every yardstick BLER lies in 0.01-0.3; CA-SCL-8 on
+# (12, 48) at UCI_SMALL_EBNO_DB. (name, dec_type, yardstick)
+UCI_K, UCI_E, UCI_MODE, UCI_EBNO_DB, UCI_BATCHES = 19, 864, "exact", 4.5, 4
+UCI_DECODERS = (("SC", "SC", "pc_sc_k19_e864"),
+                ("CA-SCL-8", "SCL", "pc_scl8_k19_e864"),
+                ("hybSCL-8", "hybSCL", "pc_hybscl8_k19_e864"))
+UCI_SMALL_K, UCI_SMALL_E, UCI_SMALL_EBNO_DB = 12, 48, 2.0
+# phase 13: batches of the sharded run
+SHARDED_BATCHES = 2
 
 # NVIDIA H100 SXM data sheet: HBM bandwidth and fp32 rate outside the
 # tensor cores, at the full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 SMEM_OPT_IN = 232448                # shared memory a block may opt in to
-# f32 operations per element, as the kernel's routine spends them
-OPS_F = {"minsum": 8, "exact": 20}   # clip x2, |.|, min, sign product
-OPS_G, OPS_SOFTPLUS, OPS_XOR = 2, 6, 1
 
 
 def log(*args):
@@ -228,85 +269,6 @@ def card_line():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
-
-
-def subtree_work(ops, b, mode, a, frz=None):
-    """(bytes, f32 operations) one subtree call must at least move and do:
-    each input read once (a broadcast input counts once), each output
-    written once; the f/g, softplus, partial-sum and top-L work of the
-    op schedule over the L paths and bs codewords of ``a``. A traced
-    ``'t'`` leaf counts as the frozen or info leaf its flag in ``frz``
-    makes it (the kernel skips a frozen leaf's fork)."""
-    from polar_torch.models.polar.cuda_scl import _ctz, _cto
-    _, L, bs = a.shape
-    a_bytes = a.element_size()
-    for size, stride in zip(a.shape, a.stride()):
-        a_bytes *= size if stride else 1
-    w = 1 << b
-    n_bytes = (a_bytes + 4 * L * bs + 12 * len(ops)          # a, pm, table
-               + 4 * w * L * bs + 4 * L * bs + 4 * L * bs)   # cw, P, pm
-    if frz is not None:
-        n_bytes += 4 * w
-        flags = frz.tolist()
-        ops = [(("f" if flags[lo] else "i") if kind == "t" else kind, s, lo)
-               for kind, s, lo in ops]
-    n_f = n_g = n_sp = n_xor = n_cmp = 0
-    for kind, s_nd, lo in ops:
-        top = b if lo == 0 else _ctz(lo)
-        if lo:
-            n_g += 1 << top
-        n_f += sum(1 << (s - 1) for s in range(s_nd + 1, top + 1))
-        wn = 1 << s_nd
-        if kind in ("z", "f"):
-            n_sp += wn
-        elif kind in ("r", "i"):
-            n_sp += 2 * wn
-            n_cmp += 2 * L * L
-        else:                                   # 'o' / 's' flip forks
-            theta = min(L, wn) if kind == "s" else min(L - 1, wn)
-            n_sp += wn
-            n_cmp += theta * (2 * L * L + (wn if wn > L - 1 else 0))
-        n_xor += sum(1 << s for s in range(s_nd, min(_cto(lo + wn - 1), b)))
-    per_path = OPS_F[mode] * n_f + OPS_G * n_g + OPS_SOFTPLUS * n_sp + \
-        OPS_XOR * n_xor
-    return n_bytes, L * bs * per_path + bs * n_cmp
-
-
-def sc_subtree_work(ops, b, bs, mode):
-    """(bytes, f32 operations) one SC subtree call must at least move and
-    do: a f32 in and cw int32 out once each, plus the schedule table; the
-    f, g and partial-sum xor elements of its schedule over bs codewords (a
-    rate-0 node's descent stops one stage above its root)."""
-    from polar_torch.models.polar.cuda_scl import _ctz, _cto
-    w = 1 << b
-    n_bytes = 4 * w * bs + 4 * w * bs + 12 * len(ops)
-    n_f = n_g = n_xor = 0
-    for kind, s_nd, lo in ops:
-        stop = s_nd + 1 if kind == "z" else s_nd
-        d = b if lo == 0 else _ctz(lo)
-        if lo and d >= stop:
-            n_g += 1 << d
-        n_f += sum(1 << (s - 1) for s in range(d, stop, -1))
-        n_xor += sum(1 << s for s in range(s_nd, min(_cto(lo + (1 << s_nd)
-                                                          - 1), b)))
-    return n_bytes, bs * (OPS_F[mode] * n_f + OPS_G * n_g + OPS_XOR * n_xor)
-
-
-def bp_work(n, bs, sweeps, checks, mode, msf):
-    """(bytes, f32 operations) BP decodes of ``bs`` codewords must at least
-    move and do, having run ``sweeps`` sweeps and ``checks`` G-matrix
-    checks in all: the LLRs in and the output back once, the prior and the
-    flags; per butterfly and stage two f, the partner sum and the add, and
-    in scaled min-sum the two products; per check the two hard decisions
-    (an add and a compare per row each), the re-encode's xors and the
-    comparison."""
-    S = n.bit_length() - 1
-    n_bytes = 4 * n * bs + 4 * n * bs + 4 * n + 4 * bs
-    scaled = mode == "minsum" and msf != 1.0
-    per_sweep = 2 * S * (n // 2) * (2 * OPS_F[mode] + 2 + (2 if scaled
-                                                           else 0))
-    per_check = 5 * n + OPS_XOR * S * (n // 2)
-    return n_bytes, sweeps * per_sweep + checks * per_check
 
 
 def resource_usage(libs):
@@ -542,6 +504,15 @@ def near_tie_gaps(a, pm, ops, cols, **kw):
         cols, gap.tolist(), pm_out.min(0).values.tolist())]
 
 
+def recorder(calls, subtree):
+    """``subtree`` that also appends each call's (args, kwargs) to
+    ``calls``."""
+    def recording(*args, **kw):
+        calls.append((args, kw))
+        return subtree(*args, **kw)
+    return recording
+
+
 def cuda_ms(fn, reps):
     """Mean device time of ``fn()`` over ``reps`` calls after one warm-up,
     from CUDA events."""
@@ -558,17 +529,18 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def profile_step(model, gen, top=8):
-    """Device time by kernel over one main-path step (torch.profiler), and
-    the device's busy share of the step's wall time."""
+def profile_step(model, gen, top=8, ebno_db=EBNO_MAIN_DB):
+    """Device time by kernel over one step of ``model`` at ``ebno_db``
+    (torch.profiler; by default the main path's), and the device's busy
+    share of the step's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    model.step(gen, BATCH, EBNO_MAIN_DB)
+    model.step(gen, BATCH, ebno_db)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.step(gen, BATCH, EBNO_MAIN_DB)
+        model.step(gen, BATCH, ebno_db)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     # device-side events only (kernels, copies): an operator's entry
@@ -674,6 +646,264 @@ def kern_phase(dev, gen, card, reset_counts, counts):
         f"[{card}]")
 
 
+def pc_kernel_checks(dev, gen):
+    """Phase 3's PC schedules: the plain SCL sweep (``'p'`` leaves, the
+    whole tree in one call) at ``PC_CHECK_LISTS`` and the SC sweep of the
+    ``PC_CHECK_CODES`` mother codes, kernel against plain version, min-sum
+    and exact, on random LLRs and on the noiseless +-10 logits of encoded
+    payloads (rate-recovered), BATCH blocks each. Min-sum must agree on
+    every block with bit-equal path metrics; exact mode as the other
+    checks. Returns the (SCL, SC) checks."""
+    import numpy as np
+    import torch
+    from polar_torch.models.polar import scan_core
+    from polar_torch.models.polar.cuda_sc import sc_subtree, sc_subtree_plain
+    from polar_torch.models.polar.cuda_scl import (scl_subtree,
+                                                   scl_subtree_plain)
+    from polar_torch.models.polar.decode5g import Polar5GDecoder
+    from polar_torch.models.polar.encode import Polar5GEncoder
+    from polar_torch.ops.source import binary_source
+
+    def plain_scl(a, pm, sched, **kw):
+        return scl_subtree_plain(a, pm, sched.ops, **kw)
+
+    def plain_sc(a, frz, sched, **kw):
+        return sc_subtree_plain(a, frz, sched.ops, **kw)
+
+    scl_check, sc_check = Check(), ScCheck()
+    for k, e in PC_CHECK_CODES:
+        enc = Polar5GEncoder(k, e, device=dev)
+        n = enc.n_polar
+        S = n.bit_length() - 1
+        mask = np.zeros(n, bool)
+        mask[enc.frozen_pos] = True
+        pc = np.zeros(n, bool)
+        pc[enc.pc_pos] = True
+        logits = 10.0 * (2.0 * enc(binary_source(gen, (BATCH, k))) - 1.0)
+        rate_recover = Polar5GDecoder(enc, dec_type="SC").rate_recover
+        inputs = {"random LLRs": 3.0 * torch.randn((n, BATCH), generator=gen,
+                                                   device=dev),
+                  "noiseless logits": (-rate_recover(logits)).t().contiguous()}
+        scl_plan = scan_core.plan_plain_sweep(mask, S, dev, pc_mask=pc)
+        sc_plan = scan_core.plan_sc_sweep(mask, S, dev, pc_mask=pc)
+        n_p = sum(kind == "p" for kind, _, _ in scl_plan[0][2].ops)
+        for label, llr in inputs.items():
+            for mode in ("minsum", "exact"):
+                for L in PC_CHECK_LISTS:
+                    kw = dict(mode=mode, llr_max=30.0, lower_stages=S,
+                              plan=scl_plan)
+                    u_k, pm_k = scan_core.scl_sweep_hybrid(
+                        llr, mask, L, subtree=scl_subtree, **kw)
+                    u_p, pm_p = scan_core.scl_sweep_hybrid(
+                        llr, mask, L, subtree=plain_scl, **kw)
+                    name = (f"PC ({k}, {e}), n={n}, {n_p} 'p' leaves, "
+                            f"{label}, L={L}, b={S}, bs={BATCH}, {mode}")
+                    n_bad = scl_check.add(name,
+                                          (u_p, torch.zeros_like(pm_p), pm_p),
+                                          (u_k, torch.zeros_like(pm_k), pm_k))
+                    if mode == "minsum" and (n_bad or not torch.equal(pm_k,
+                                                                      pm_p)):
+                        raise AssertionError(f"{name}: min-sum must agree on "
+                                             "every block, path metrics bit "
+                                             "for bit")
+                kw = dict(mode=mode, llr_max=30.0, lower_stages=S,
+                          plan=sc_plan)
+                u_k = scan_core.sc_sweep_hybrid(llr, mask, subtree=sc_subtree,
+                                                **kw)
+                u_p = scan_core.sc_sweep_hybrid(llr, mask, subtree=plain_sc,
+                                                **kw)
+                sc_check.add(f"PC ({k}, {e}), n={n}, {label}, b={S}, "
+                             f"bs={BATCH}", mode, u_p, u_k)
+    torch.cuda.synchronize()
+    log(f"phase 3: PC schedules: scl_subtree {scl_check.n_bad} of "
+        f"{scl_check.n_blocks} blocks differ (pm max abs "
+        f"{scl_check.max_abs:.3g}); sc_subtree min-sum "
+        f"{sc_check.bad['minsum']} of {sc_check.blocks['minsum']}, exact "
+        f"{sc_check.bad['exact']} of {sc_check.blocks['exact']}")
+    return scl_check, sc_check
+
+
+def uci_phase(dev, gen, card, reset_counts, counts, kernel_times):
+    """Phase 12: the 5G uplink UCI chain with PC bits through ``sim_ber``
+    (``UCI_DECODERS`` on (19, 864), CA-SCL-8 on (12, 48)), the launch
+    counts reset just before each run and read just after, each BLER
+    against its yardstick; info bit/s, decoder ms per batch, and the
+    kernels' ms per decode (``kernel_times(calls, label)``) beside their
+    bound. Returns (the summed launch counts, the kernels' times per
+    (19, 864) decode, the CA-SCL-8 model)."""
+    import numpy as np
+    import torch
+    from polar_torch.models.polar import scan_core
+    from polar_torch.models.polar.cuda_sc import sc_subtree
+    from polar_torch.models.polar.cuda_scl import scl_subtree
+    from polar_torch.models.polar.decode5g import Polar5GDecoder
+    from polar_torch.models.polar.encode import Polar5GEncoder
+    from polar_torch.models.systems import SystemAWGNModel
+    from polar_torch.sim import sim_ber
+
+    totals = {"scl_subtree": 0, "sc_subtree": 0}
+    times, scl_model = {}, None
+    runs = [(UCI_K, UCI_E, UCI_EBNO_DB) + d for d in UCI_DECODERS]
+    runs.append((UCI_SMALL_K, UCI_SMALL_E, UCI_SMALL_EBNO_DB, "CA-SCL-8",
+                 "SCL", f"pc_scl8_k{UCI_SMALL_K}_e{UCI_SMALL_E}"))
+    for k, e, ebno, name, dec_type, key in runs:
+        enc = Polar5GEncoder(k, e, device=dev)
+        if enc.pc_pos is None or len(enc.pc_pos) != 3:
+            raise AssertionError(f"({k}, {e}) has no 3 PC bits")
+        dec = Polar5GDecoder(enc, dec_type=dec_type, list_size=8,
+                             mode=UCI_MODE)
+        model = SystemAWGNModel(e, k, enc, dec)
+        bits, bits_hat = model.step(gen, BATCH, ebno)          # warm-up
+        if bits_hat.shape != (BATCH, k) or not torch.isin(
+                bits_hat, torch.tensor([0.0, 1.0], device=dev)).all():
+            raise AssertionError(f"{name}: output of shape "
+                                 f"{bits_hat.shape} is not [batch, k] bits")
+        with tempfile.TemporaryDirectory() as tmp:
+            jsonl = os.path.join(tmp, "uci.jsonl")
+            reset_counts()
+            torch.cuda.synchronize()
+            sim_ber(model, [ebno], batch_size=BATCH, max_mc_iter=UCI_BATCHES,
+                    early_stop=False, verbose=False, seed=SEED,
+                    jsonl_path=jsonl)
+            torch.cuda.synchronize()
+            run = counts()
+            with open(jsonl) as fh:
+                (row,) = [json.loads(line) for line in fh]
+        need = [kern for kern, used in (
+            ("scl_subtree", dec_type != "SC"),
+            ("sc_subtree", dec_type != "SCL")) if used and run[kern] == 0]
+        if need or row["num_blocks"] != BATCH * UCI_BATCHES:
+            raise AssertionError(f"{name} ({k}, {e}): {row['num_blocks']} "
+                                 f"blocks, launches {run}; none of {need}")
+        for kern in totals:
+            totals[kern] += run[kern]
+        llr = model.front(gen, BATCH, ebno)[2]
+        dec_ms = cuda_ms(lambda: dec(llr), reps=3)
+        # the kernels' calls of one decode of this batch, timed alone
+        inner = dec._polar_dec
+        scl_dec = getattr(inner, "_scl", inner if dec_type == "SCL" else None)
+        sc_dec = getattr(inner, "_sc", inner if dec_type == "SC" else None)
+        llr_ch = (-dec.rate_recover(llr)).t().contiguous()
+        for kern, sub in (("scl_subtree", scl_dec), ("sc_subtree", sc_dec)):
+            if sub is None:
+                continue
+            label = f"one {name} decode of ({k}, {e})" + (
+                ", its CA-SCL pass on every row"
+                if dec_type == "hybSCL" and kern == "scl_subtree" else "")
+            calls = []
+            rec = recorder(calls, scl_subtree if kern == "scl_subtree"
+                           else sc_subtree)
+            if kern == "scl_subtree":
+                scan_core.scl_sweep_hybrid(
+                    llr_ch, sub._frozen_mask, sub.list_size, mode=UCI_MODE,
+                    llr_max=30.0, lower_stages=sub.lower_stages,
+                    plan=sub._plan, subtree=rec)
+            else:
+                scan_core.sc_sweep_hybrid(
+                    llr_ch, sub._frozen_mask, mode=UCI_MODE, llr_max=30.0,
+                    lower_stages=sub.lower_stages, plan=sub._plan,
+                    subtree=rec)
+            t = kernel_times(kern, calls, label)
+            if (k, e) == (UCI_K, UCI_E) and kern not in times:
+                times[kern] = t
+        log(f"phase 12: {name} {dec_type} L=8 {UCI_MODE}, 5G uplink ({k}, "
+            f"{e}), n_polar {enc.n_polar}, PC at {enc.pc_pos.tolist()}, "
+            f"bs={BATCH}, b={inner.lower_stages}: {row['runtime_s']:.3f} s, "
+            f"{k * row['num_blocks'] / row['runtime_s']:.4g} info bit/s; "
+            f"decoder {dec_ms:.3f} ms per batch; launches {run} [{card}]")
+        binomial_gate(f"phase 12: {name} ({k}, {e}) at {ebno} dB",
+                      row["block_errors"], row["num_blocks"], key)
+        if (k, e) == (UCI_K, UCI_E) and dec_type != "hybSCL":
+            log(f"phase 12: {name} ({k}, {e}), where one step's time goes:")
+            profile_step(model, gen, ebno_db=ebno)
+        if (k, e, dec_type) == (UCI_K, UCI_E, "SCL"):
+            scl_model = model
+    return totals, times, scl_model
+
+
+def tools_phase(dev, card, model, reset_counts, counts):
+    """Phase 13: the tools on the card over ``model`` (the UCI chain's
+    CA-SCL-8): ``ShardedSystem`` with a world of one on NCCL through
+    ``sim_ber``, its counters equal to the unsharded model's run on the
+    same derived generators; ``trace`` of one step, whose file names the
+    SCL kernel; ``flop_estimate`` of one step beside the kernel's own
+    work count."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    from polar_torch.parallel import ShardedSystem, initialize
+    from polar_torch.sim import (count_block_errors, count_errors, fold_in,
+                                 iteration_generator, sim_ber)
+    from polar_torch.utils.kernel_work import subtree_work
+    from polar_torch.utils.profiling import flop_estimate, trace
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    rank, world, n_dev = initialize(f"tcp://localhost:{port}", world_size=1,
+                                    rank=0, device=dev, timeout_s=120)
+    try:
+        sharded = ShardedSystem(model)
+        with tempfile.TemporaryDirectory() as tmp:
+            jsonl = os.path.join(tmp, "sharded.jsonl")
+            reset_counts()
+            torch.cuda.synchronize()
+            sim_ber(sharded, [UCI_EBNO_DB], batch_size=BATCH,
+                    max_mc_iter=SHARDED_BATCHES, early_stop=False,
+                    verbose=False, seed=SEED, jsonl_path=jsonl)
+            torch.cuda.synchronize()
+            run = counts()
+            with open(jsonl) as fh:
+                (row,) = [json.loads(line) for line in fh]
+        bit_e = blk_e = 0
+        for it in range(SHARDED_BATCHES):
+            gen = iteration_generator(SEED, 0, it, dev)
+            b, b_hat = model.step(fold_in(gen, 0), BATCH, UCI_EBNO_DB)
+            bit_e += count_errors(b, b_hat).item()
+            blk_e += count_block_errors(b, b_hat).item()
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    log(f"phase 13: ShardedSystem, {backend} world of {world} (rank {rank}, "
+        f"{n_dev} device), CA-SCL-8 ({UCI_K}, {UCI_E}), {SHARDED_BATCHES} "
+        f"batches of {BATCH}: {row['bit_errors']} bit and "
+        f"{row['block_errors']} block errors in {row['num_blocks']} blocks; "
+        f"unsharded on the same derived generators: {bit_e}, {blk_e}; "
+        f"launches {run}")
+    if (row["bit_errors"], row["block_errors"]) != (bit_e, blk_e) or \
+            row["num_blocks"] != BATCH * SHARDED_BATCHES or \
+            run["scl_subtree"] == 0:
+        raise AssertionError("the sharded counters differ from the "
+                             "unsharded run's")
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp):
+            model.step(gen, BATCH, UCI_EBNO_DB)
+        files = [f for f in os.listdir(tmp) if f.endswith(".json")]
+        text = "".join(open(os.path.join(tmp, f)).read() for f in files)
+    named = "scl_subtree_kernel" in text
+    log(f"phase 13: trace of one step: {files} ({len(text)} bytes), names "
+        f"scl_subtree_kernel: {named}")
+    if len(files) != 1 or not named:
+        raise AssertionError("the trace file is missing or does not name "
+                             "the SCL kernel")
+
+    inner = model.decoder._polar_dec
+    llr = model.front(gen, BATCH, UCI_EBNO_DB)[2]
+    flops = flop_estimate(lambda x: model.decoder(x), llr)
+    step_flops = flop_estimate(lambda: model.step(gen, BATCH, UCI_EBNO_DB))
+    _, kernel_ops = subtree_work(inner._plan[0][2].ops, inner.lower_stages,
+                                 UCI_MODE, llr.new_empty(
+                                     (inner.n, 8, BATCH)))
+    log(f"phase 13: flop_estimate: one CA-SCL-8 ({UCI_K}, {UCI_E}) decode of "
+        f"{BATCH} {flops:.6g} operations, one step {step_flops:.6g}; the "
+        f"scl_subtree call's own work count (phase 7's rule) {kernel_ops} "
+        f"f32 ops")
+    if not flops >= kernel_ops > 0:
+        raise AssertionError("flop_estimate missed the kernel's work")
+
+
 def bec_link_phase(dev, gen, card, encoder, frozen, reset_counts, counts):
     """Phase 11: ``SystemBECModel`` with the CLI's SC and SCL-8 decoders on
     the k=512 n=1024 code through ``sim_ber``, each BLER against its
@@ -766,6 +996,8 @@ def main():
     from polar_torch.sim import count_block_errors, count_errors, sim_ber
     from polar_torch.ops.channels import BinaryErasureChannel
     from polar_torch.ops.source import binary_source
+    from polar_torch.utils.kernel_work import (bp_work, sc_subtree_work,
+                                               subtree_work)
 
     def reset_counts():
         """Every kernel wrapper's launch counts to 0."""
@@ -847,12 +1079,6 @@ def main():
 
     def plain_subtree(a, pm, sched, **kw):
         return scl_subtree_plain(a, pm, sched.ops, **kw)
-
-    def recorder(calls, subtree):
-        def recording(*args, **kw):
-            calls.append((args, kw))
-            return subtree(*args, **kw)
-        return recording
 
     main_calls = []
     # the decoder's depth, a smaller one (more of the sweep outside the
@@ -1143,22 +1369,30 @@ def main():
         f"{sc_check.blocks['minsum']} blocks differ, exact "
         f"{sc_check.bad['exact']} of {sc_check.blocks['exact']}")
 
+    def sc_times(calls, label, reps=5):
+        """Kernel, plain and bound ms over ``calls`` of sc_subtree."""
+        k_ms = cuda_ms(lambda: [sc_subtree(*args, **kw)
+                                for args, kw in calls], reps=reps)
+        p_ms = cuda_ms(lambda: [sc_subtree_plain(a, frz, sched.ops, **kw)
+                                for (a, frz, sched), kw in calls], reps=1)
+        n_bytes = n_ops = 0
+        for (a, _, sched), kw in calls:
+            call_bytes, call_ops = sc_subtree_work(sched.ops, kw["b"],
+                                                   a.shape[1], kw["mode"])
+            n_bytes += call_bytes
+            n_ops += call_ops
+        bnd, by = bound_ms(n_bytes, n_ops)
+        (a, _, _), kw = calls[0]
+        log(f"  sc_subtree, {len(calls)} calls of {label} (b={kw['b']}, "
+            f"bs={a.shape[1]}, {kw['mode']}): kernel {k_ms:.3f} ms, plain "
+            f"{p_ms:.3f} ms; bound {bnd:.4f} ms ({by}: {n_bytes} B, {n_ops} "
+            f"f32 ops); library: none [{card}]")
+        return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bnd, bound_by=by)
+
     # SC kernel, plain and bound over the subtree calls of one SC decode
-    sc_kernel_ms = cuda_ms(lambda: [sc_subtree(*args, **kw)
-                                    for args, kw in sc_calls], reps=5)
-    sc_plain_ms = cuda_ms(lambda: [sc_subtree_plain(a, frz, sched.ops, **kw)
-                                   for (a, frz, sched), kw in sc_calls],
-                          reps=1)
-    n_bytes = n_ops = 0
-    for (_, _, sched), _ in sc_calls:
-        call_bytes, call_ops = sc_subtree_work(sched.ops, sc_b, BATCH, MODE)
-        n_bytes += call_bytes
-        n_ops += call_ops
-    sc_bound, sc_bound_by = bound_ms(n_bytes, n_ops)
-    log(f"  sc_subtree, {len(sc_calls)} calls of one SC decode (b={sc_b}, "
-        f"bs={BATCH}): kernel {sc_kernel_ms:.3f} ms, plain "
-        f"{sc_plain_ms:.3f} ms; bound {sc_bound:.4f} ms ({sc_bound_by}: "
-        f"{n_bytes} B, {n_ops} f32 ops); library: none [{card}]")
+    sc_time = sc_times(sc_calls, "one SC decode")
+    # the PC schedules of both kernels (phase 3's part for this slice)
+    pc_scl_check, pc_sc_check = pc_kernel_checks(dev, gen)
 
     log("phase 3: bp kernel against bp_decode_plain")
     bp_check = BpCheck()
@@ -1560,6 +1794,16 @@ def main():
     bec_link_phase(dev, gen, card, model.encoder, frozen, reset_counts,
                    counts)
 
+    # ---- phases 12 and 13: the 5G uplink UCI chain and the tools ----
+    def kernel_times(kern, calls, label):
+        if kern == "scl_subtree":
+            return subtree_times(calls, label, reps=3)
+        return sc_times(calls, label)
+
+    pc_launches, pc_time, uci_model = uci_phase(dev, gen, card, reset_counts,
+                                                counts, kernel_times)
+    tools_phase(dev, card, uci_model, reset_counts, counts)
+
     def entry(name, source, replaces, launches, c, times, **extra):
         return dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=launches,
@@ -1567,13 +1811,22 @@ def main():
                     checked_blocks=c.n_blocks, **extra, **times,
                     library_ms=None)
 
+    def pc_fields(kern, c):
+        """The PC path's launches (phase 12), checks (phase 3) and times
+        per (19, 864) decode."""
+        return dict(pc_launches=pc_launches[kern],
+                    pc_checked_blocks=c.n_blocks, pc_mismatch_blocks=c.n_bad,
+                    pc_max_abs_err=c.max_abs,
+                    **{f"pc_{k}": v for k, v in pc_time[kern].items()})
+
     scl_src, pallas = ("polar_torch/csrc/scl_subtree.cu",
                        "polar_tpu/models/polar/pallas_scl.py")
     g5_total = {k: sum(run[k] for run in g5_counts.values())
                 for k in ("scl_subtree traced", "scl_subtree wide")}
     kernels = [
         entry("scl_subtree", scl_src, f"{pallas}:142", launches, check,
-              scl_times["static"], bec_checked_blocks=scl_bec),
+              scl_times["static"], bec_checked_blocks=scl_bec,
+              **pc_fields("scl_subtree", pc_scl_check)),
         entry("scl_subtree L=16/32", scl_src, f"{pallas}:515",
               g5_total["scl_subtree wide"], check_wide, scl_times["wide"]),
         entry("scl_subtree traced", scl_src, f"{pallas}:407",
@@ -1581,8 +1834,8 @@ def main():
               scl_times["traced"]),
         entry("sc_subtree", "polar_torch/csrc/sc_subtree.cu",
               f"{pallas}:832", cli_launches["sc_subtree"], sc_check,
-              dict(ms=sc_kernel_ms, plain_ms=sc_plain_ms, bound_ms=sc_bound,
-                   bound_by=sc_bound_by), bec_checked_blocks=sc_bec),
+              sc_time, bec_checked_blocks=sc_bec,
+              **pc_fields("sc_subtree", pc_sc_check)),
         entry("bp", "polar_torch/csrc/bp.cu",
               "polar_tpu/models/polar/pallas_bp.py:57", cli_launches["bp"],
               bp_check, dict(bp_times[True], **{

@@ -27,7 +27,8 @@ class PolarConfig:
     construction: str = "rm"   # "rm" (lowest row weight, stable ties),
     # "rm-ref" (the reference CLI's own ties), and on F2 only "5g" (NR
     # reliability table) or "ga" (Gaussian approximation at design_snr)
-    num_devices: int = 0       # data-parallel devices; > 1 is not ported
+    num_devices: int = 0       # unread, as in the JAX CLI: data-parallel
+    # runs go through parallel.ShardedSystem and sim_ber
     target_block_errs: int = 1000
     bp_iter: int = 20          # BP decoder iterations (sweeps)
     osd_t: int = 2             # OSD order for kernels other than F2

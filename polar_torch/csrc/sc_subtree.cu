@@ -5,7 +5,10 @@
 // cancellation decode of one 2^b-leaf subtree per codeword, static
 // rate-0-pruned schedule (ops z/f/i) or the traced form (op 't', frozen-ness
 // read from frz). The per-codeword routine lives in sc_subtree.cuh and is
-// shared with the host build that the CPU tests run.
+// shared with the host build that the CPU tests run. The static form also
+// takes p, the parity-check leaf of PC-aided decoding, which the JAX
+// package runs only on its unrolled XLA tree (polar_tpu/models/polar/
+// sc.py, _decode_tree): lane 0 keeps the codeword's PC register.
 //
 // What bounds it: bytes. One call must read a (f32) and write cw (int32)
 // once, 8 bytes per leaf and codeword (at b = 8, bs = 8192, 16 MiB, 0.005

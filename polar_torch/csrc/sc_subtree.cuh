@@ -12,8 +12,9 @@
 //
 // Ops: rate-0 node 'z' (all-frozen span: zero partial sums whatever its
 // LLRs, so its descent stops one stage above its root), frozen leaf 'f',
-// info leaf 'i' (llr <= 0 decides 1), and 't', a leaf whose frozen-ness is
-// read at run time from frz [2^b] int32.
+// info leaf 'i' (llr <= 0 decides 1), 't', a leaf whose frozen-ness is
+// read at run time from frz [2^b] int32, and 'p', a parity-check leaf of
+// PC-aided decoding (TS 38.212 5.3.1.2).
 //
 // Layout: the workspaces have the compact stage layout (stage s at row
 // 2^s - 1): lloc f32 LLR segments and uloc int8 partial sums, stages
@@ -28,6 +29,13 @@
 // its first lanes, a leaf on lane 0, which keeps the leaf's LLR and
 // decides its bit. A group barrier follows every stage, since the next
 // stage reads rows that other lanes wrote.
+//
+// PC: lane 0 also keeps the codeword's 5-bit PC register. The JAX package
+// rotates a 5-entry register left at every leaf and reads or writes entry
+// 0; after leaf i's rotation that entry is bit (i + 1) mod 5 of an
+// unrotated word. An info leaf XORs its bit into that bit, a PC leaf
+// decides it. A PC schedule is always the whole tree in one call, so the
+// register starts at zero and leaf indices are global.
 #pragma once
 
 #include <stddef.h>
@@ -38,7 +46,7 @@ namespace polar_torch {
 
 // op kinds of the schedule table [n_ops, 3] = (kind, stage, lo); the codes
 // of z/f/i are those of the SCL kernel's table
-enum ScOpKind { SC_Z = 0, SC_F = 4, SC_I = 5, SC_T = 6 };
+enum ScOpKind { SC_Z = 0, SC_F = 4, SC_I = 5, SC_T = 6, SC_P = 7 };
 
 constexpr int kScThreads = 128;       // threads of a block on the card
 constexpr int kScMaxB = 12;
@@ -128,7 +136,11 @@ PT_HD PT_INLINE void sc_codeword(const Grp& g, const ScArgs& A,
   const float m = A.llr_max;
   const int exact = A.exact;
   float root[Grp::kPer];        // a leaf's LLR, kept by lane 0
-  PT_FOR_LANES root[i_] = 0.0f;
+  int y[Grp::kPer];             // the PC register, kept by lane 0
+  PT_FOR_LANES {
+    root[i_] = 0.0f;
+    y[i_] = 0;
+  }
 
   for (int op = 0; op < A.n_ops; ++op) {
     const int kind = A.sched[3 * op];
@@ -187,9 +199,18 @@ PT_HD PT_INLINE void sc_codeword(const Grp& g, const ScArgs& A,
     const int Wd = 1 << R;
     int8_t* dst = W.ur(r);
     const bool info = kind == SC_I || (kind == SC_T && A.frz[lo] == 0);
+    const int slot = (lo + 1) % 5;      // the leaf's PC register bit
     PT_FOR_LANES {
-      for (int j = g.lane(i_); j < w; j += G)
-        dst[Wd - w + j] = (int8_t)(info && root[i_] <= 0.0f);
+      int bit = 0;                      // a leaf's, on lane 0
+      if (g.lane(i_) == 0) {
+        if (kind == SC_P) {
+          bit = (y[i_] >> slot) & 1;
+        } else if (info) {
+          bit = root[i_] <= 0.0f;
+          y[i_] ^= bit << slot;
+        }
+      }
+      for (int j = g.lane(i_); j < w; j += G) dst[Wd - w + j] = (int8_t)bit;
     }
     g.sync();
 

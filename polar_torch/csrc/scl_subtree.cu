@@ -5,7 +5,10 @@
 // cond_leaves) and _subtree_kernel_blocked (the same contract at L = 16, 32,
 // which the TPU holds as (8, TB) blocks only because Mosaic gathers one
 // 8-row tile at a time). The per-codeword routine lives in scl_subtree.cuh
-// and is shared with the host build that the CPU tests run.
+// and is shared with the host build that the CPU tests run. The static form
+// also takes p, the parity-check leaf of PC-aided decoding, which the JAX
+// package runs only on its unrolled XLA tree (polar_tpu/models/polar/
+// scl.py, _node): a path's PC register rides its per-lane state.
 //
 // Design: a group of L threads of one warp decodes one codeword, one
 // thread per path (32 / L codewords per warp; a block of 128 threads holds
@@ -57,7 +60,7 @@ struct WarpGroup {
   }
 };
 
-template <int L>
+template <int L, bool kPc>
 __global__ void __launch_bounds__(kThreads) scl_subtree_kernel(SubtreeArgs A) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int C = kThreads / L;
@@ -71,7 +74,7 @@ __global__ void __launch_bounds__(kThreads) scl_subtree_kernel(SubtreeArgs A) {
   const unsigned mask = L == 32 ? 0xffffffffu
       : ((1u << L) - 1u) << (lane & ~(L - 1));
   const WarpGroup<L> g{(int)(threadIdx.x % L), mask};
-  subtree_codeword<L>(g, A, gs[c], reinterpret_cast<float*>(smem),
+  subtree_codeword<L, kPc>(g, A, gs[c], reinterpret_cast<float*>(smem),
                       reinterpret_cast<int8_t*>(smem + off_u), C, c, col);
 }
 
@@ -95,17 +98,24 @@ __global__ void __launch_bounds__(kCwCols * L) scl_cw_kernel(SubtreeArgs A) {
     A.cw[((size_t)j * L + l) * A.bs + c0 + c] = tile[c * L + l];
 }
 
-template <int L>
-int launch(const SubtreeArgs& A, cudaStream_t st) {
+// the decode: the routine's build with the PC register (kPc) or without
+template <int L, bool kPc>
+cudaError_t launch_decode(const SubtreeArgs& A, cudaStream_t st) {
   const size_t smem = smem_bytes<L>(A.n_shared, kThreads / L, 0, 0);
   cudaError_t err = cudaFuncSetAttribute(
-      scl_subtree_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      scl_subtree_kernel<L, kPc>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return err;
   const int per_block = kThreads / L;
   const dim3 grid((A.bs + per_block - 1) / per_block);
-  scl_subtree_kernel<L><<<grid, kThreads, smem, st>>>(A);
-  err = cudaGetLastError();
+  scl_subtree_kernel<L, kPc><<<grid, kThreads, smem, st>>>(A);
+  return cudaGetLastError();
+}
+
+template <int L>
+int launch(const SubtreeArgs& A, cudaStream_t st) {
+  cudaError_t err = A.pc ? launch_decode<L, true>(A, st)
+                         : launch_decode<L, false>(A, st);
   if (err != cudaSuccess) return (int)err;
   const dim3 cw_grid((A.bs + kCwCols - 1) / kCwCols, 1 << A.b);
   scl_cw_kernel<L><<<cw_grid, kCwCols * L, 0, st>>>(A);
@@ -122,8 +132,9 @@ extern "C" long long scl_subtree_smem_bytes(int L, int n_shared) {
 
 // lloc: the global LLR stages n_shared..b-1, [2^b - 2^n_shared, bs, L]
 // (null when n_shared == b); uloc: the global partial-sum stages
-// n_shared..b, [2^(b+1) - 2^n_shared, bs, L]. Launches the decode, then the
-// transpose of the stage-b sums into cw. Returns a cudaError_t.
+// n_shared..b, [2^(b+1) - 2^n_shared, bs, L]; pc: 1 when the schedule has
+// p leaves. Launches the decode, then the transpose of the stage-b sums
+// into cw. Returns a cudaError_t.
 extern "C" int scl_subtree_launch(const float* a, long long a_row_stride,
                                   long long a_l_stride, const float* pm_in,
                                   const int32_t* frz, const int32_t* sched,
@@ -131,11 +142,12 @@ extern "C" int scl_subtree_launch(const float* a, long long a_row_stride,
                                   int32_t* p_out, float* pm_out, float* lloc,
                                   int8_t* uloc, int b, int L, int bs,
                                   float llr_max, int exact, int n_shared,
-                                  void* stream) {
+                                  int pc, void* stream) {
   using namespace polar_torch;
   if (n_shared < 0 || n_shared > b) return (int)cudaErrorInvalidValue;
   SubtreeArgs A{a, a_row_stride, a_l_stride, pm_in, frz, sched, n_ops, cw,
-                p_out, pm_out, lloc, uloc, b, bs, llr_max, exact, n_shared};
+                p_out, pm_out, lloc, uloc, b, bs, llr_max, exact, n_shared,
+                pc};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (L) {
     case 1: return launch<1>(A, st);

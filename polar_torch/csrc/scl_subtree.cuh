@@ -12,7 +12,7 @@
 // logical path -> input path) and the updated path metrics.
 //
 // Two forms share one routine. The static form's schedule fixes the frozen
-// set (ops z/r/o/s/f/i). The traced form has one 't' leaf per leaf and reads
+// set (ops z/r/o/s/f/i, and p, the parity-check leaf of PC-aided decoding). The traced form has one 't' leaf per leaf and reads
 // the frozen flags at run time from frz [2^b] int32; the flag is the same
 // for every codeword of a launch, so the branch is uniform, and a frozen
 // 't' leaf pays only its path-metric update, as an 'f' leaf does.
@@ -44,6 +44,19 @@
 //   values again from the node's LLRs.
 // Node path-metric sums run row by row per path, as the plain version's
 // _row_sum does, so exact ties break alike in both.
+//
+// PC-aided decoding (TS 38.212 5.3.1.2): each path carries a 5-bit PC
+// register in its state, so a fork hands it to the survivors with the
+// rest. The JAX package rotates a 5-entry register left at every leaf and
+// reads or writes entry 0; after leaf i's rotation that entry is bit
+// (i + 1) mod 5 of an unrotated word. An info leaf XORs the survivor's bit
+// into that bit after its fork; a PC leaf (p) decides that bit and adds
+// softplus(-/+ clip(x)) with no fork. A PC schedule is always the whole
+// tree in one call, so the register starts at zero and leaf indices are
+// global. The routine is built twice, with and without the register
+// (kPc): a schedule with no p leaf runs the build without it, the code of
+// the kernel before PC decoding, whose register use and instruction
+// schedule the main path was tuned on.
 #pragma once
 
 #include <stddef.h>
@@ -54,11 +67,15 @@ namespace polar_torch {
 
 // op kinds of the schedule table [n_ops, 3] = (kind, stage, lo)
 enum OpKind { OP_Z = 0, OP_R = 1, OP_O = 2, OP_S = 3, OP_F = 4, OP_I = 5,
-              OP_T = 6 };
+              OP_T = 6, OP_P = 7 };
 
 constexpr int kMaxB = 12;          // subtree depth limit (n <= 4096)
 constexpr int kThreads = 128;      // threads of a block on the card
 constexpr int kPtrBits = 5;        // one path slot (0..31) per stage
+constexpr int kPcRegister = 5;     // PC shift register length
+
+// the register bit that leaf i reads (PC) or updates (info)
+PT_HD PT_INLINE int pc_slot(int i) { return (i + 1) % kPcRegister; }
 
 struct SubtreeArgs {
   const float* a;          // [2^b, L, bs], column stride 1
@@ -79,6 +96,7 @@ struct SubtreeArgs {
   float llr_max;
   int exact;               // 1: exact boxplus f, 0: min-sum f
   int n_shared;            // stages 0..n_shared-1 in shared memory
+  int pc;                  // 1: the schedule has p leaves (the kPc build)
 };
 
 // ---- per-stage path pointers, one 5-bit field per stage ----
@@ -114,6 +132,7 @@ struct PathState {
   uint8_t P;         // input path of this output path
   uint8_t qn;        // node-entry path (rate-1 / SPC forks)
   uint8_t e;         // SPC parity toggle
+  uint8_t y;         // PC register (bit k: entry k of the unrotated word)
 };
 
 struct Lane : PathState {
@@ -228,7 +247,7 @@ struct Workspace {
 
 #define PT_FOR_LANES for (int i_ = 0; i_ < G::kPer; ++i_)
 
-template <int L, class G>
+template <int L, class G, bool kPc>
 struct SubtreeGroup {
   const G& g;
   const SubtreeArgs& A;
@@ -279,6 +298,7 @@ struct SubtreeGroup {
       st.P = x.P;
       st.qn = x.qn;
       st.e = x.e;
+      if (kPc) st.y = x.y;
     }
     g.sync();
   }
@@ -330,6 +350,7 @@ struct SubtreeGroup {
       st.flips = 0;
       st.P = st.qn = (uint8_t)l;
       st.e = 0;
+      st.y = 0;
       st.c0 = st.c1 = 0.0f;
       st.bit = 0;
     }
@@ -372,6 +393,15 @@ struct SubtreeGroup {
           const float v = clipf(x[0], m);
           st.c0 = st.pm + softplus(-v);
           st.c1 = st.pm + softplus(v);
+        } else if (kPc && kind == OP_P) {
+          // PC leaf: the register decides; the metric rounds as a frozen
+          // leaf's does (0 + softplus, then the add), for either bit
+          const int bit = (st.y >> pc_slot(lo)) & 1;
+          const float v = clipf(x[0], m);
+          float acc = 0.0f;
+          acc += softplus(bit ? v : -v);
+          st.pm = st.pm + acc;
+          W.urow(r, l)[tail] = (int8_t)bit;
         } else if (kind == OP_R) {
           float s0 = 0.0f, s1 = 0.0f;
           for (int j = 0; j < w; ++j) {
@@ -430,6 +460,9 @@ struct SubtreeGroup {
         PT_FOR_LANES {
           const Row<int8_t> o = W.urow(r, g.lane(i_));
           for (int j = 0; j < w; ++j) o[tail + j] = (int8_t)S[i_].bit;
+          // the survivor's bit into its parent's register
+          if (kPc && kind == OP_I)
+            S[i_].y ^= (uint8_t)(S[i_].bit << pc_slot(lo));
         }
       } else if (kind == OP_O || kind == OP_S) {
         g.sync();          // the orders and node LLRs of every path
@@ -512,12 +545,12 @@ PT_HD PT_INLINE const int8_t* stage_b_sums(const SubtreeArgs& A, int L) {
 
 // decode one codeword with group g; lsh / ush are its block's shared
 // workspace stages, C the block's codewords and c this one's index
-template <int L, class G>
+template <int L, bool kPc, class G>
 PT_HD PT_INLINE void subtree_codeword(const G& g, const SubtreeArgs& A,
                                       GroupShared<L>& gs, float* lsh,
                                       int8_t* ush, int C, int c, int col) {
   const Workspace<L> W{A, lsh, ush, C, c, col};
-  SubtreeGroup<L, G> dec{g, A, W, gs, {}, 0, 0, 0, 0};
+  SubtreeGroup<L, G, kPc> dec{g, A, W, gs, {}, 0, 0, 0, 0};
   dec.run();
 }
 

@@ -14,16 +14,25 @@
 
 namespace {
 
-template <int L>
-void run_columns(const polar_torch::SubtreeArgs& A) {
+template <int L, bool kPc>
+void run_columns_as(const polar_torch::SubtreeArgs& A) {
   using namespace polar_torch;
   const size_t rows = ((size_t)1 << A.n_shared) - 1;
   std::vector<float> lsh(rows * L);
   std::vector<int8_t> ush(rows * L);
   GroupShared<L> gs;
   for (int col = 0; col < A.bs; ++col)
-    subtree_codeword<L>(HostGroup<L>{}, A, gs, lsh.data(), ush.data(), 1, 0,
-                        col);
+    subtree_codeword<L, kPc>(HostGroup<L>{}, A, gs, lsh.data(), ush.data(),
+                             1, 0, col);
+}
+
+// the routine's build with the PC register or without, as on the card
+template <int L>
+void run_columns(const polar_torch::SubtreeArgs& A) {
+  if (A.pc)
+    run_columns_as<L, true>(A);
+  else
+    run_columns_as<L, false>(A);
 }
 
 // cw [2^b, L, bs] int32 from the stage-b sums (the card's transpose is a
@@ -51,11 +60,13 @@ extern "C" int scl_subtree_host(const float* a, long long a_row_stride,
                                 int n_ops, int32_t* cw,
                                 int32_t* p_out, float* pm_out, float* lloc,
                                 int8_t* uloc, int b, int L, int bs,
-                                float llr_max, int exact, int n_shared) {
+                                float llr_max, int exact, int n_shared,
+                                int pc) {
   using namespace polar_torch;
   if (n_shared < 0 || n_shared > b) return 1;
   SubtreeArgs A{a, a_row_stride, a_l_stride, pm_in, frz, sched, n_ops, cw,
-                p_out, pm_out, lloc, uloc, b, bs, llr_max, exact, n_shared};
+                p_out, pm_out, lloc, uloc, b, bs, llr_max, exact, n_shared,
+                pc};
   switch (L) {
     case 1: run_columns<1>(A); break;
     case 2: run_columns<2>(A); break;

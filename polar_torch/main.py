@@ -89,10 +89,6 @@ def sweep(c: PolarConfig, ebno_dbs=None, jsonl_path=None) -> PlotBER:
     each decoder's complexity line (none for OSD) and progress table.
     ``jsonl_path`` collects one JSON line per point and decoder, in that
     order. Returns the curves."""
-    if c.num_devices > 1:
-        raise NotImplementedError("num_devices > 1 (data-parallel sweep) is "
-                                  "not ported yet (ROADMAP Queue 1, "
-                                  "\"Multi-GPU data parallel\")")
     if ebno_dbs is None:
         ebno_dbs = np.arange(0, c.snr_end, 0.5)
     kern_name = (c.kern or "F2").upper()

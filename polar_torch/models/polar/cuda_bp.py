@@ -14,7 +14,8 @@ first of its checks (every ``check_every`` sweeps) that passes.
 * ``bp_decode`` is the wrapper the decoder calls. A CUDA tensor goes
   through the kernel (``csrc/bp.cu``), a CPU tensor through the plain
   version; nothing falls back from one to the other. It counts its
-  launches in ``launches``.
+  launches in ``launches`` and reports each launch's work to a running
+  ``profiling.flop_estimate``.
 * ``bp_decode_plain`` mirrors the JAX package's XLA engine
   (``PolarBPDecoder._run``): whole-batch tensor ops, a converged lane frozen
   by a select, the loop left when every lane has converged.
@@ -41,6 +42,7 @@ import torch
 from polar_torch import _build
 from polar_torch.ops.fg import (F_FUNCTIONS, f_exact, make_scaled_minsum,
                                 scaled_minsum_add)
+from polar_torch.utils import kernel_work
 
 MAX_S = 16
 MAX_SHARED_S = 11           # kBpMaxSharedS in csrc/bp.cuh
@@ -84,6 +86,12 @@ def bp_decode(llr, prior, *, num_iter: int, check_every: int,
         res = _native_call(lib.bp_launch, llr, prior, lattice,
                            (ctypes.c_void_p, stream), **kw)
         bp_decode.launches += llr.shape[1] > 0      # an empty batch: none
+    # an estimate counts every sweep and check: early stop is data that it
+    # cannot read without a sync
+    n, bs = llr.shape
+    kernel_work.report(kernel_work.bp_work, n, bs, num_iter * bs,
+                       (num_iter // check_every) * bs if early_stop else 0,
+                       mode, msf)
     return res
 
 

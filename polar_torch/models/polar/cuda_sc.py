@@ -8,15 +8,21 @@ subtree's op schedule, it returns the subtree codeword ``cw`` [2^b, bs]
 int32. There is no list: no path metrics and no forks.
 
 The schedule holds ``'z'`` rate-0 nodes (zero partial sums, no descent to
-their root), ``'f'``/``'i'`` frozen/info leaves, and ``'t'`` leaves whose
-frozen-ness is read at run time from ``frz`` [2^b] int32 (the traced form).
+their root), ``'f'``/``'i'`` frozen/info leaves, ``'t'`` leaves whose
+frozen-ness is read at run time from ``frz`` [2^b] int32 (the traced form),
+and ``'p'`` parity-check leaves of PC-aided decoding. A PC schedule covers
+the whole tree: the codeword's 5-bit PC register starts at zero, an info
+leaf i XORs its bit into bit ``(i + 1) mod 5`` and a PC leaf i decides that
+bit (the JAX package's rotating register, unrotated; ``cuda_scl``).
 ``scan_core.fast_schedule(mask, rep=False)`` gives the rate-0-pruned static
 schedule, bit-identical to the plain sweep: an all-frozen span's partial
 sums are zero whatever its LLRs.
 
 * ``sc_subtree`` is the wrapper the sweep calls. A CUDA tensor goes through
   the kernel (``csrc/sc_subtree.cu``), a CPU tensor through the plain
-  version; nothing falls back from one to the other.
+  version; nothing falls back from one to the other. It counts its
+  launches in ``launches`` and reports each launch's work to a running
+  ``profiling.flop_estimate``.
 * ``sc_subtree_plain`` repeats the computation with tensor ops.
 * ``sc_subtree_host`` runs the kernel's per-codeword routine built for the
   CPU with g++, one thread looping over a codeword's lanes, so the tests
@@ -43,12 +49,13 @@ import torch
 
 from polar_torch import _build
 # traced_schedule is shared with the SCL kernel and re-exported here
-from polar_torch.models.polar.cuda_scl import (MAX_B, SubtreeSchedule, _ctz,
-                                               _cto, traced_schedule)
+from polar_torch.models.polar.cuda_scl import (
+    MAX_B, PC_REGISTER, SubtreeSchedule, _ctz, _cto, traced_schedule)
 from polar_torch.ops.fg import F_FUNCTIONS, f_exact, g as g_op
+from polar_torch.utils import kernel_work
 
 # op codes of csrc/sc_subtree.cuh (z/f/i as in the SCL kernel's table)
-SC_KIND_CODES = {"z": 0, "f": 4, "i": 5, "t": 6}
+SC_KIND_CODES = {"z": 0, "f": 4, "i": 5, "t": 6, "p": 7}
 LANES = (4, 8, 16, 32)          # group sizes the kernel is built for
 SMEM_BUDGET = 48 * 1024         # dynamic shared memory a block may take
 SMEM_LIMIT = 232448             # the opt-in limit of a block on sm_90
@@ -85,7 +92,7 @@ def shared_stages(b: int, lanes: int, route: str = "cuda") -> int:
 
 
 def sc_schedule(ops, device) -> SubtreeSchedule:
-    """An SC subtree's ops (kinds z/f/i/t) as a ``SubtreeSchedule``."""
+    """An SC subtree's ops (kinds z/f/i/t/p) as a ``SubtreeSchedule``."""
     return SubtreeSchedule(ops, device, codes=SC_KIND_CODES)
 
 
@@ -109,6 +116,8 @@ def sc_subtree(a, frz, sched: SubtreeSchedule, *, b: int, llr_max: float,
         out = _native_call(lib.sc_subtree_launch, a, frz, sched, b, llr_max,
                            mode, lanes, n_shared, "cuda", stream)
         sc_subtree.launches += 1
+    kernel_work.report(kernel_work.sc_subtree_work, sched.ops, b, a.shape[1],
+                       mode)
     return out
 
 
@@ -198,12 +207,15 @@ def sc_subtree_plain(a, frz, ops, *, b: int, llr_max: float, mode: str):
     """Plain PyTorch SC subtree decode on any device; ``ops`` is the op
     list of a ``SubtreeSchedule``. Stage values are kept per stage:
     ``lloc[s]`` [2^s, bs] (stage b is the input), ``uloc[s]`` the partial
-    sums waiting for their right sibling."""
+    sums waiting for their right sibling; ``y`` [bs] is the PC register
+    when a ``'p'`` leaf reads it."""
     f = F_FUNCTIONS[mode]
     bs = a.shape[1]
     lloc = [None] * b + [a.to(torch.float32)]
     uloc = [None] * b
     cw = None
+    y = (torch.zeros(bs, dtype=torch.int8, device=a.device)
+         if any(k == "p" for k, _, _ in ops) else None)
     for kind, s_nd, lo in ops:
         w_nd = 1 << s_nd
         # ---- descent: to the root, or for 'z' to one stage above it ----
@@ -222,6 +234,10 @@ def sc_subtree_plain(a, frz, ops, *, b: int, llr_max: float, mode: str):
             ubit = torch.zeros((w_nd, bs), dtype=torch.int8, device=a.device)
         elif kind == "i":
             ubit = (cur <= 0).to(torch.int8)
+            if y is not None:
+                y = y ^ (ubit[0] << ((lo + 1) % PC_REGISTER))
+        elif kind == "p":
+            ubit = ((y >> ((lo + 1) % PC_REGISTER)) & 1)[None]
         elif kind == "t":
             ubit = ((cur <= 0) & (frz[lo] == 0)).to(torch.int8)
         else:

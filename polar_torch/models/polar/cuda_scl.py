@@ -11,7 +11,8 @@ given the stage-b LLRs ``a`` [2^b, L, bs] f32, the path metrics ``pm``
 The schedule comes in two forms:
 
 * static: ``'z'`` rate-0, ``'r'`` repetition, ``'o'`` rate-1, ``'s'`` SPC
-  and ``'f'``/``'i'`` frozen/info leaf ops, which fix the frozen set;
+  and ``'f'``/``'i'``/``'p'`` frozen/info/parity-check leaf ops, which fix
+  the frozen set;
 * traced (``traced_schedule``): one ``'t'`` leaf per leaf, whose frozen
   flag is read at run time from ``frz`` [2^b] int32. One schedule then
   serves every subtree of a sweep. The kernel branches on the flag (it is
@@ -23,7 +24,8 @@ The schedule comes in two forms:
   the kernel (``csrc/scl_subtree.cu``), a CPU tensor through the plain
   version; nothing falls back from one to the other. It counts its
   launches in ``launches``, and of those the traced ones in
-  ``launches_traced`` and those at L > 8 in ``launches_wide``.
+  ``launches_traced`` and those at L > 8 in ``launches_wide``, and reports
+  each launch's work to a running ``profiling.flop_estimate``.
 * The kernel gives each codeword a group of L threads of one warp, one
   thread per path, and a block of ``THREADS`` threads holds THREADS / L
   codewords. A thread keeps its path's metric and its slot of every
@@ -46,6 +48,14 @@ The schedule comes in two forms:
   can check the CUDA source's logic, with any split of the stages between
   shared memory and the global scratch.
 
+PC leaves (``'p'``, 5G's parity-check bits, TS 38.212 5.3.1.2) need the
+whole tree in one call. Each path carries a 5-bit PC register: after the
+register's rotations at leaf i, the JAX package's ``y[0]`` is bit
+``(i + 1) mod 5`` of an unrotated word, so an info leaf i XORs its bit into
+that bit and a PC leaf i decides it, paying ``softplus(-/+ clip(llr))``
+with no fork. A fork hands each survivor its parent's register before the
+survivor's own bit goes in.
+
 Top-L of the 2L candidates keeps equal path metrics in candidate order
 (lower index first), and the rate-1/SPC reliability order keeps equal
 magnitudes in row order. Path metrics may differ from the JAX package's by
@@ -60,8 +70,11 @@ import torch
 from polar_torch import _build
 from polar_torch.ops.fg import (F_FUNCTIONS, _clip, f_exact, g as g_op,
                                 softplus)
+from polar_torch.utils import kernel_work
 
-KIND_CODES = {"z": 0, "r": 1, "o": 2, "s": 3, "f": 4, "i": 5, "t": 6}
+KIND_CODES = {"z": 0, "r": 1, "o": 2, "s": 3, "f": 4, "i": 5, "t": 6,
+              "p": 7}
+PC_REGISTER = 5     # length of the PC shift register (TS 38.212 5.3.1.2)
 MAX_B = 12          # kMaxB in csrc/scl_subtree.cuh
 LIST_SIZES = (1, 2, 4, 8, 16, 32)
 
@@ -101,7 +114,8 @@ class SubtreeSchedule:
     its int32 [n_ops, 3] encoding (kind, stage, lo) on ``device``; ``codes``
     maps the kinds a kernel takes to their codes. ``span`` is the number of
     leaves the ops cover, which the wrappers hold against 2^b; ``traced``
-    says whether any op reads the run-time frozen flags (``'t'``)."""
+    says whether any op reads the run-time frozen flags (``'t'``), ``pc``
+    whether any is a PC leaf (``'p'``)."""
 
     def __init__(self, ops, device, codes=KIND_CODES):
         self.ops = tuple((str(k), int(s), int(lo)) for k, s, lo in ops)
@@ -110,6 +124,7 @@ class SubtreeSchedule:
             raise ValueError(f"op kinds {bad} not in {sorted(codes)}")
         self.span = max((lo + (1 << s) for _, s, lo in self.ops), default=0)
         self.traced = any(k == "t" for k, _, _ in self.ops)
+        self.pc = any(k == "p" for k, _, _ in self.ops)
         self.table = torch.tensor(
             [[codes[k], s, lo] for k, s, lo in self.ops],
             dtype=torch.int32, device=device).reshape(-1, 3)
@@ -140,6 +155,7 @@ def scl_subtree(a, pm, sched: SubtreeSchedule, *, b: int, llr_max: float,
         scl_subtree.launches += 1
         scl_subtree.launches_traced += sched.traced
         scl_subtree.launches_wide += a.shape[1] > 8
+    kernel_work.report(kernel_work.subtree_work, sched.ops, b, mode, a, frz)
     return out
 
 
@@ -191,7 +207,8 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int]
+             ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int]
 
 
 def _native_call(fn, a, pm, frz, sched, b, llr_max, mode, n_shared, stream):
@@ -241,7 +258,7 @@ def _native_call(fn, a, pm, frz, sched, b, llr_max, mode, n_shared, stream):
             table.data_ptr(), table.shape[0], cw.data_ptr(), P.data_ptr(),
             pm_out.data_ptr(), lloc.data_ptr() if rows else None,
             uloc.data_ptr(), b, L, bs, float(llr_max),
-            int(F_FUNCTIONS[mode] is f_exact), n_shared]
+            int(F_FUNCTIONS[mode] is f_exact), n_shared, int(sched.pc)]
     rc = fn(*args) if stream is None else fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"scl_subtree: native call failed with code {rc}")
@@ -346,7 +363,8 @@ def scl_subtree_plain(a, pm, ops, *, b: int, llr_max: float, mode: str,
     re-order whole workspaces, and the stage-b input rides the packed LLR
     buffer so forks reach it too. A ``'t'`` leaf computes the fork and
     selects, on its frozen flag, between it and the frozen leaf's update,
-    without a host sync."""
+    without a host sync. With ``'p'`` leaves each path carries its PC
+    register, an int8 [L, bs] word that forks re-order with the rest."""
     f = F_FUNCTIONS[mode]
     w_sub, L, bs = a.shape
     dev = a.device
@@ -357,12 +375,17 @@ def scl_subtree_plain(a, pm, ops, *, b: int, llr_max: float, mode: str,
     uloc = torch.zeros_like(lloc, dtype=torch.int8)
     P = None
     cwj = None
+    # the PC register, or None when no leaf reads it
+    y = (torch.zeros((L, bs), dtype=torch.int8, device=dev)
+         if any(k == "p" for k, _, _ in ops) else None)
 
     def fork(parent):
-        nonlocal lloc, uloc, P
+        nonlocal lloc, uloc, P, y
         lloc = _take_paths(lloc, parent)
         uloc = _take_paths(uloc, parent)
         P = parent if P is None else _take_paths(P, parent)
+        if y is not None:
+            y = _take_paths(y, parent)
 
     def descend(s_from, s_nd, cur):
         for s in range(s_from, s_nd, -1):
@@ -396,6 +419,15 @@ def scl_subtree_plain(a, pm, ops, *, b: int, llr_max: float, mode: str,
             pm, parent, bit = _rep_fork(pm, cur, llr_max)
             ubit = bit[None].expand(w_nd, L, bs)
             fork(parent)
+            if y is not None and kind == "i":
+                y = y ^ (bit << ((lo + 1) % PC_REGISTER))
+        elif kind == "p":
+            # the register's bit decides; one signed softplus, no fork
+            bit = (y >> ((lo + 1) % PC_REGISTER)) & 1
+            a_c = _clip(cur, llr_max)
+            pm = pm + _row_sum(softplus(torch.where(bit[None] == 1, a_c,
+                                                    -a_c)))
+            ubit = bit[None]
         elif kind == "t":
             frozen = frz[lo] != 0
             pm_f = pm + _row_sum(softplus(-_clip(cur, llr_max)))

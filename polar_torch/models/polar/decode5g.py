@@ -15,7 +15,7 @@ import torch
 from polar_torch.models.polar import rate_match as rm
 from polar_torch.models.polar.encode import Polar5GEncoder
 from polar_torch.models.polar.hybrid import HybridSCLDecoder
-from polar_torch.models.polar.sc import PC_NOT_PORTED, PolarSCDecoder
+from polar_torch.models.polar.sc import PolarSCDecoder
 from polar_torch.models.polar.scl import PolarSCLDecoder
 from polar_torch.ops.crc import CRCDecoder
 
@@ -37,9 +37,6 @@ class Polar5GDecoder:
             raise TypeError("Polar5GDecoder takes a Polar5GEncoder")
         if dec_type not in DEC_TYPES:
             raise ValueError(f"dec_type must be one of {DEC_TYPES}")
-        if enc_polar.pc_pos is not None:
-            raise NotImplementedError(f"Polar5GDecoder: the code has PC bits "
-                                      f"and {PC_NOT_PORTED}")
         self.device = enc_polar.device
         self.output_dtype = output_dtype
         self.n_target, self.k_target = enc_polar.n_target, enc_polar.k_target
@@ -66,16 +63,18 @@ class Polar5GDecoder:
 
         frozen = enc_polar.frozen_pos
         crc_degree = enc_polar.enc_crc.crc_degree
+        pc_pos = enc_polar.pc_pos        # the uplink's 12 <= k <= 19 codes
         if dec_type == "SC":
             self._polar_dec = PolarSCDecoder(frozen, self.n_polar, mode=mode,
+                                             pc_pos=pc_pos,
                                              device=self.device)
         else:
             cls = PolarSCLDecoder if dec_type == "SCL" else HybridSCLDecoder
             self._polar_dec = cls(
                 frozen, self.n_polar, list_size=list_size,
                 crc_degree=crc_degree, mode=mode, ind_iil_inv=iil_inv,
-                use_fast_scl=use_fast_scl, lower_stages=lower_stages,
-                device=self.device)
+                pc_pos=pc_pos, use_fast_scl=use_fast_scl,
+                lower_stages=lower_stages, device=self.device)
         self._dec_crc = CRCDecoder(enc_polar.enc_crc)
 
     def rate_recover(self, llr_ch):

@@ -21,7 +21,7 @@ import torch
 
 from polar_torch._device import resolve_device
 from polar_torch.models.polar.construction import as_host_positions
-from polar_torch.models.polar.sc import PC_NOT_PORTED, PolarSCDecoder
+from polar_torch.models.polar.sc import PolarSCDecoder
 from polar_torch.models.polar.scl import PolarSCLDecoder
 from polar_torch.ops.crc import CRCDecoder, CRCEncoder, crc_polynomial
 
@@ -33,7 +33,7 @@ class HybridSCLDecoder:
 
     ``schedule`` is taken for the JAX package's signature (the port's SC
     has one schedule); ``lower_stages`` is the SCL decoder's subtree
-    depth."""
+    depth. ``pc_pos`` goes to both decoders (PC-aided SC and CA-SCL)."""
 
     def __init__(self, frozen_pos, n: int, list_size: int = 8,
                  crc_degree=None, mode: str = "minsum",
@@ -45,15 +45,14 @@ class HybridSCLDecoder:
         if crc_degree is None:
             raise ValueError("hybrid SC/SCL decoding needs crc_degree (the "
                              "SC accept test is the CRC)")
-        if pc_pos is not None:
-            raise NotImplementedError(f"HybridSCLDecoder: {PC_NOT_PORTED}")
         self.device = resolve_device(device)
         self._sc = PolarSCDecoder(frozen_pos, n, mode=mode, llr_max=llr_max,
-                                  schedule=schedule, device=self.device)
+                                  schedule=schedule, pc_pos=pc_pos,
+                                  device=self.device)
         self._scl = PolarSCLDecoder(
             frozen_pos, n, list_size=list_size, crc_degree=crc_degree,
             mode=mode, llr_max=llr_max, ind_iil_inv=ind_iil_inv,
-            return_crc_status=True, use_fast_scl=use_fast_scl,
+            return_crc_status=True, pc_pos=pc_pos, use_fast_scl=use_fast_scl,
             lower_stages=lower_stages, device=self.device)
         self.n = self._sc.n
         self.k = self._sc.k

@@ -24,6 +24,11 @@ whole tree is one subtree call.
 The SC sweep (``sc_sweep_hybrid``) has no list and so no pointers and no
 backtracking: its schedule is ``fast_schedule(mask, rep=False)``, whose
 rate-0 nodes above stage b skip their subtrees' calls.
+
+PC-aided decoding (the parity-check bits of 5G's small uplink codes) adds
+a ``'p'`` leaf to the plain SCL schedule and to the SC schedule. It runs
+with b = log2(n), the whole tree in one kernel call, so each path's PC
+register lives and dies inside the call.
 """
 
 import numpy as np
@@ -83,7 +88,7 @@ def default_lower_stages(list_size: int) -> int:
 
 
 def fast_schedule(frozen_mask, rep: bool = True, rate1: bool = False,
-                  spc_min_stage=None):
+                  spc_min_stage=None, pc_mask=None):
     """Fast-SCL pruned node schedule in leaf order:
 
         ('z', s, lo)  rate-0 node covering [lo, lo + 2^s)
@@ -93,27 +98,32 @@ def fast_schedule(frozen_mask, rep: bool = True, rate1: bool = False,
                       ``rate1=True`` and s >= ``spc_min_stage`` (>= 1)
         ('f', 0, lo)  frozen leaf
         ('i', 0, lo)  info leaf
+        ('p', 0, lo)  parity-check (PC) leaf, where ``pc_mask`` is set
 
     ``rep=False`` emits rate-0 prunes only. ``spc_min_stage=None`` keeps SPC
-    nodes off."""
+    nodes off. A node holding a PC leaf is never a repetition, rate-1 or
+    SPC node: the PC register walks its leaves one by one."""
     mask = np.asarray(frozen_mask, dtype=bool)
     n = len(mask)
+    pc = _pc_leaves(mask, pc_mask)
     spc_min = max(1, SPC_MIN_STAGE_OFF if spc_min_stage is None
                   else int(spc_min_stage))
     ops = []
 
     def rec(s, lo):
         seg = mask[lo:lo + (1 << s)]
+        plain = not pc[lo:lo + (1 << s)].any()
         if s >= 1 and seg.all():
             ops.append(("z", s, lo))
-        elif rep and s >= 1 and not seg[-1] and seg[:-1].all():
+        elif plain and rep and s >= 1 and not seg[-1] and seg[:-1].all():
             ops.append(("r", s, lo))
-        elif rate1 and s >= 1 and not seg.any():
+        elif plain and rate1 and s >= 1 and not seg.any():
             ops.append(("o", s, lo))
-        elif rate1 and s >= spc_min and seg[0] and not seg[1:].any():
+        elif (plain and rate1 and s >= spc_min and seg[0]
+              and not seg[1:].any()):
             ops.append(("s", s, lo))
         elif s == 0:
-            ops.append(("f" if seg[0] else "i", 0, lo))
+            ops.append(("f" if seg[0] else "p" if pc[lo] else "i", 0, lo))
         else:
             rec(s - 1, lo)
             rec(s - 1, lo + (1 << (s - 1)))
@@ -122,11 +132,29 @@ def fast_schedule(frozen_mask, rep: bool = True, rate1: bool = False,
     return ops
 
 
-def leaf_schedule(frozen_mask):
-    """The unpruned schedule: one ``('f', 0, lo)`` or ``('i', 0, lo)`` op
-    per leaf."""
-    return [("f" if fz else "i", 0, lo)
-            for lo, fz in enumerate(np.asarray(frozen_mask, dtype=bool))]
+def _pc_leaves(frozen_mask, pc_mask):
+    """``pc_mask`` as a bool array (all False when None); a PC leaf that
+    is also frozen raises."""
+    pc = np.zeros(len(frozen_mask), dtype=bool)
+    if pc_mask is not None:
+        pc_mask = np.asarray(pc_mask, dtype=bool)
+        if pc_mask.shape != pc.shape:
+            raise ValueError(f"the PC mask has {pc_mask.size} leaves, the "
+                             f"frozen mask {pc.size}")
+        pc |= pc_mask
+        both = np.flatnonzero(pc & frozen_mask)
+        if both.size:
+            raise ValueError(f"PC positions {both.tolist()} are frozen")
+    return pc
+
+
+def leaf_schedule(frozen_mask, pc_mask=None):
+    """The unpruned schedule: one ``('f', 0, lo)``, ``('i', 0, lo)`` or,
+    where ``pc_mask`` is set, ``('p', 0, lo)`` op per leaf."""
+    mask = np.asarray(frozen_mask, dtype=bool)
+    pc = _pc_leaves(mask, pc_mask)
+    return [("f" if fz else "p" if p else "i", 0, lo)
+            for lo, (fz, p) in enumerate(zip(mask, pc))]
 
 
 def split_fast_schedule(frozen_mask, b, rate1: bool = False,
@@ -176,22 +204,28 @@ def plan_sweep(ops, b, device, codes=KIND_CODES):
     """``split_schedule``'s units with each subtree's op list encoded once
     as a ``SubtreeSchedule`` on ``device`` (op codes ``codes``). A subtree
     unit is ``("sub", j, schedule, frz)``; ``frz`` is None for a static
-    schedule."""
+    schedule. PC leaves (``'p'``) need the whole tree in one subtree
+    (``b = log2(n)``): the kernels start each call's PC register at zero
+    and index it by the leaf's place in the subtree."""
     units, _ = split_schedule(ops, b)
+    if any(k == "p" for k, _, _ in ops) and len(units) > 1:
+        raise ValueError(f"PC leaves need the whole tree in one subtree "
+                         f"call; b={b} cuts it into {len(units)} units")
     return [("sub", u[1], SubtreeSchedule(u[2], device, codes), None)
             if u[0] == "sub" else u for u in units]
 
 
-def plan_plain_sweep(frozen_mask, b, device):
+def plan_plain_sweep(frozen_mask, b, device, pc_mask=None):
     """The plain SCL sweep's plan. Up to ``UNROLL_OUTER_MAX_M`` subtrees
     each get their static leaf-only schedule; beyond that every subtree
     shares one traced schedule (``'t'`` leaves) and carries its slice of
     the frozen mask as ``frz``, an int32 [2^b] tensor on ``device``. Both
-    decode alike, bit for bit."""
+    decode alike, bit for bit. ``pc_mask`` adds PC leaves (``'p'``), which
+    need b = log2(n) (``plan_sweep``)."""
     mask = np.asarray(frozen_mask, dtype=bool)
     m = len(mask) >> b
-    if m <= UNROLL_OUTER_MAX_M:
-        return plan_sweep(leaf_schedule(mask), b, device)
+    if m <= UNROLL_OUTER_MAX_M or pc_mask is not None:
+        return plan_sweep(leaf_schedule(mask, pc_mask), b, device)
     sched = SubtreeSchedule(traced_schedule(b), device)
     frz = torch.from_numpy(mask.reshape(m, 1 << b).astype(np.int32)).to(
         device)
@@ -372,11 +406,12 @@ def scl_sweep_hybrid(llr_ch, frozen_mask, list_size: int,
                                  subtree=subtree)
 
 
-def plan_sc_sweep(frozen_mask, b, device):
+def plan_sc_sweep(frozen_mask, b, device, pc_mask=None):
     """The SC sweep's plan: ``plan_sweep`` of the rate-0-pruned schedule
-    ``fast_schedule(mask, rep=False)`` with the SC kernel's op codes."""
-    return plan_sweep(fast_schedule(frozen_mask, rep=False), b, device,
-                      codes=SC_KIND_CODES)
+    ``fast_schedule(mask, rep=False, pc_mask=pc_mask)`` with the SC
+    kernel's op codes."""
+    return plan_sweep(fast_schedule(frozen_mask, rep=False, pc_mask=pc_mask),
+                      b, device, codes=SC_KIND_CODES)
 
 
 def sc_sweep_hybrid(llr_ch, frozen_mask, mode: str = "minsum",

@@ -16,6 +16,12 @@ the input is on the card:
 n = 256, plain from n = 256 up. Under min-sum the two sweeps decide
 differently, so each blocklength keeps the reference's bit contract.
 
+With ``pc_pos`` (5G's parity-check bits, TS 38.212 5.3.1.2) every path
+carries a 5-bit PC register that its info bits fill, and a PC position
+decodes as the register's bit with no fork, as the JAX package's unrolled
+tree does. PC decoding runs the plain sweep at b = log2(n), the whole tree
+in one kernel call, where the register lives (``sc.pc_setup``).
+
 With ``crc_degree`` the decoder is CA-SCL: every surviving path's info word
 (payload and CRC, after the downlink input de-interleave ``ind_iil_inv``)
 goes through the CRC check, a failing path's metric pays
@@ -34,7 +40,7 @@ from polar_torch.models.polar.cuda_scl import LIST_SIZES
 from polar_torch.models.polar.scan_core import (
     default_lower_stages, plan_fast_sweep, plan_plain_sweep,
     resolve_lower_stages, scl_sweep_hybrid, scl_sweep_hybrid_fast)
-from polar_torch.models.polar.sc import PC_NOT_PORTED
+from polar_torch.models.polar.sc import pc_setup
 from polar_torch.ops.crc import CRCDecoder, CRCEncoder, crc_polynomial
 from polar_torch.ops.fg import F_FUNCTIONS
 
@@ -55,8 +61,9 @@ class PolarSCLDecoder:
     (``scan_core.resolve_lower_stages``; by default
     ``scan_core.default_lower_stages(list_size)``): one kernel call per
     2^b-leaf subtree. ``crc_degree``, ``ind_iil_inv``,
-    ``return_crc_status`` and ``use_hybrid_sc`` as in the module
-    docstring; ``k`` is then the length of payload and CRC."""
+    ``return_crc_status``, ``use_hybrid_sc`` and ``pc_pos`` as in the
+    module docstring; ``k`` is then the length of payload and CRC (PC
+    positions left out)."""
 
     def __init__(self, frozen_pos, n: int, list_size: int = 8,
                  crc_degree=None, use_hybrid_sc: bool = False,
@@ -69,24 +76,30 @@ class PolarSCLDecoder:
         n = int(n)
         if n < 2 or n & (n - 1):
             raise ValueError("n must be a power of 2, at least 2")
-        if pc_pos is not None:
-            raise NotImplementedError(f"PolarSCLDecoder: {PC_NOT_PORTED}")
         if list_size not in LIST_SIZES:
             raise ValueError(f"list_size must be one of {LIST_SIZES}")
         if mode not in F_FUNCTIONS:
             raise ValueError(f"unknown mode {mode!r}")
         if crc_degree is None and return_crc_status:
             raise ValueError("returning the CRC status needs crc_degree")
-        if use_fast_scl is None:
+        if pc_pos is not None:
+            # the register walks every leaf: no pruned nodes (as JAX)
+            use_fast_scl = False
+        elif use_fast_scl is None:
             use_fast_scl = n < PLAIN_SWEEP_MIN_N
         if (fast_rate1 or spc_min_stage is not None) and not use_fast_scl:
             raise ValueError("fast_rate1 and spc_min_stage need the fast "
-                             "sweep (use_fast_scl=True)")
+                             "sweep (use_fast_scl=True), which PC-aided "
+                             "decoding does not run")
         self.n = n
         self.device = resolve_device(device)
         self.frozen_pos = as_host_positions(frozen_pos)
         self.info_pos = info_positions(self.frozen_pos, n)
-        self.k = n - len(self.frozen_pos)
+        self._pc_mask, info_idx, pc_b = pc_setup(pc_pos, self.info_pos, n,
+                                                 lower_stages)
+        self.pc_pos = (None if pc_pos is None
+                       else np.flatnonzero(self._pc_mask))
+        self.k = len(info_idx)
         self.list_size = int(list_size)
         self.use_fast_scl = bool(use_fast_scl)
         self.mode = mode
@@ -102,8 +115,9 @@ class PolarSCLDecoder:
                 self.frozen_pos, n, list_size=list_size,
                 crc_degree=crc_degree, mode=mode, llr_max=llr_max,
                 ind_iil_inv=ind_iil_inv, return_crc_status=return_crc_status,
-                use_fast_scl=use_fast_scl, lower_stages=lower_stages,
-                output_dtype=output_dtype, device=self.device)
+                pc_pos=self.pc_pos, use_fast_scl=use_fast_scl,
+                lower_stages=lower_stages, output_dtype=output_dtype,
+                device=self.device)
             self.lower_stages = self._hybrid.lower_stages
             return
         self._crc_decoder = None
@@ -119,7 +133,7 @@ class PolarSCLDecoder:
         self._iil_inv = (None if ind_iil_inv is None else torch.from_numpy(
             as_host_positions(ind_iil_inv)).to(self.device))
         self.lower_stages = resolve_lower_stages(
-            n.bit_length() - 1, lower_stages,
+            n.bit_length() - 1, pc_b or lower_stages,
             default_lower_stages(self.list_size))
         self._frozen_mask = np.zeros(n, dtype=bool)
         self._frozen_mask[self.frozen_pos] = True
@@ -129,8 +143,9 @@ class PolarSCLDecoder:
                 rate1=self.fast_rate1, spc_min_stage=spc_min_stage)
         else:
             self._plan = plan_plain_sweep(self._frozen_mask,
-                                          self.lower_stages, self.device)
-        self._info_idx = torch.from_numpy(self.info_pos).to(self.device)
+                                          self.lower_stages, self.device,
+                                          pc_mask=self._pc_mask)
+        self._info_idx = torch.from_numpy(info_idx).to(self.device)
 
     def decode(self, llr_logits):
         """[bs, n] logits -> [bs, k] decisions of the best path (and the

@@ -9,7 +9,10 @@ checkpoint/resume (``state_path``). The chain runs on the model's device:
   seeded from ``(seed, point, iteration)`` through
   ``numpy.random.SeedSequence``, so results do not depend on loop order;
 * error counts are int64 on the device; two scalars cross to the host per
-  batch, where the sweep accumulates in int64.
+  batch, where the sweep accumulates in int64;
+* a model with its own ``counted_step`` (``parallel.ShardedSystem``)
+  returns counters already reduced across its ranks, which the sweep takes
+  as they are, so every rank takes the same early-stop branch.
 """
 
 import json
@@ -52,6 +55,16 @@ def iteration_generator(seed: int, point: int, iteration: int, device):
     return torch.Generator(device=device).manual_seed(int(state))
 
 
+def fold_in(generator, index: int):
+    """A new generator on ``generator``'s device, derived from its seed and
+    ``index`` (the counterpart of ``jax.random.fold_in``): a shard's stream
+    of a sharded step."""
+    state = np.random.SeedSequence(
+        [generator.initial_seed(), int(index)]).generate_state(1, np.uint64)
+    return torch.Generator(device=generator.device).manual_seed(
+        int(state[0]))
+
+
 def _print_progress(is_final, rt, ebno_db, idx_it, max_mc_iter, bit_errors,
                     nb_bits, block_errors, nb_blocks, status,
                     header_text=None):
@@ -76,12 +89,13 @@ def _print_progress(is_final, rt, ebno_db, idx_it, max_mc_iter, bit_errors,
 
 def _counted_step(mc_fun, batch_size, soft_estimates):
     """``(generator, ebno_db) -> (bit errors, block errors, bits, blocks)``
-    as host ints, from ``mc_fun.step`` or the callable ``mc_fun``."""
+    as host ints, from ``mc_fun.counted_step`` (reduced counters, e.g.
+    ``parallel.ShardedSystem``), ``mc_fun.step`` or the callable
+    ``mc_fun``."""
     if hasattr(mc_fun, "counted_step"):
-        raise NotImplementedError(
-            "sim_ber: models with their own reduced counters (the sharded "
-            "system) are not ported yet (ROADMAP Queue 1, \"Multi-GPU data "
-            "parallel\")")
+        def reduced(generator, ebno_db):
+            return mc_fun.counted_step(generator, batch_size, ebno_db)
+        return reduced
     run = mc_fun.step if hasattr(mc_fun, "step") else mc_fun
 
     def counted(generator, ebno_db):
@@ -101,8 +115,9 @@ def sim_ber(mc_fun, ebno_dbs, batch_size, max_mc_iter, soft_estimates=False,
     """Monte-Carlo BER/BLER sweep. Returns ``(ber, bler)`` as np.float64.
 
     ``mc_fun``: an object with ``step(generator, batch_size, ebno_db) ->
-    (b, b_hat)`` (a ``SystemAWGNModel``) or a callable with that
-    signature. The generators live on ``device``, by default the model's
+    (b, b_hat)`` (a ``SystemAWGNModel``), one with ``counted_step`` of the
+    same arguments returning reduced counters (``parallel.ShardedSystem``),
+    or a callable with ``step``'s signature. The generators live on ``device``, by default the model's
     ``device`` attribute, else the card."""
     if device is None:
         device = getattr(mc_fun, "device", None)

@@ -1,12 +1,21 @@
-"""Complexity accounting: closed-form element-op counts of one SC, SCL or
-BP decode, and the one-line meter the CLI prints per decoder."""
+"""Complexity accounting and profiling tools: closed-form element-op
+counts of one SC, SCL or BP decode and the one-line meter the CLI prints
+per decoder; ``trace``, a ``torch.profiler`` trace of a block of code; and
+``flop_estimate``, the operations of one call counted as XLA's cost
+analysis counts them."""
 
+import contextlib
+import os
 from dataclasses import asdict, dataclass
 
 import numpy as np
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import flop_registry
 
 from polar_torch.models.polar.cuda_scl import _ctz, _cto
 from polar_torch.models.polar.scan_core import fast_schedule
+from polar_torch.utils import kernel_work
 
 
 @dataclass
@@ -111,3 +120,94 @@ def complexity_line(name: str, comp: DecodeComplexity) -> str:
     return (f"# complexity {name}: {comp.total():,} element-ops/block "
             f"({comp.total() / max(comp.k, 1):.1f} ops/info bit, "
             f"n={comp.n} k={comp.k} L={comp.list_size})")
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """``with trace("/tmp/trace"): run()`` writes a ``torch.profiler`` trace
+    of the block into ``log_dir`` (TensorBoard's profiler plugin and
+    ``chrome://tracing`` read it): host activity, and the card's kernels
+    and copies when a card is present. Yields the profiler."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda
+                                           else [])
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+        try:
+            yield prof
+        finally:
+            if cuda:
+                torch.cuda.synchronize()    # the block's kernels end inside
+
+
+# XLA's cost analysis counts one operation per output element of an
+# arithmetic, comparison or select op (a cast included) and none for a
+# transcendental (exp, log, tanh, sqrt, pow, ...); these aten ops are the
+# former (in-place and out= forms by the same name)
+_ELEMENTWISE = frozenset("""
+    add sub rsub mul div neg abs maximum minimum fmax fmin clamp clamp_min
+    clamp_max where sign eq ne lt le gt ge bitwise_and bitwise_or bitwise_xor
+    bitwise_not logical_and logical_or logical_xor logical_not remainder fmod
+    floor ceil round trunc masked_fill
+""".split())
+# reductions: one operation per input element less one per output element
+_REDUCTIONS = frozenset("sum mean amax amin max min prod any all".split())
+
+
+def _aten_flops(func, args, kwargs, out) -> int:
+    """XLA-convention operations of one aten call."""
+    packet = func._overloadpacket
+    if packet in flop_registry:
+        return int(flop_registry[packet](*args, **kwargs, out_val=out))
+    name = packet.__name__.rstrip("_")
+    if name == "mv":
+        return 2 * args[0].numel()
+    if name == "dot":
+        return 2 * args[0].numel()
+    first = out[0] if isinstance(out, (tuple, list)) and out else out
+    if not isinstance(first, torch.Tensor):
+        return 0
+    if name in _ELEMENTWISE:
+        return first.numel()
+    if name in _REDUCTIONS and isinstance(args[0], torch.Tensor):
+        return args[0].numel() - first.numel()
+    if (name == "_to_copy" and isinstance(args[0], torch.Tensor)
+            and first.dtype != args[0].dtype):
+        return first.numel()
+    return 0
+
+
+class _FlopCount(TorchDispatchMode):
+    """Counts ``_aten_flops`` of every aten call it sees, and (through
+    ``kernel_work``) the work of every hand-written kernel launched while
+    it runs."""
+
+    def __init__(self):
+        super().__init__()
+        self.flops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        self.flops += _aten_flops(func, args, kwargs, out)
+        return out
+
+
+def flop_estimate(fn, *args) -> float:
+    """Operations of one call ``fn(*args)``, counted as the JAX package's
+    ``flop_estimate`` (XLA's cost analysis) counts them: 2 M N K per
+    matrix product, one per output element of an arithmetic elementwise
+    op, none for transcendentals. The call runs once. A hand-written
+    kernel adds its launch's f32 operations (``kernel_work``; BP counts
+    every sweep, whatever stops early)."""
+    est = _FlopCount()
+    kernel_work._estimates.append(est)
+    try:
+        with est:
+            fn(*args)
+    finally:
+        kernel_work._estimates.remove(est)
+    return float(est.flops)

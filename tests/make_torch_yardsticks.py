@@ -1,5 +1,6 @@
 """BLER yardsticks of the JAX package on the CPU for ``chip_smoke.py``'s
-phases 10 and 11 (the ``--kern`` OSD path and the BEC link).
+phases 10, 11 and 12 (the ``--kern`` OSD path, the BEC link and the 5G
+uplink UCI chain with PC bits).
 
     JAX_PLATFORMS=cpu python tests/make_torch_yardsticks.py [--blocks N]
         [--bs B] [--only NAME ...]
@@ -16,7 +17,12 @@ line with the block errors, the blocks and the BLER. The rows:
   ``benchmarks/throughput_suite.py`` of the same name);
 * ``bec_sc_<pe>``, ``bec_scl8_<pe>``: ``SystemBECModel`` on the 5G k=512
   n=1024 code with the CLI's SC and SCL-8 decoders (min-sum; SCL on the
-  plain sweep), at erasure probability ``pe``.
+  plain sweep), at erasure probability ``pe``;
+* ``pc_sc_k19_e864``, ``pc_scl8_k19_e864``, ``pc_hybscl8_k19_e864``:
+  ``Polar5GEncoder(19, 864)`` (uplink, CRC6, 3 PC bits, n_polar 256), QPSK
+  over AWGN, ``Polar5GDecoder`` SC, CA-SCL-8 and hybSCL-8 in exact mode at
+  4.5 dB; ``pc_scl8_k12_e48``: CA-SCL-8 on ``Polar5GEncoder(12, 48)`` at
+  2.0 dB.
 """
 
 import argparse
@@ -29,6 +35,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEED = 7
 G16_EBNO_DB = (2.0, 3.0)
 BEC_PE = (0.38, 0.42)
+# the PC rows: (name, k, E, dec_type, Eb/N0 in dB)
+PC_ROWS = (("pc_sc_k19_e864", 19, 864, "SC", 4.5),
+           ("pc_scl8_k19_e864", 19, 864, "SCL", 4.5),
+           ("pc_hybscl8_k19_e864", 19, 864, "hybSCL", 4.5),
+           ("pc_scl8_k12_e48", 12, 48, "SCL", 2.0))
 
 
 def rows():
@@ -36,7 +47,8 @@ def rows():
     from polar_tpu.main import gen_code
     from polar_tpu.models.osd import OSDecoder
     from polar_tpu.models.polar.construction import generate_5g_ranking
-    from polar_tpu.models.polar.encode import PolarEncoder
+    from polar_tpu.models.polar.decode5g import Polar5GDecoder
+    from polar_tpu.models.polar.encode import Polar5GEncoder, PolarEncoder
     from polar_tpu.models.polar.sc import PolarSCDecoder
     from polar_tpu.models.polar.scl import PolarSCLDecoder
     from polar_tpu.models.systems import SystemAWGNModel, SystemBECModel
@@ -62,11 +74,21 @@ def rows():
             return SystemBECModel(1024, 512, enc, dec)
         return make
 
+    def uci(k, e, dec_type):
+        def make():
+            enc = Polar5GEncoder(k, e)
+            dec = Polar5GDecoder(enc, dec_type=dec_type, list_size=8,
+                                 mode="exact")
+            return SystemAWGNModel(e, k, enc, dec)
+        return make
+
     out = [(f"g16_osd2_{e}", g16, e) for e in G16_EBNO_DB]
     out.append(("osd2_k64_n128", osd2, 2.0))
     for pe in BEC_PE:
         out += [(f"bec_sc_{pe}", bec("sc"), pe),
                 (f"bec_scl8_{pe}", bec("scl"), pe)]
+    out += [(name, uci(k, e, dec_type), ebno)
+            for name, k, e, dec_type, ebno in PC_ROWS]
     return out
 
 

@@ -208,8 +208,14 @@ def test_decoder_options():
         Polar5GDecoder(enc, dec_type="nonsense")
     with pytest.raises(TypeError):
         Polar5GDecoder("not an encoder")
-    with pytest.raises(NotImplementedError, match="PC-aided SC/SCL decoding"):
-        Polar5GDecoder(Polar5GEncoder(16, 64, device="cpu"), dec_type="SCL")
+    # a PC code (3 PC bits, CRC6) decodes: its PC positions leave the
+    # decoder's output, and the whole tree is one subtree
+    pc_enc = Polar5GEncoder(16, 64, device="cpu")
+    pc_dec = Polar5GDecoder(pc_enc, dec_type="SCL")
+    assert pc_dec._polar_dec.k == 16 + 6 and pc_dec._polar_dec.lower_stages == 6
+    np.testing.assert_array_equal(pc_dec._polar_dec.pc_pos, pc_enc.pc_pos)
+    u = torch.ones(2, 16)
+    np.testing.assert_array_equal(pc_dec(10.0 * (2.0 * pc_enc(u) - 1.0)), u)
     dec = Polar5GDecoder(enc, dec_type="SCL", list_size=32, lower_stages=3)
     assert dec._polar_dec.lower_stages == 3
     with pytest.raises(ValueError):      # decode_pipelined is hybSCL's

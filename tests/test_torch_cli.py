@@ -138,14 +138,23 @@ def test_sweep_with_bp_runs_sc_scl_and_bp(capsys):
 
 @pytest.mark.parametrize("change,error,match", [
     ({"kern": "F3"}, KeyError, "unknown kernel"),
-    ({"num_devices": 2}, NotImplementedError, "Multi-GPU data parallel"),
+    ({"num_devices": 2}, None, None),
 ])
 def test_cli_raises_for_later_slices(change, error, match):
-    """An unknown kernel raises as ``get_kernel`` does; only a
-    data-parallel sweep is left for a later slice."""
+    """An unknown kernel raises as ``get_kernel`` does. ``num_devices``,
+    once left to a later slice, is unread, as in the JAX CLI (data-parallel
+    runs go through ``parallel.ShardedSystem``): the sweep equals the one
+    with ``num_devices=1``."""
     c = dataclasses.replace(PolarConfig(device="cpu"), **change)
-    with pytest.raises(error, match=match):
-        tmain.sweep(c, ebno_dbs=[1.0])
+    if error is not None:
+        with pytest.raises(error, match=match):
+            tmain.sweep(c, ebno_dbs=[1.0])
+        return
+    c = dataclasses.replace(c, k=16, n=32, bs=64, mc_iter=2)
+    one = dataclasses.replace(c, num_devices=1)
+    got, want = (tmain.sweep(x, ebno_dbs=[1.0, 2.0]) for x in (c, one))
+    assert got.legend == want.legend and len(got.ber) == 4   # SC, SCL-8
+    np.testing.assert_array_equal(np.asarray(got.ber), np.asarray(want.ber))
 
 
 def test_kern_cli_runs_dense_osd_and_saves_its_plot(tmp_path, capsys):

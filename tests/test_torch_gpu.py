@@ -496,3 +496,112 @@ def test_decoders_on_bec_logits_card_equal_cpu(cuda, pe):
         logits.cpu())
     agree = (got.cpu() == want).all(dim=1).float().mean().item()
     assert agree >= BLOCK_AGREEMENT
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["minsum", "exact"])
+@pytest.mark.parametrize("code", [(19, 864), (12, 48)])
+def test_pc_kernels_equal_plain_on_card(cuda, code, mode):
+    """The ``'p'`` leaves of both kernels (the whole tree in one call) on
+    the mother codes of the uplink PC codes: SCL at L = 8 and 32 under the
+    block rule (min-sum: every block, path metrics bit for bit), SC on
+    every block in min-sum."""
+    from polar_torch.models.polar import scan_core
+    from polar_torch.models.polar.cuda_sc import sc_subtree_plain
+    from polar_torch.models.polar.encode import Polar5GEncoder
+    enc = Polar5GEncoder(*code, device="cpu")
+    n = enc.n_polar
+    S = n.bit_length() - 1
+    mask = np.zeros(n, bool)
+    mask[enc.frozen_pos] = True
+    pc = np.zeros(n, bool)
+    pc[enc.pc_pos] = True
+    llr = 3.0 * torch.randn((n, 1024), device=cuda,
+                            generator=torch.Generator(cuda).manual_seed(n))
+    for L in (8, 32):
+        plan = scan_core.plan_plain_sweep(mask, S, cuda, pc_mask=pc)
+        kw = dict(mode=mode, llr_max=LLR_MAX, lower_stages=S, plan=plan)
+        u_k, pm_k = scan_core.scl_sweep_hybrid(llr, mask, L, **kw)
+        u_p, pm_p = scan_core.scl_sweep_hybrid(
+            llr, mask, L, subtree=lambda a, pm, s, **k: scl_subtree_plain(
+                a, pm, s.ops, **k), **kw)
+        if mode == "minsum":
+            assert torch.equal(u_k, u_p) and torch.equal(pm_k, pm_p)
+        else:
+            assert_blocks_agree((u_p.cpu().numpy(),), (u_k.cpu().numpy(),),
+                                pm_p.cpu().numpy(), pm_k.cpu().numpy())
+    plan = scan_core.plan_sc_sweep(mask, S, cuda, pc_mask=pc)
+    kw = dict(mode=mode, llr_max=LLR_MAX, lower_stages=S, plan=plan)
+    u_k = scan_core.sc_sweep_hybrid(llr, mask, **kw)
+    u_p = scan_core.sc_sweep_hybrid(
+        llr, mask, subtree=lambda a, f, s, **k: sc_subtree_plain(
+            a, f, s.ops, **k), **kw)
+    agree = (u_k == u_p).all(0).float().mean().item()
+    assert agree == 1.0 if mode == "minsum" else agree >= BLOCK_AGREEMENT
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dec_type", ["SC", "SCL", "hybSCL"])
+def test_pc_5g_decoder_on_card_equals_cpu(cuda, dec_type):
+    """The uplink (19, 864) code with 3 PC bits through ``Polar5GDecoder``
+    on the card, against the CPU, with its kernels launched."""
+    from polar_torch.models.polar import cuda_sc
+    from polar_torch.models.polar.decode5g import Polar5GDecoder
+    from polar_torch.models.polar.encode import Polar5GEncoder
+    rng = np.random.default_rng(19)
+    enc_cpu = Polar5GEncoder(19, 864, device="cpu")
+    u = rng.integers(0, 2, (512, 19)).astype(np.float32)
+    c = enc_cpu(torch.from_numpy(u)).numpy()
+    logits = torch.from_numpy((2.0 * ((2.0 * c - 1.0) + rng.normal(
+        0, 4.0, c.shape)) / 16.0).astype(np.float32))
+    kw = dict(dec_type=dec_type, list_size=8, mode="exact",
+              return_crc_status=True)
+    want, ok_want = Polar5GDecoder(enc_cpu, **kw)(logits)
+    before = (scl_subtree.launches, cuda_sc.sc_subtree.launches)
+    got, ok_got = Polar5GDecoder(Polar5GEncoder(19, 864, device=cuda),
+                                 **kw)(logits.to(cuda))
+    after = (scl_subtree.launches, cuda_sc.sc_subtree.launches)
+    assert after[0] > before[0] or dec_type == "SC"
+    assert after[1] > before[1] or dec_type == "SCL"
+    assert 0 < int(ok_want.sum()) < 512
+    agree = (got.cpu() == want).all(dim=1).float().mean().item()
+    assert agree >= BLOCK_AGREEMENT
+    assert (ok_got.cpu() == ok_want).float().mean().item() >= BLOCK_AGREEMENT
+
+
+@pytest.mark.gpu
+def test_tools_on_card(cuda, tmp_path):
+    """``ShardedSystem`` with a world of one on NCCL equals the unsharded
+    model on the derived generator; ``trace`` names the SCL kernel;
+    ``flop_estimate`` counts the kernel's work."""
+    import json
+    import os
+    import socket
+    import torch.distributed as dist
+    from polar_torch.models.polar.decode5g import Polar5GDecoder
+    from polar_torch.models.polar.encode import Polar5GEncoder
+    from polar_torch.models.systems import SystemAWGNModel
+    from polar_torch.parallel import ShardedSystem, initialize
+    from polar_torch.sim import count_block_errors, count_errors, fold_in
+    from polar_torch.utils.profiling import flop_estimate, trace
+    enc = Polar5GEncoder(12, 48, device=cuda)
+    model = SystemAWGNModel(48, 12, enc, Polar5GDecoder(enc, "SCL"))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    assert initialize(f"tcp://localhost:{port}", world_size=1, rank=0,
+                      timeout_s=60) == (0, 1, 1)
+    try:
+        gen = torch.Generator(cuda).manual_seed(3)
+        got = ShardedSystem(model).counted_step(gen, 512, 2.0)
+        b, b_hat = model.step(fold_in(gen, 0), 512, 2.0)
+        assert got == (count_errors(b, b_hat).item(),
+                       count_block_errors(b, b_hat).item(), 512 * 12, 512)
+    finally:
+        dist.destroy_process_group()
+    with trace(str(tmp_path)):
+        model.step(gen, 512, 2.0)
+    (name,) = os.listdir(tmp_path)
+    with open(tmp_path / name) as fh:
+        assert "scl_subtree_kernel" in json.dumps(json.load(fh))
+    assert flop_estimate(lambda: model.step(gen, 512, 2.0)) > 0

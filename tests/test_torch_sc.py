@@ -235,8 +235,13 @@ def test_zero_llr_decides_one_and_leading_dims():
 
 def test_decoder_options_and_errors():
     frozen, _ = generate_5g_ranking(32, 64)
-    with pytest.raises(NotImplementedError, match="PC-aided SC/SCL decoding"):
+    # PC-aided decoding: a frozen PC position raises, an info one leaves
+    # the output and the decode runs the whole tree in one call
+    with pytest.raises(ValueError, match="frozen"):
         PolarSCDecoder(frozen, 64, pc_pos=[3], device="cpu")
+    pc_dec = PolarSCDecoder(frozen, 64, pc_pos=[63], device="cpu")
+    assert pc_dec.k == 31 and pc_dec.lower_stages == 6
+    assert pc_dec(torch.zeros(4, 64)).shape == (4, 31)
     with pytest.raises(ValueError):
         PolarSCDecoder(frozen, 64, mode="bad", device="cpu")
     with pytest.raises(ValueError):

@@ -115,12 +115,19 @@ def test_decoder_equals_jax_decoder_rate1():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"pc_pos": [3]}, "PC-aided SC/SCL decoding"),
+    ({"pc_pos": [3]}, "are frozen"),
+    ({"pc_pos": [63], "fast_rate1": True}, "fast sweep"),
+    ({"pc_pos": [63], "lower_stages": 3}, "whole tree"),
 ])
 def test_decoder_raises_for_later_slices(kwargs, item):
+    """PC-aided decoding, once left to a later slice, is ported; what it
+    cannot take raises: a frozen PC position, the fast sweep's options,
+    a subtree depth below log2(n)."""
     frozen, _ = generate_5g_ranking(32, 64)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=item):
         PolarSCLDecoder(frozen, 64, device="cpu", **kwargs)
+    dec = PolarSCLDecoder(frozen, 64, pc_pos=[63], device="cpu")
+    assert dec.k == 31 and not dec.use_fast_scl
 
 
 @pytest.mark.parametrize("kwargs", [

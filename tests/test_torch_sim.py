@@ -176,15 +176,27 @@ def test_uncoded_qpsk_ber_matches_theory():
 
 
 def test_sharded_counters_raise():
+    """A model with its own reduced counters (``parallel.ShardedSystem``)
+    feeds ``sim_ber`` through ``counted_step``, which raises nothing now:
+    the sweep takes the counters as they are, targets and early stop
+    included."""
     class Sharded:
         device = CPU
 
-        def counted_step(self, *args):
-            raise AssertionError("not reached")
+        def __init__(self):
+            self.calls = []
 
-    with pytest.raises(NotImplementedError, match="Multi-GPU data parallel"):
-        sim_ber(Sharded(), [0.0], batch_size=4, max_mc_iter=1,
-                verbose=False)
+        def counted_step(self, generator, batch_size, ebno_db):
+            self.calls.append((generator.device, batch_size, ebno_db))
+            return (3, 1, 8 * batch_size, batch_size) if ebno_db < 1.0 \
+                else (0, 0, 8 * batch_size, batch_size)
+
+    model = Sharded()
+    ber, bler = sim_ber(model, [0.0, 2.0, 4.0], batch_size=4, max_mc_iter=3,
+                        target_block_errs=2, verbose=False)
+    np.testing.assert_array_equal(ber, [6 / 64, 0.0, 0.0])
+    np.testing.assert_array_equal(bler, [2 / 8, 0.0, 0.0])
+    assert model.calls == [(CPU, 4, 0.0)] * 2 + [(CPU, 4, 2.0)] * 3
 
 
 def test_plot_ber_sc_chain(capsys):
