@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py            # from the repo root; one card, nvcc
 
-It drives eight paths: the fast-SCL chain (phases 4 and 5), the CLI sweep
+It drives nine paths: the fast-SCL chain (phases 4 and 5), the CLI sweep
 with SC, SCL-8 and BP-20 (phase 6), the 5G NR CA-SCL chain (phase 8),
-BP's two-pass serving path (phase 9), the ``--kern`` CLI path with OSD
+BP's two-pass serving path and BP-20 with bf16 messages (phase 9), the
+``--kern`` CLI path with OSD
 (phase 10), the BEC link (phase 11), the 5G uplink UCI chain with PC bits
 (phase 12) and the data-parallel and profiling tools over it (phase 13).
 Phases (any failure exits non-zero and prints no result):
@@ -12,7 +13,9 @@ Phases (any failure exits non-zero and prints no result):
 1. the card: CUDA must be available; prints the card's name and power
    limit as ``nvidia-smi`` reports them;
 2. build: compiles every kernel of the paths from ``polar_torch/csrc``, one
-   ``nvcc`` per kernel, all started together;
+   ``nvcc`` per kernel, all started together; prints each kernel's
+   registers, stack and shared memory, and the BP kernel's bf16 instances
+   apart with their dynamic shared bytes per CTA;
 3. kernels against their plain versions on the card, on the same CUDA
    inputs. The SCL subtree kernel (``scl_subtree``) against
    ``scl_subtree_plain``: at L=8 on a 5G k=32 n=64 code at b=3, on random
@@ -42,7 +45,11 @@ Phases (any failure exits non-zero and prints no result):
    n = 1024. Min-sum must be bit-equal (every LLR and flag); in exact mode
    the hard decisions must agree on every block the plain version marks
    converged and on >= 99% of all blocks, since ``expf``/``log1pf`` and
-   ``torch.logaddexp`` round differently. On BEC inputs (the logits of
+   ``torch.logaddexp`` round differently. The same for the kernel's bf16
+   instance against ``bp_decode_plain(msg_dtype=torch.bfloat16)``: at
+   n = 1024 (shared, one block a warp, and forced global), 2048 (two
+   blocks a warp), 4096 (global) and 256, min-sum bit-equal, exact mode at
+   n = 1024 under the same rule. On BEC inputs (the logits of
    ``BinaryErasureChannel(return_llrs=True)`` at pe = 0.3 and 0.45, 8192
    blocks each: +-100, erasures as -0.0 and +0.0) the SCL kernel on the
    plain SCL-8 sweep and the fast sweep with rate-1 nodes (the block rule
@@ -76,10 +83,11 @@ Phases (any failure exits non-zero and prints no result):
    default), a breakdown of a whole-tree L=32 call (as decoded, min-sum,
    every leaf frozen, the descent alone), kernel, plain and bound times
    over one decode, one BP-20 decode (bs=8192, 2.0 dB) with early stop on
-   and off and its mean sweeps per codeword, the BP and SC kernels'
-   registers, stack and shared memory, their resident blocks per SM (BP at
-   n = 1024, 2048 and 4096), SC's time at b = 8..10 with 4..32 lanes and
-   other shared splits, and one profiled main-path step;
+   and off and its mean sweeps per codeword, with f32 and with bf16
+   messages, the BP and SC kernels' registers, stack and shared memory,
+   their resident blocks per SM (BP at n = 1024, 2048 and 4096, both
+   message types), SC's time at b = 8..10 with 4..32 lanes and other
+   shared splits, and one profiled main-path step;
 8. the 5G path: ``Polar5GEncoder`` (uplink k=400 E=1000, CRC11,
    n_polar=1024) -> QPSK -> AWGN -> demapper -> ``Polar5GDecoder`` in exact
    mode through ``sim_ber`` at 1.5 dB: CA-SCL-8 and hybSCL-8 at bs=8192,
@@ -93,7 +101,13 @@ Phases (any failure exits non-zero and prints no result):
    first_pass_iters=8)`` bit-identical to the single-pass decoder on one
    batch of 8192 (hard and soft outputs), then through ``sim_ber`` (4
    batches of 8192) with the launch counts reset just before and read just
-   after; BLER on the ``bp_n1024`` gate, info bit/s;
+   after; BLER on the ``bp_n1024`` gate, info bit/s. Then bf16 messages:
+   the two-pass decoder bit-identical to the single-pass one (soft
+   outputs), and BP-20 with ``msg_dtype=torch.bfloat16`` through
+   ``sim_ber`` (4 batches of 8192) with the launch counts reset just before
+   and read just after, its BLER within 4 sigma of both samples combined
+   of ``PORT_YARDSTICKS["bp20_n1024_bf16"]`` (JAX's bf16 engine on the
+   CPU) and on the ``bp_n1024`` gate;
 10. the ``--kern`` CLI path: ``polar_torch.main.sweep`` with ``--kern G16
     --n 256 --k 128 --construction rm-ref --osd_t 2`` (dense-G encoder,
     OSD-2; no CUDA kernel) at bs=1024, 4 batches at 2.0 and 3.0 dB, and
@@ -129,7 +143,8 @@ The line before the card's line is one JSON object ``{"kernels": [...]}``
 with each kernel form's launches on its path (``scl_subtree`` static
 L <= 8: the fast-SCL chain; ``scl_subtree`` L=16/32: the 5G path's
 CA-SCL-32; ``scl_subtree`` traced: the 5G path's CA-SCL-8 at b=6;
-``sc_subtree`` and ``bp``: the CLI sweep), its disagreement with the
+``sc_subtree`` and ``bp``: the CLI sweep; ``bp_bf16``: phase 9's bf16
+BP-20 run), its disagreement with the
 plain version (for ``bp``: the largest min-sum LLR gap, and the blocks
 that differ in min-sum or, in exact mode, in their decisions; for
 ``scl_subtree`` and ``sc_subtree`` also the BEC blocks checked, and with
@@ -183,6 +198,17 @@ BP_CASES = ((64, 4096, "auto", 1.0, True, 21, 1, "minsum"),
             (4096, 256, "auto", 0.9375, True, 9, 2, "minsum"),
             (1024, BATCH, "auto", 0.9375, True, BP_ITER, 2, "exact"))
 BP_EXACT_AGREEMENT = 0.99
+# the bf16 instance's checks, the same fields: n = 1024 in shared memory
+# (one block a warp) and forced global, 2048 (two blocks a warp), 4096
+# (global), and a small unscaled case
+BP_BF16_CASES = ((1024, BATCH, "auto", 0.9375, True, BP_ITER, 2, "minsum"),
+                 (1024, BATCH, "auto", 0.9375, False, BP_ITER, 2, "minsum"),
+                 (1024, 2048, "global", 0.9375, True, 13, 3, "minsum"),
+                 (2048, 2048, "auto", 0.9375, True, 13, 1, "minsum"),
+                 (4096, 256, "auto", 0.9375, True, 9, 2, "minsum"),
+                 (256, 4096, "auto", 1.0, True, 21, 2, "minsum"),
+                 (1024, BATCH, "auto", 0.9375, True, BP_ITER, 2, "exact"))
+BP_BF16_YARDSTICK = "bp20_n1024_bf16"
 # the 5G path: uplink k=400 E=1000 (CRC11, n_polar=1024) in exact mode, as
 # the yardsticks ran. (name, dec_type, list size, batch, batches, yardstick,
 # its sample: blocks, subtree depth or None for the decoder's own).
@@ -234,6 +260,9 @@ PORT_YARDSTICKS = {
     #       pc_hybscl8_k19_e864 pc_scl8_k12_e48
     "pc_sc_k19_e864": (3306, 16384), "pc_scl8_k19_e864": (305, 16384),
     "pc_hybscl8_k19_e864": (367, 16384), "pc_scl8_k12_e48": (1323, 16384),
+    # phase 9's bf16 BP-20, the same script and settings, made with
+    #   ... --only bp20_n1024_bf16
+    "bp20_n1024_bf16": (1942, 16384),
 }
 # phase 3's PC schedules: the mother codes of the uplink (k, E) codes with
 # 3 PC bits, the whole tree as one call, at these list sizes
@@ -289,6 +318,20 @@ def resource_usage(libs):
                 lines.append(f"{name}: {' '.join(line.split()[:4])}")
                 name = None
     return lines
+
+
+def bp_bf16_resources(lib):
+    """The BP kernel's bf16 instances' lines of ``resource_usage``, named
+    ``bp_kernel<blocks a warp, lattice, bf16>``."""
+    import re
+    out = []
+    for line in resource_usage([lib]):
+        m = re.search(r"bp_kernelILi(\d)ELb(\d)ELb1E", line)
+        if m:
+            lattice = "shared" if m[2] == "1" else "global"
+            out.append(f"bp_kernel<{m[1]}, {lattice}, bf16>: "
+                       f"{line.split(': ', 1)[1]}")
+    return out or ["bf16 instances: resource usage not measured"]
 
 
 def bound_ms(n_bytes, n_ops):
@@ -1005,6 +1048,7 @@ def main():
             setattr(cuda_scl.scl_subtree, c, 0)
         cuda_sc.sc_subtree.launches = 0
         cuda_bp.bp_decode.launches = 0
+        cuda_bp.bp_decode.launches_bf16 = 0
 
     def counts():
         """The launch counts by kernel form (the scl_subtree forms
@@ -1013,7 +1057,8 @@ def main():
                 "scl_subtree traced": cuda_scl.scl_subtree.launches_traced,
                 "scl_subtree wide": cuda_scl.scl_subtree.launches_wide,
                 "sc_subtree": cuda_sc.sc_subtree.launches,
-                "bp": cuda_bp.bp_decode.launches}
+                "bp": cuda_bp.bp_decode.launches,
+                "bp bf16": cuda_bp.bp_decode.launches_bf16}
 
     # ---- phase 1: the card ----
     kind = torch.cuda.get_device_name(0)
@@ -1032,6 +1077,12 @@ def main():
     log(f"phase 2: built {', '.join(kernels_built)} (nvcc, sm_90a, in "
         f"parallel) in {time.perf_counter() - t0:.1f} s")
     for line in resource_usage(libs):
+        log(f"  {line}")
+    bf16_smem = [cuda_bp.launch_plan(n_bp, msg_dtype=torch.bfloat16)[2]
+                 for n_bp in (N, 2048, 4096)]
+    log("phase 2: the bp kernel's bf16 instances (dynamic shared memory per "
+        f"CTA at n = {N}, 2048, 4096: {bf16_smem} B):")
+    for line in bp_bf16_resources(libs[kernels_built.index("bp")]):
         log(f"  {line}")
 
     # ---- phase 3: kernels against their plain versions on the card ----
@@ -1401,31 +1452,40 @@ def main():
     bp_model = SystemAWGNModel(N, K, model.encoder, bp_dec)
     bp_logits = bp_model.front(gen, BATCH, BP_EBNO_DB)[2]
     bp_prior = bp_dec._prior
-    for n, bs, lattice, msf, es, iters, every, mode in BP_CASES:
-        if n == N:      # the decoder's own call: [bs, n] logits, transposed
-            prior, llr, negate = bp_prior, bp_logits[:bs].t(), True
-        else:           # true LLRs [n, bs] of random codewords
-            m = np.zeros(n, bool)
-            m[generate_5g_ranking(n // 2, n)[0] if n <= N
-              else get_kern_frozen_bits(n, n // 2)[2]] = True
-            prior = torch.from_numpy(np.where(m, 30.0, 0.0).astype(
-                np.float32)).to(dev)
-            llr, negate = codeword_llr(m, bs, 10 ** (-BP_EBNO_DB / 20)), False
-        kw = dict(num_iter=iters, check_every=every, early_stop=es,
-                  mode=mode, msf=msf, llr_max=30.0, return_done=es,
-                  negate=negate)
-        got = bp_decode(llr, prior, lattice=lattice, **kw)
-        want = bp_decode_plain(llr, prior, **kw)
-        if not es:
-            got, want = (got, torch.zeros(bs, device=dev)), \
-                (want, torch.zeros(bs, device=dev))
-        bp_check.add(f"n={n}, bs={bs}, {cuda_bp.resolve_lattice(n, lattice)} "
-                     f"lattice, msf {msf}, early stop {es}, "
-                     f"{iters} sweeps, check every {every}", mode, prior == 0,
-                     want, got)
-    torch.cuda.synchronize()
-    log(f"phase 3: bp: {bp_check.n_bad} of {bp_check.n_blocks} blocks "
-        f"differ; min-sum llr max abs gap {bp_check.max_abs:.3g}")
+
+    def bp_cases(cases, msg_dtype, into):
+        for n, bs, lattice, msf, es, iters, every, mode in cases:
+            if n == N:  # the decoder's own call: [bs, n] logits, transposed
+                prior, llr, negate = bp_prior, bp_logits[:bs].t(), True
+            else:       # true LLRs [n, bs] of random codewords
+                m = np.zeros(n, bool)
+                m[generate_5g_ranking(n // 2, n)[0] if n <= N
+                  else get_kern_frozen_bits(n, n // 2)[2]] = True
+                prior = torch.from_numpy(np.where(m, 30.0, 0.0).astype(
+                    np.float32)).to(dev)
+                llr = codeword_llr(m, bs, 10 ** (-BP_EBNO_DB / 20))
+                negate = False
+            kw = dict(num_iter=iters, check_every=every, early_stop=es,
+                      mode=mode, msf=msf, llr_max=30.0, return_done=es,
+                      negate=negate, msg_dtype=msg_dtype)
+            got = bp_decode(llr, prior, lattice=lattice, **kw)
+            want = bp_decode_plain(llr, prior, **kw)
+            if not es:
+                got, want = (got, torch.zeros(bs, device=dev)), \
+                    (want, torch.zeros(bs, device=dev))
+            into.add(f"{str(msg_dtype)[6:]} messages, n={n}, bs={bs}, "
+                     f"{cuda_bp.resolve_lattice(n, lattice)} lattice, msf "
+                     f"{msf}, early stop {es}, {iters} sweeps, check every "
+                     f"{every}", mode, prior == 0, want, got)
+        torch.cuda.synchronize()
+        log(f"phase 3: bp, {str(msg_dtype)[6:]} messages: {into.n_bad} of "
+            f"{into.n_blocks} blocks differ; min-sum llr max abs gap "
+            f"{into.max_abs:.3g}")
+
+    bp_cases(BP_CASES, torch.float32, bp_check)
+    log("phase 3: bp kernel's bf16 instance against bp_decode_plain(bf16)")
+    bp16_check = BpCheck()
+    bp_cases(BP_BF16_CASES, torch.bfloat16, bp16_check)
 
     # ---- phase 4: the main path ----
     steps = 10
@@ -1612,36 +1672,47 @@ def main():
     # setting) and off (fixed work); the sweeps each codeword ran, from the
     # flags at every check budget: a codeword converged within c checks
     # carries the same flag at the budget of c chunks
-    bp_kw = dict(check_every=bp_dec.check_every, mode=bp_dec.mode,
-                 msf=bp_dec.msf, llr_max=30.0, negate=True)
     llr_bp = bp_model.front(gen, BATCH, BP_EBNO_DB)[2].t()
-    checks = torch.zeros(BATCH, dtype=torch.int64, device=dev)
     every = bp_dec.check_every
-    for c in range(1, BP_ITER // every + 1):
-        _, done_c = bp_decode(llr_bp, bp_prior, num_iter=c * every,
-                              early_stop=True, return_done=True, **bp_kw)
-        checks += done_c == 0
-    converged = checks < BP_ITER // every
-    checks = torch.where(converged, checks + 1, checks)
-    sweeps = torch.where(converged, checks * every, BP_ITER)
-    bp_times = {}
-    for es, n_sweeps, n_checks in (
-            (True, int(sweeps.sum().item()), int(checks.sum().item())),
-            (False, BP_ITER * BATCH, 0)):
-        kw = dict(num_iter=BP_ITER, early_stop=es, **bp_kw)
-        k_ms = cuda_ms(lambda: bp_decode(llr_bp, bp_prior, **kw), reps=5)
-        p_ms = cuda_ms(lambda: bp_decode_plain(llr_bp, bp_prior, **kw),
-                       reps=1)
-        n_bytes, n_ops = bp_work(N, BATCH, n_sweeps, n_checks, bp_dec.mode,
-                                 bp_dec.msf)
-        bnd, by = bound_ms(n_bytes, n_ops)
-        bp_times[es] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bnd,
-                            bound_by=by)
-        log(f"  bp, one BP-{BP_ITER} decode (n={N}, bs={BATCH}, "
-            f"{BP_EBNO_DB} dB, early stop {es}): kernel {k_ms:.3f} ms, plain "
-            f"{p_ms:.3f} ms; {n_sweeps / BATCH:.3f} sweeps and "
-            f"{n_checks / BATCH:.3f} checks per codeword; bound {bnd:.4f} ms "
-            f"({by}: {n_bytes} B, {n_ops} f32 ops); library: none [{card}]")
+
+    def bp_times_of(msg_dtype):
+        """Kernel, plain and bound ms of one BP-20 decode of ``llr_bp``
+        with early stop on and off; the work counts this run's sweeps and
+        checks, from the flags at every check budget (a codeword converged
+        within c checks carries the same flag at the budget of c chunks)."""
+        bp_kw = dict(check_every=every, mode=bp_dec.mode, msf=bp_dec.msf,
+                     llr_max=30.0, negate=True, msg_dtype=msg_dtype)
+        checks = torch.zeros(BATCH, dtype=torch.int64, device=dev)
+        for c in range(1, BP_ITER // every + 1):
+            _, done_c = bp_decode(llr_bp, bp_prior, num_iter=c * every,
+                                  early_stop=True, return_done=True, **bp_kw)
+            checks += done_c == 0
+        converged = checks < BP_ITER // every
+        checks = torch.where(converged, checks + 1, checks)
+        sweeps = torch.where(converged, checks * every, BP_ITER)
+        times = {}
+        for es, n_sweeps, n_checks in (
+                (True, int(sweeps.sum().item()), int(checks.sum().item())),
+                (False, BP_ITER * BATCH, 0)):
+            kw = dict(num_iter=BP_ITER, early_stop=es, **bp_kw)
+            k_ms = cuda_ms(lambda: bp_decode(llr_bp, bp_prior, **kw), reps=5)
+            p_ms = cuda_ms(lambda: bp_decode_plain(llr_bp, bp_prior, **kw),
+                           reps=1)
+            n_bytes, n_ops = bp_work(N, BATCH, n_sweeps, n_checks,
+                                     bp_dec.mode, bp_dec.msf)
+            bnd, by = bound_ms(n_bytes, n_ops)
+            times[es] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bnd,
+                             bound_by=by)
+            log(f"  bp, {str(msg_dtype)[6:]} messages, one BP-{BP_ITER} "
+                f"decode (n={N}, bs={BATCH}, {BP_EBNO_DB} dB, early stop "
+                f"{es}): kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms; "
+                f"{n_sweeps / BATCH:.3f} sweeps and {n_checks / BATCH:.3f} "
+                f"checks per codeword; bound {bnd:.4f} ms ({by}: {n_bytes} "
+                f"B, {n_ops} f32 ops); library: none [{card}]")
+        return times
+
+    bp_times = bp_times_of(torch.float32)
+    bp16_times = bp_times_of(torch.bfloat16)
 
     # the redesigned BP and SC kernels: resources, resident blocks per SM,
     # BP's launch plans and SC's time at other launch choices
@@ -1652,11 +1723,14 @@ def main():
                                                              "cuda")
     for n_bp in (N, 2048, 4096):
         lat = cuda_bp.resolve_lattice(n_bp)
-        threads, wb_, smem = cuda_bp.launch_plan(n_bp)
-        per_sm = bp_lib.bp_blocks_per_sm(n_bp.bit_length() - 1,
-                                         int(lat == "shared"))
-        log(f"bp launch plan: n={n_bp}, {lat} lattice: {threads} threads, "
-            f"warp_blocks {wb_}, {smem} B shared, {per_sm} CTAs per SM")
+        for msg in (torch.float32, torch.bfloat16):
+            threads, wb_, smem = cuda_bp.launch_plan(n_bp, msg_dtype=msg)
+            per_sm = bp_lib.bp_blocks_per_sm(n_bp.bit_length() - 1,
+                                             int(lat == "shared"),
+                                             int(msg == torch.bfloat16))
+            log(f"bp launch plan: n={n_bp}, {lat} lattice, "
+                f"{str(msg)[6:]} messages: {threads} threads, warp_blocks "
+                f"{wb_}, {smem} B shared, {per_sm} CTAs per SM")
     for b in sorted({8, 9, 10, sc_b}):
         calls = []
         scan_core.sc_sweep_hybrid(llr_ch, mask, mode=MODE, lower_stages=b,
@@ -1789,6 +1863,45 @@ def main():
         f"bucket {bp_two._cap_hwm} rows; launches {two_counts} [{card}]")
     gate(f"phase 9: two-pass {bp_name}", bp_key, bp_ebno, bp_tol, row)
 
+    # bf16 messages: the two-pass path bit-identical to one pass, then
+    # BP-20 through sim_ber as phase 6 runs it
+    bf16 = dict(num_iter=BP_ITER, msg_dtype=torch.bfloat16, device=dev)
+    one = PolarBPDecoder(frozen, N, hard_out=False, **bf16)
+    two = PolarBPDecoder(frozen, N, hard_out=False, two_pass=True,
+                         first_pass_iters=8, **bf16)
+    llr = bp_model.front(gen, BATCH, BP_EBNO_DB)[2]
+    same = torch.equal(one(llr), two(llr))
+    log(f"phase 9: two-pass BP-{BP_ITER}, bf16 messages, soft outputs, "
+        f"bs={BATCH}: bit-identical to single-pass: {same}")
+    if not same:
+        raise AssertionError("the two-pass bf16 BP decoder differs from the "
+                             "single-pass decoder")
+    model16 = SystemAWGNModel(N, K, model.encoder, PolarBPDecoder(
+        frozen, N, **bf16))
+    model16.step(gen, BATCH, BP_EBNO_DB)                        # warm-up
+    with tempfile.TemporaryDirectory() as tmp:
+        jsonl = os.path.join(tmp, "bp16.jsonl")
+        reset_counts()
+        torch.cuda.synchronize()
+        sim_ber(model16, [BP_EBNO_DB], batch_size=BATCH,
+                max_mc_iter=CLI_MC_ITER, early_stop=False, verbose=False,
+                seed=SEED, jsonl_path=jsonl)
+        torch.cuda.synchronize()
+        bf16_counts = counts()
+        with open(jsonl) as fh:
+            (row,) = [json.loads(line) for line in fh]
+    if bf16_counts["bp bf16"] == 0 or bf16_counts["bp bf16"] != \
+            bf16_counts["bp"] or row["num_blocks"] != BATCH * CLI_MC_ITER:
+        raise AssertionError(f"bf16 BP: {row['num_blocks']} blocks, "
+                             f"launches {bf16_counts}")
+    log(f"phase 9: BP-{BP_ITER}, bf16 messages, k={K} n={N} 5G, "
+        f"bs={BATCH}: {row['runtime_s']:.3f} s, "
+        f"{K * row['num_blocks'] / row['runtime_s']:.4g} info bit/s; "
+        f"launches {bf16_counts} [{card}]")
+    binomial_gate(f"phase 9: BP-{BP_ITER} bf16 at {BP_EBNO_DB} dB",
+                  row["block_errors"], row["num_blocks"], BP_BF16_YARDSTICK)
+    gate(f"phase 9: BP-{BP_ITER} bf16", bp_key, bp_ebno, bp_tol, row)
+
     # ---- phases 10 and 11: the --kern CLI path, the BEC link and GA ----
     kern_phase(dev, gen, card, reset_counts, counts)
     bec_link_phase(dev, gen, card, model.encoder, frozen, reset_counts,
@@ -1841,6 +1954,12 @@ def main():
               bp_check, dict(bp_times[True], **{
                   f"{k}_no_early_stop": v
                   for k, v in bp_times[False].items()})),
+        entry("bp_bf16", "polar_torch/csrc/bp.cu",
+              "polar_tpu/models/polar/pallas_bp.py:57",
+              bf16_counts["bp bf16"], bp16_check, dict(bp16_times[True], **{
+                  f"{k}_no_early_stop": v
+                  for k, v in bp16_times[False].items()}),
+              msg_dtype="bfloat16"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}; main path {info_bps:.6g} info bit/s, "

@@ -6,6 +6,7 @@ and scalars, so both packages decode the same code.
 """
 
 import numpy as np
+import torch
 
 from polar_torch.models.osd import OSDecoder
 from polar_torch.models.polar.bp import PolarBPDecoder
@@ -18,6 +19,7 @@ from polar_torch.models.polar.scl import PolarSCLDecoder
 from polar_torch.models.systems import SystemAWGNModel, SystemBECModel
 
 _CHANNELS = {"awgn": SystemAWGNModel, "bec": SystemBECModel}
+_MSG_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _system(state: dict, n: int, k: int, encoder, decoder):
@@ -50,8 +52,9 @@ def from_numpy_state(state: dict, device=None):
     reads ``list_size``, ``use_fast_scl`` (None or absent: the decoder's
     default by n), ``fast_rate1`` and ``spc_min_stage`` (None: no SPC). A
     BP decoder reads ``num_iter``, ``msf``, ``early_stop``,
-    ``check_every`` and ``hard_out``, and ``two_pass`` and
-    ``first_pass_iters`` when given.
+    ``check_every`` and ``hard_out``, and ``two_pass``,
+    ``first_pass_iters`` and ``msg_dtype`` (``"float32"``, the default, or
+    ``"bfloat16"``) when given.
 
     A 5G NR code (``code="5g"``) reads ``k`` and ``n`` (the rate-matched
     targets), ``channel_type``, ``enable_pc``, ``dec_type`` (``"SC"``,
@@ -96,13 +99,17 @@ def from_numpy_state(state: dict, device=None):
             spc_min_stage=None if spc is None else int(spc), **common)
     elif kind == "bp":
         two_pass = bool(state.get("two_pass", False))
+        msg = str(state.get("msg_dtype", "float32"))
+        if msg not in _MSG_DTYPES:
+            raise ValueError(f"unknown msg_dtype {msg!r}: 'float32' or "
+                             "'bfloat16'")
         decoder = PolarBPDecoder(
             frozen, n, num_iter=int(state["num_iter"]),
             msf=float(state["msf"]), early_stop=bool(state["early_stop"]),
             check_every=int(state["check_every"]),
             hard_out=bool(state["hard_out"]), two_pass=two_pass,
             first_pass_iters=int(state.get("first_pass_iters", 8)),
-            **common)
+            msg_dtype=_MSG_DTYPES[msg], **common)
     else:
         raise ValueError(f"unknown decoder {kind!r}: 'sc', 'scl', 'bp' or "
                          "'osd'")

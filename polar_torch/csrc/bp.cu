@@ -46,6 +46,12 @@
 // global scratch that the wrapper allocates, 512 threads loop over the
 // blocks, and the warp stages' messages go through the scratch around each
 // use: the same schedule, without the register residency.
+// The bf16 lattice (bp_launch(..., bf16 = 1)) is its own set of template
+// instances (kBf16), so the f32 instances' code does not change: the same
+// schedule and launch plan, 16-bit messages in shared memory and the
+// scratch (24,832 B a CTA at n = 1024, 57,856 B at n = 2048), and a
+// rounding to bf16 after every op (bp.cuh). It does the f32 form's
+// operations plus the roundings; its bound is the f32 form's.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libbp.so bp.cu
@@ -113,44 +119,63 @@ struct BpCta {
 
 // one resident block a warp at 512 threads: at most 64 registers, so that
 // two CTAs share an SM
-template <int kB, bool kRes>
+template <int kB, bool kRes, bool kBf16>
 __global__ void __launch_bounds__(kBpMaxThreads, kB == 1 && kRes ? 2 : 1)
     bp_kernel(BpArgs A) {
+  using T = typename BpMsg<kBf16>::T;
   extern __shared__ __align__(16) unsigned char smem[];
   BpLane<kB> lane;
-  float* lat;
+  T* lat;
   uint32_t* words;
   if (kRes) {
-    lat = reinterpret_cast<float*>(smem);
-    words = reinterpret_cast<uint32_t*>(smem + 4 * bp_shared_elems(A.S));
+    lat = reinterpret_cast<T*>(smem);
+    words = reinterpret_cast<uint32_t*>(smem + sizeof(T)
+                                        * bp_shared_elems(A.S));
   } else {
-    lat = A.lattice + blockIdx.x * bp_lattice_elems(A.S);
+    lat = static_cast<T*>(A.lattice) + blockIdx.x * bp_lattice_elems(A.S);
     words = reinterpret_cast<uint32_t*>(smem);
   }
-  bp_column<kB, kRes>(BpCta{}, A, blockIdx.x, lat, words, &lane);
+  bp_column<kB, kRes, kBf16>(BpCta{}, A, blockIdx.x, lat, words, &lane);
 }
 
-template <int kB, bool kRes>
+template <int kB, bool kRes, bool kBf16>
 int launch(const BpArgs& A, const BpPlan& p, cudaStream_t st) {
-  const size_t smem = (size_t)bp_smem_bytes(A.S, kRes);
+  const size_t smem = (size_t)bp_smem_bytes(
+      A.S, kRes, sizeof(typename BpMsg<kBf16>::T));
   cudaError_t err = cudaFuncSetAttribute(
-      bp_kernel<kB, kRes>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bp_kernel<kB, kRes, kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  bp_kernel<kB, kRes><<<A.bs, p.threads, smem, st>>>(A);
+  bp_kernel<kB, kRes, kBf16><<<A.bs, p.threads, smem, st>>>(A);
   return (int)cudaGetLastError();
+}
+
+template <bool kBf16>
+int dispatch(const BpArgs& A, bool shared, cudaStream_t st) {
+  const BpPlan p = bp_plan(A.S, shared);
+  if (!shared) return launch<1, false, kBf16>(A, p, st);
+  if (p.warp_blocks == 2) return launch<2, true, kBf16>(A, p, st);
+  return launch<1, true, kBf16>(A, p, st);
+}
+
+template <bool kBf16>
+void (*kernel_of(const BpPlan& p, bool shared))(BpArgs) {
+  if (!shared) return bp_kernel<1, false, kBf16>;
+  return p.warp_blocks == 2 ? bp_kernel<2, true, kBf16>
+                            : bp_kernel<1, true, kBf16>;
 }
 
 }  // namespace polar_torch
 
 // lattice == nullptr: the shared form; else the global form in lattice, a
-// [bs, 2 (S + 1) n] f32 scratch. Returns a cudaError_t.
+// [bs, 2 (S + 1) n] scratch of the message type (f32, or bf16 with
+// bf16 != 0). Returns a cudaError_t.
 extern "C" int bp_launch(const float* llr, long long llr_rs, long long llr_cs,
                          const float* prior, float* out, long long out_rs,
-                         long long out_cs, int32_t* done, float* lattice,
+                         long long out_cs, int32_t* done, void* lattice,
                          int S, int bs, int num_iter, int check_every,
                          int early_stop, int exact, int negate, float msf,
-                         float llr_max, void* stream) {
+                         float llr_max, int bf16, void* stream) {
   using namespace polar_torch;
   BpArgs A{llr, llr_rs, llr_cs, prior, out, out_rs, out_cs, done, lattice,
            S, bs, num_iter, check_every, early_stop, exact, negate, msf,
@@ -159,20 +184,18 @@ extern "C" int bp_launch(const float* llr, long long llr_rs, long long llr_cs,
   const bool shared = lattice == nullptr;
   if (S < 1 || S > 16 || (shared && S > kBpMaxSharedS))
     return (int)cudaErrorInvalidValue;
-  const BpPlan p = bp_plan(S, shared);
-  if (!shared) return launch<1, false>(A, p, st);
-  if (p.warp_blocks == 2) return launch<2, true>(A, p, st);
-  return launch<1, true>(A, p, st);
+  return bf16 ? dispatch<true>(A, shared, st) : dispatch<false>(A, shared, st);
 }
 
 // CTAs of the kernel that one SM holds at once (the occupancy API), for
-// the form (shared != 0) of a launch at 2^S rows; -1 on error
-extern "C" int bp_blocks_per_sm(int S, int shared) {
+// the form (shared != 0) and message type (bf16 != 0) of a launch at 2^S
+// rows; -1 on error
+extern "C" int bp_blocks_per_sm(int S, int shared, int bf16) {
   using namespace polar_torch;
   const BpPlan p = bp_plan(S, shared != 0);
-  const size_t smem = (size_t)bp_smem_bytes(S, shared != 0);
-  void (*kernel)(BpArgs) = shared == 0 ? bp_kernel<1, false>
-      : p.warp_blocks == 2 ? bp_kernel<2, true> : bp_kernel<1, true>;
+  const size_t smem = (size_t)bp_smem_bytes(S, shared != 0, bf16 ? 2 : 4);
+  void (*kernel)(BpArgs) = bf16 ? kernel_of<true>(p, shared != 0)
+                                : kernel_of<false>(p, shared != 0);
   if (cudaFuncSetAttribute(kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem) != cudaSuccess)

@@ -28,6 +28,19 @@
 // -fmad, and min-sum is bit-equal to the JAX package's XLA engine. With
 // msf == 1 or the exact boxplus there is no product to round.
 //
+// The bf16 message lattice (the kBf16 instance): the lattice holds bf16
+// values, 16 bits each in shared memory and in the global scratch, and the
+// lanes' registers hold f32 values that are bf16 values. Every add,
+// product, expf and log1pf of a processing element rounds to bf16 on its
+// own, as XLA runs bf16 on the CPU: l_v/r_v round msf * minsum, then the
+// add (no fmaf); the sums l + r of the check and the output are rounded;
+// the channel LLR, the prior, llr_max and msf are rounded on load. The
+// rounding is integer arithmetic on the float's bits (fg.cuh bf16_round),
+// so the host build and the card round alike and no native bf16
+// instruction is used. Min-sum is then bit-equal to the JAX package's
+// bf16 XLA engine; exact mode rounds differently only where expf/log1pf
+// differ by an ulp before the rounding.
+//
 // Early stop (early_stop != 0): every check_every sweeps the info-side hard
 // decision (frozen rows forced to 0) is re-encoded by the XOR butterfly and
 // compared with the channel-side hard decision; a codeword that passes
@@ -76,7 +89,8 @@ struct BpArgs {
   float* out;                  // [n, bs], strides below
   long long out_rs, out_cs;
   int32_t* done;               // [bs] or null
-  float* lattice;              // [bs, 2 (S + 1) n] global scratch, or null
+  void* lattice;               // [bs, 2 (S + 1) n] global scratch of the
+                               // message type, or null
   int S;
   int bs;
   int num_iter;
@@ -131,10 +145,11 @@ PT_HD PT_INLINE BpPlan bp_plan(int S, bool shared) {
   return {warps * 32, blocks / warps};
 }
 
-// bytes of dynamic shared memory: the shared lattice (if any) and the
-// check's four words per block
-PT_HD PT_INLINE long long bp_smem_bytes(int S, bool shared) {
-  return (shared ? 4LL * bp_shared_elems(S) : 0) + 16LL * bp_blocks(S);
+// bytes of dynamic shared memory: the shared lattice (if any) of
+// msg_bytes-byte messages and the check's four words per block
+PT_HD PT_INLINE long long bp_smem_bytes(int S, bool shared, int msg_bytes) {
+  return (shared ? (long long)msg_bytes * bp_shared_elems(S) : 0)
+      + 16LL * bp_blocks(S);
 }
 
 // bits k of a 32-bit word whose bit s is clear: the upper rows of the
@@ -163,36 +178,72 @@ PT_HD PT_INLINE int bp_upper(int j, int s) {
   return ((j >> s) << (s + 1)) | (j & ((1 << s) - 1));
 }
 
+// the lattice's message type: T in memory, ld/st between T and the f32
+// registers, rnd the rounding after an op
+template <bool kBf16>
+struct BpMsg {
+  using T = float;
+  PT_HD static PT_INLINE float ld(float x) { return x; }
+  PT_HD static PT_INLINE float st(float x) { return x; }
+  PT_HD static PT_INLINE float rnd(float x) { return x; }
+};
+
+// bf16 as its 16 bits; every value stored is already a bf16 value, so the
+// store keeps the upper half of its float
+template <>
+struct BpMsg<true> {
+  using T = uint16_t;
+  PT_HD static PT_INLINE float ld(uint16_t b) {
+    return f32_of((uint32_t)b << 16);
+  }
+  PT_HD static PT_INLINE uint16_t st(float x) {
+    return (uint16_t)(f32_bits(x) >> 16);
+  }
+  PT_HD static PT_INLINE float rnd(float x) { return bf16_round(x); }
+};
+
 // the u output f(a, y) and the v output f(a, b) + add of a processing
 // element, with the rounding of the header note
+template <bool kBf16>
 struct BpOps {
+  using M = BpMsg<kBf16>;
   float m, msf;
   int exact;
   bool scaled;
-  PT_HD PT_INLINE float u(float a, float y) const {
-    const float f = f_op(a, y, m, exact);
-    return scaled ? mul_rn(msf, f) : f;
+  PT_HD PT_INLINE float f(float a, float b) const {
+    if constexpr (kBf16) return exact ? f_exact_bf16(a, b, m)
+                                      : minsum(a, b, m);
+    else return f_op(a, b, m, exact);
   }
+  PT_HD PT_INLINE float u(float a, float y) const {
+    const float fy = f(a, y);
+    return scaled ? M::rnd(mul_rn(msf, fy)) : fy;
+  }
+  // bf16: the product's rounding (integer ops) stands between the product
+  // and the add, so no contraction can fuse them
   PT_HD PT_INLINE float v(float a, float b, float add) const {
-    const float f = f_op(a, b, m, exact);
-    return scaled ? fmaf(msf, f, add) : f + add;
+    const float fb = f(a, b);
+    if constexpr (kBf16)
+      return M::rnd((scaled ? M::rnd(mul_rn(msf, fb)) : fb) + add);
+    else return scaled ? fmaf(msf, fb, add) : fb + add;
   }
   // one element on rows (u, v): left writes l_s, right r_{s+1}
   PT_HD PT_INLINE void pe(bool left, float lu, float lv, float ru, float rv,
                           float& du, float& dv) const {
     const float a = left ? lu : ru;
-    du = u(a, lv + rv);
+    du = u(a, M::rnd(lv + rv));
     dv = v(a, left ? ru : lu, left ? lv : rv);
   }
 };
 
-// one codeword's lattice stages lo..S (l then r), each n floats
+// one codeword's lattice stages lo..S (l then r), each n messages
+template <class T>
 struct BpLattice {
-  float* l;
-  float* r;
+  T* l;
+  T* r;
   int lo, n;
-  PT_HD PT_INLINE float* L(int s) const { return l + (long long)(s - lo) * n; }
-  PT_HD PT_INLINE float* R(int s) const { return r + (long long)(s - lo) * n; }
+  PT_HD PT_INLINE T* L(int s) const { return l + (long long)(s - lo) * n; }
+  PT_HD PT_INLINE T* R(int s) const { return r + (long long)(s - lo) * n; }
 };
 
 // one lane's messages at the warp stages of its kB resident blocks: index
@@ -208,15 +259,17 @@ struct BpLane {
 
 #define PT_FOR_LANES(t) for (int i_ = 0; i_ < (t).per(); ++i_)
 
-template <class Team, int kB, bool kRes>
+template <class Team, int kB, bool kRes, bool kBf16>
 struct BpCodeword {
+  using M = BpMsg<kBf16>;
+  using T = typename M::T;
   const Team& t;
   const BpArgs& A;
   BpLane<kB>* ln;       // the lanes this thread runs (t.per() of them)
-  BpLattice lat;        // stages lat.lo..S (the global form: 0..S)
+  BpLattice<T> lat;     // stages lat.lo..S (the global form: 0..S)
   uint32_t* words;      // [blocks][4]: the check's words
   int col, n, Sw, blocks, warps, nb;
-  BpOps ops;
+  BpOps<kBf16> ops;
 
   PT_HD PT_INLINE int lane(int i) const { return t.tid(i) & 31; }
   PT_HD PT_INLINE int warp(int i) const { return t.tid(i) >> 5; }
@@ -297,11 +350,11 @@ struct BpCodeword {
           const int r = row(i_, k, j);
           if (r < 0) continue;
           if (load) {
-            x.l[0][s][j] = lat.L(s)[r];
-            x.r[0][s][j] = lat.R(s)[r];
+            x.l[0][s][j] = M::ld(lat.L(s)[r]);
+            x.r[0][s][j] = M::ld(lat.R(s)[r]);
           } else {
-            lat.L(s)[r] = x.l[0][s][j];
-            lat.R(s)[r] = x.r[0][s][j];
+            lat.L(s)[r] = M::st(x.l[0][s][j]);
+            lat.R(s)[r] = M::st(x.r[0][s][j]);
           }
         }
       }
@@ -314,7 +367,7 @@ struct BpCodeword {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int r = row(i_, k, j);
-        const float v = r < 0 ? 0.0f : lat.L(Sw)[r];
+        const float v = r < 0 ? 0.0f : M::ld(lat.L(Sw)[r]);
         // constant indices only, so the lane's arrays stay in registers
 #pragma unroll
         for (int s = 1; s <= kBpWarpStages; ++s)
@@ -332,7 +385,7 @@ struct BpCodeword {
 #pragma unroll
         for (int s = 1; s <= kBpWarpStages; ++s)
           if (s == Sw) v = ln[i_].r[kk][s][j];
-        if (r >= 0) lat.R(Sw)[r] = v;
+        if (r >= 0) lat.R(Sw)[r] = M::st(v);
       }
     }
   }
@@ -376,13 +429,21 @@ struct BpCodeword {
   // ---- the CTA stages ----
   // stage s, one element per row pair
   PT_HD PT_INLINE void cta_single(int s, bool left) const {
-    const float* l1 = lat.L(s + 1);
-    const float* r0 = lat.R(s);
-    float* dst = left ? lat.L(s) : lat.R(s + 1);
+    const T* l1 = lat.L(s + 1);
+    const T* r0 = lat.R(s);
+    T* dst = left ? lat.L(s) : lat.R(s + 1);
     PT_FOR_LANES(t) {
       for (int j = t.tid(i_); j < n / 2; j += t.size()) {
         const int u = bp_upper(j, s), v = u + (1 << s);
-        ops.pe(left, l1[u], l1[v], r0[u], r0[v], dst[u], dst[v]);
+        if constexpr (kBf16) {
+          float du, dv;
+          ops.pe(left, M::ld(l1[u]), M::ld(l1[v]), M::ld(r0[u]),
+                 M::ld(r0[v]), du, dv);
+          dst[u] = M::st(du);
+          dst[v] = M::st(dv);
+        } else {
+          ops.pe(left, l1[u], l1[v], r0[u], r0[v], dst[u], dst[v]);
+        }
       }
     }
   }
@@ -405,18 +466,18 @@ struct BpCodeword {
     }
   }
 
-  // l_0 and r_0 of row j of lane i's k-th block
+  // l_0 + r_0 of row j of lane i's k-th block
   PT_HD PT_INLINE float total0(int i, int k, int j) const {
     if constexpr (kRes) {
-      return ln[i].l[k][0][j] + ln[i].r[k][0][j];
+      return M::rnd(ln[i].l[k][0][j] + ln[i].r[k][0][j]);
     } else {
       const int r = row(i, k, j);
-      return lat.L(0)[r] + lat.R(0)[r];
+      return M::rnd(M::ld(lat.L(0)[r]) + M::ld(lat.R(0)[r]));
     }
   }
   PT_HD PT_INLINE float prior0(int i, int k, int j) const {
     if constexpr (kRes) return ln[i].r[k][0][j];
-    else return lat.R(0)[row(i, k, j)];
+    else return M::ld(lat.R(0)[row(i, k, j)]);
   }
 
   // lane i's predicates in block k, as bits of ln[i].bits: 0, the even
@@ -485,7 +546,7 @@ struct BpCodeword {
 
   // l_S + r_S of row r (the channel-side total)
   PT_HD PT_INLINE float channel_total(int r) const {
-    return lat.L(A.S)[r] + lat.R(A.S)[r];
+    return M::rnd(M::ld(lat.L(A.S)[r]) + M::ld(lat.R(A.S)[r]));
   }
 
   PT_HD PT_INLINE void run() {
@@ -495,10 +556,11 @@ struct BpCodeword {
     // where the global form keeps it)
     PT_FOR_LANES(t) {
       for (int i = t.tid(i_); i < n; i += t.size()) {
-        for (int s = lat.lo; s < S; ++s) lat.L(s)[i] = 0.0f;
-        lat.L(S)[i] = sign * A.llr[i * A.llr_rs + col * A.llr_cs];
+        for (int s = lat.lo; s < S; ++s) lat.L(s)[i] = M::st(0.0f);
+        lat.L(S)[i] = M::st(M::rnd(sign * A.llr[i * A.llr_rs
+                                                + col * A.llr_cs]));
         for (int s = lat.lo; s <= S; ++s)
-          lat.R(s)[i] = s == 0 ? A.prior[i] : 0.0f;
+          lat.R(s)[i] = M::st(s == 0 ? M::rnd(A.prior[i]) : 0.0f);
       }
       if (kRes) {
         BpLane<kB>& x = ln[i_];
@@ -510,7 +572,7 @@ struct BpCodeword {
             for (int j = 0; j < 2; ++j) {
               const int r = row(i_, k, j);
               x.l[k][s][j] = 0.0f;
-              x.r[k][s][j] = s == 0 && r >= 0 ? A.prior[r] : 0.0f;
+              x.r[k][s][j] = s == 0 && r >= 0 ? M::rnd(A.prior[r]) : 0.0f;
             }
       }
     }
@@ -574,22 +636,26 @@ struct BpHostTeam {
 };
 
 // decode column col. lat: the shared form's stages Sw..S (kRes), or the
-// whole global lattice (2 (S + 1) n floats); words: 4 per block of scratch
-template <int kB, bool kRes, class Team>
+// whole global lattice (2 (S + 1) n messages); words: 4 per block of
+// scratch. kBf16: the bf16 lattice (msf and llr_max rounded to bf16, as
+// the JAX package casts them).
+template <int kB, bool kRes, bool kBf16, class Team>
 PT_HD PT_INLINE void bp_column(const Team& t, const BpArgs& A, int col,
-                               float* lat, uint32_t* words,
-                               BpLane<kB>* lanes) {
+                               typename BpMsg<kBf16>::T* lat,
+                               uint32_t* words, BpLane<kB>* lanes) {
+  using M = BpMsg<kBf16>;
   const int n = 1 << A.S;
   const int Sw = bp_warp_stages(A.S);
   const int blocks = bp_blocks(A.S);
   const int warps = (t.size() + 31) / 32;
   const int lo = kRes ? Sw : 0;
   const long long stages = A.S - lo + 1;
-  const BpLattice l{lat, lat + stages * n, lo, n};
-  const BpOps ops{A.llr_max, A.msf, A.exact,
-                  !A.exact && A.msf != 1.0f};
-  BpCodeword<Team, kB, kRes> cw{t, A, lanes, l, words, col, n, Sw,
-                                blocks, warps, blocks / warps, ops};
+  const BpLattice<typename M::T> l{lat, lat + stages * n, lo, n};
+  const float msf = M::rnd(A.msf);
+  const BpOps<kBf16> ops{M::rnd(A.llr_max), msf, A.exact,
+                         !A.exact && msf != 1.0f};
+  BpCodeword<Team, kB, kRes, kBf16> cw{t, A, lanes, l, words, col, n, Sw,
+                                       blocks, warps, blocks / warps, ops};
   cw.run();
 }
 

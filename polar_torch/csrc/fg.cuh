@@ -1,11 +1,12 @@
 // LLR updates and tree-index helpers shared by the per-codeword routines of
-// the subtree kernels (scl_subtree.cuh, sc_subtree.cuh). Each routine is
+// the kernels (scl_subtree.cuh, sc_subtree.cuh, bp.cuh). Each routine is
 // __host__ __device__ code: nvcc builds it for the card, g++ for the CPU
 // tests. Mirrors polar_torch/ops/fg.py.
 #pragma once
 
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #ifdef __CUDACC__
 #define PT_HD __host__ __device__
@@ -58,6 +59,52 @@ PT_HD PT_INLINE float f_op(float x, float y, float m, int exact) {
   x = clipf(x, m);
   y = clipf(y, m);
   return logaddexp(0.0f, x + y) - logaddexp(x, y);
+}
+
+// the bits of a float and back
+PT_HD PT_INLINE uint32_t f32_bits(float x) {
+#ifdef __CUDA_ARCH__
+  return __float_as_uint(x);
+#else
+  uint32_t u;
+  memcpy(&u, &x, sizeof u);
+  return u;
+#endif
+}
+
+PT_HD PT_INLINE float f32_of(uint32_t u) {
+#ifdef __CUDA_ARCH__
+  return __uint_as_float(u);
+#else
+  float x;
+  memcpy(&x, &u, sizeof x);
+  return x;
+#endif
+}
+
+// x rounded to the nearest bf16 value, ties to even, widened back to a
+// float; a NaN becomes the quiet NaN 0x7fc0, as torch's conversion gives.
+// Integer arithmetic on the bits, so nvcc and g++ round alike and no
+// rounding can be contracted away.
+PT_HD PT_INLINE float bf16_round(float x) {
+  if (x != x) return f32_of(0x7fc00000u);
+  const uint32_t u = f32_bits(x);
+  return f32_of((u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u);
+}
+
+// jnp.logaddexp's formula with every op rounded to bf16 (p, q bf16 values)
+PT_HD PT_INLINE float logaddexp_bf16(float p, float q) {
+  const float e = bf16_round(expf(-fabsf(bf16_round(p - q))));
+  return bf16_round(fmaxf(p, q) + bf16_round(log1pf(e)));
+}
+
+// the exact boxplus of f_op in bf16, one rounding per op (x, y bf16
+// values, m a bf16 value)
+PT_HD PT_INLINE float f_exact_bf16(float x, float y, float m) {
+  x = clipf(x, m);
+  y = clipf(y, m);
+  return bf16_round(logaddexp_bf16(0.0f, bf16_round(x + y))
+                    - logaddexp_bf16(x, y));
 }
 
 // (1 - 2u) x + y; the product is exact, so the select is bit-identical

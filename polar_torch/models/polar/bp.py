@@ -11,6 +11,9 @@ carry a ``+llr_max`` prior on the info side.
   ``check_every`` sweeps each block re-encodes its info-side hard decision
   and compares it with the channel-side one; a block that passes stops (BP
   can oscillate out of a codeword).
+* **bf16 messages** (``msg_dtype=torch.bfloat16``): the lattice in bf16,
+  every op rounded to bf16 on its own, as the JAX package's bf16 XLA
+  engine runs (bit-equal in min-sum); the LLRs in and out stay f32.
 * **Two-pass serving** (``two_pass``): a first pass of
   ``first_pass_iters`` sweeps accepts the converged blocks, and only the
   failures are re-decoded at the full budget, gathered into power-of-two
@@ -29,12 +32,8 @@ import torch
 from polar_torch._device import resolve_device
 from polar_torch.models.polar.construction import (as_host_positions,
                                                     info_positions)
-from polar_torch.models.polar.cuda_bp import bp_decode
+from polar_torch.models.polar.cuda_bp import bp_decode, msg_is_bf16
 from polar_torch.ops.fg import F_FUNCTIONS
-
-BF16_NOT_PORTED = ("msg_dtype other than float32 (the bf16 message lattice) "
-                   "is not ported yet (ROADMAP Queue 1, \"BP's bf16 message "
-                   "lattice\")")
 
 
 class PolarBPDecoder:
@@ -55,8 +54,7 @@ class PolarBPDecoder:
             raise ValueError("num_iter must be at least 1")
         if mode not in F_FUNCTIONS:
             raise ValueError(f"unknown mode {mode!r}")
-        if msg_dtype != torch.float32:
-            raise NotImplementedError(f"PolarBPDecoder: {BF16_NOT_PORTED}")
+        msg_is_bf16(msg_dtype)          # f32 or bf16, else ValueError
         if two_pass and not early_stop:
             raise ValueError("two_pass needs early_stop")
         self.n = n
@@ -72,6 +70,7 @@ class PolarBPDecoder:
         self.early_stop = bool(early_stop)
         self.check_every = max(1, int(check_every))
         self.output_dtype = output_dtype
+        self.msg_dtype = msg_dtype
         self.two_pass = bool(two_pass)
         self.first_pass_iters = min(int(first_pass_iters), self.num_iter)
         self.min_capacity = int(min_capacity)
@@ -91,7 +90,8 @@ class PolarBPDecoder:
                         num_iter=num_iter, check_every=self.check_every,
                         early_stop=self.early_stop, mode=self.mode,
                         msf=self.msf, llr_max=self.llr_max,
-                        return_done=want_done, negate=True)
+                        return_done=want_done, negate=True,
+                        msg_dtype=self.msg_dtype)
         if want_done:
             return self._finish(res[0]), res[1] > 0
         return self._finish(res), None

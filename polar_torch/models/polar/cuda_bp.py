@@ -14,7 +14,8 @@ first of its checks (every ``check_every`` sweeps) that passes.
 * ``bp_decode`` is the wrapper the decoder calls. A CUDA tensor goes
   through the kernel (``csrc/bp.cu``), a CPU tensor through the plain
   version; nothing falls back from one to the other. It counts its
-  launches in ``launches`` and reports each launch's work to a running
+  launches in ``launches`` (the bf16 instance's also in
+  ``launches_bf16``) and reports each launch's work to a running
   ``profiling.flop_estimate``.
 * ``bp_decode_plain`` mirrors the JAX package's XLA engine
   (``PolarBPDecoder._run``): whole-batch tensor ops, a converged lane frozen
@@ -33,20 +34,32 @@ In scaled min-sum the ``l_v``/``r_v`` outputs round ``msf * minsum + v``
 once, as XLA fuses them on the CPU (``ops/fg.scaled_minsum_add`` here,
 ``fmaf`` in the kernel), so min-sum is bit-equal to the JAX package. Exact
 mode rounds differently in ``expf``/``log1pf`` and ``torch.logaddexp``.
+
+``msg_dtype=torch.bfloat16`` holds the lattice in bf16 (the kernel's own
+template instances, 16-bit messages in shared memory and the scratch). Its
+contract is the JAX package's bf16 XLA engine: every op rounds to bf16 on
+its own (no fused multiply-add; ``jnp.logaddexp``'s formula in exact
+mode), the channel LLRs, the prior, ``msf`` and ``llr_max`` are rounded on
+load, and the check and the output read the rounded sums. The LLRs in and
+out stay f32. Min-sum is bit-equal to JAX; exact mode again differs only
+where ``expf``/``log1pf`` round differently before the bf16 rounding.
 """
 
 import ctypes
+import functools
 
 import torch
 
 from polar_torch import _build
-from polar_torch.ops.fg import (F_FUNCTIONS, f_exact, make_scaled_minsum,
-                                scaled_minsum_add)
+from polar_torch.ops.fg import (F_FUNCTIONS, f_exact, f_exact_per_op,
+                                make_scaled_minsum, scaled_minsum_add,
+                                scaled_minsum_per_op)
 from polar_torch.utils import kernel_work
 
 MAX_S = 16
 MAX_SHARED_S = 11           # kBpMaxSharedS in csrc/bp.cuh
 LATTICES = ("auto", "shared", "global")
+MSG_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def resolve_lattice(n: int, lattice: str = "auto") -> str:
@@ -68,13 +81,13 @@ def resolve_lattice(n: int, lattice: str = "auto") -> str:
 def bp_decode(llr, prior, *, num_iter: int, check_every: int,
               early_stop: bool, mode: str, msf: float, llr_max: float,
               return_done: bool = False, negate: bool = False,
-              lattice: str = "auto"):
+              lattice: str = "auto", msg_dtype=torch.float32):
     """Decode; see the module docstring. CUDA tensors launch the kernel
-    (``lattice`` forces its lattice into shared or global memory), CPU
-    tensors run ``bp_decode_plain``."""
+    (``lattice`` forces its lattice into shared or global memory; the
+    ``msg_dtype`` instance), CPU tensors run ``bp_decode_plain``."""
     kw = dict(num_iter=num_iter, check_every=check_every,
               early_stop=early_stop, mode=mode, msf=msf, llr_max=llr_max,
-              return_done=return_done, negate=negate)
+              return_done=return_done, negate=negate, msg_dtype=msg_dtype)
     if llr.device.type == "cpu":
         resolve_lattice(llr.shape[0], lattice)
         return bp_decode_plain(llr, prior, **kw)
@@ -85,9 +98,11 @@ def bp_decode(llr, prior, *, num_iter: int, check_every: int,
         stream = torch.cuda.current_stream(llr.device).cuda_stream
         res = _native_call(lib.bp_launch, llr, prior, lattice,
                            (ctypes.c_void_p, stream), **kw)
-        bp_decode.launches += llr.shape[1] > 0      # an empty batch: none
+        launched = llr.shape[1] > 0                 # an empty batch: none
+        bp_decode.launches += launched
+        bp_decode.launches_bf16 += launched and msg_dtype == torch.bfloat16
     # an estimate counts every sweep and check: early stop is data that it
-    # cannot read without a sync
+    # cannot read without a sync; the bf16 lattice does the same work
     n, bs = llr.shape
     kernel_work.report(kernel_work.bp_work, n, bs, num_iter * bs,
                        (num_iter // check_every) * bs if early_stop else 0,
@@ -96,6 +111,7 @@ def bp_decode(llr, prior, *, num_iter: int, check_every: int,
 
 
 bp_decode.launches = 0
+bp_decode.launches_bf16 = 0
 
 
 def bp_decode_host(llr, prior, *, lattice: str = "auto",
@@ -112,25 +128,51 @@ def bp_decode_host(llr, prior, *, lattice: str = "auto",
                         lattice, (ctypes.c_int, int(warp_blocks)), **kw)
 
 
-def launch_plan(n: int, lattice: str = "auto"):
+def launch_plan(n: int, lattice: str = "auto", msg_dtype=torch.float32):
     """(threads per CTA, resident blocks per warp, dynamic shared memory
-    bytes) of the kernel's launch at block length ``n`` (from the host
-    build, which shares the plan's code with the kernel)."""
+    bytes) of the kernel's launch at block length ``n`` with ``msg_dtype``
+    messages (from the host build, which shares the plan's code with the
+    kernel)."""
     fn = _build.load("bp", "host").bp_plan_of
     fn.restype = None
     out = (ctypes.c_int * 3)()
     fn(ctypes.c_int(n.bit_length() - 1),
-       ctypes.c_int(int(resolve_lattice(n, lattice) == "shared")), out)
+       ctypes.c_int(int(resolve_lattice(n, lattice) == "shared")),
+       ctypes.c_int(int(msg_is_bf16(msg_dtype))), out)
     return tuple(out)
+
+
+def bf16_round_host(x):
+    """``x`` (f32, CPU) rounded to bf16 by the kernel's own rounding
+    (``csrc/fg.cuh`` ``bf16_round``, g++ build), as f32; for the tests."""
+    x = x.to(torch.float32).contiguous()
+    out = torch.empty_like(x)
+    fn = _build.load("bp", "host").bp_bf16_round
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
+    fn.restype = None
+    fn(x.data_ptr(), out.data_ptr(), x.numel())
+    return out
 
 
 _ARGTYPES = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
               ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
-             + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_float])
+             + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_float,
+                                     ctypes.c_int])
 
 
-def _check(llr, prior, num_iter, check_every, early_stop, mode, return_done):
+def msg_is_bf16(msg_dtype) -> bool:
+    """True for a bf16 lattice, False for f32; any other message type
+    raises."""
+    if msg_dtype not in MSG_DTYPES:
+        raise ValueError(f"msg_dtype must be torch.float32 or "
+                         f"torch.bfloat16, not {msg_dtype}")
+    return msg_dtype == torch.bfloat16
+
+
+def _check(llr, prior, num_iter, check_every, early_stop, mode, return_done,
+           msg_dtype):
+    msg_is_bf16(msg_dtype)
     if llr.dim() != 2 or llr.dtype != torch.float32:
         raise TypeError("bp_decode takes f32 LLRs of shape [n, bs]")
     n, _ = llr.shape
@@ -149,11 +191,12 @@ def _check(llr, prior, num_iter, check_every, early_stop, mode, return_done):
 
 def _native_call(fn, llr, prior, lattice, last, *, num_iter, check_every,
                  early_stop, mode, msf, llr_max, return_done=False,
-                 negate=False):
+                 negate=False, msg_dtype=torch.float32):
     """Call ``bp_launch`` or ``bp_host``; ``last`` is the (ctypes type,
     value) of the entry point's last argument: the stream, or the host's
     ``warp_blocks``."""
-    _check(llr, prior, num_iter, check_every, early_stop, mode, return_done)
+    _check(llr, prior, num_iter, check_every, early_stop, mode, return_done,
+           msg_dtype)
     n, bs = llr.shape
     where = resolve_lattice(n, lattice)
     dev = llr.device
@@ -168,7 +211,7 @@ def _native_call(fn, llr, prior, lattice, last, *, num_iter, check_every,
     scratch = None
     if where == "global":
         scratch = torch.empty(bs * 2 * n.bit_length() * n,
-                              dtype=torch.float32, device=dev)
+                              dtype=msg_dtype, device=dev)
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES + [last[0]]
         fn.restype = ctypes.c_int
@@ -178,7 +221,8 @@ def _native_call(fn, llr, prior, lattice, last, *, num_iter, check_every,
             None if scratch is None else scratch.data_ptr(),
             n.bit_length() - 1, bs, int(num_iter), int(check_every),
             int(bool(early_stop)), int(F_FUNCTIONS[mode] is f_exact),
-            int(bool(negate)), float(msf), float(llr_max), last[1]]
+            int(bool(negate)), float(msf), float(llr_max),
+            int(msg_is_bf16(msg_dtype)), last[1]]
     rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"bp_decode: native call failed with code {rc}")
@@ -198,14 +242,24 @@ def _pairs(x, s):
 
 def bp_decode_plain(llr, prior, *, num_iter: int, check_every: int,
                     early_stop: bool, mode: str, msf: float, llr_max: float,
-                    return_done: bool = False, negate: bool = False):
+                    return_done: bool = False, negate: bool = False,
+                    msg_dtype=torch.float32):
     """Plain PyTorch BP decode on any device, the JAX package's XLA engine
-    step for step; same contract as ``bp_decode``."""
-    _check(llr, prior, num_iter, check_every, early_stop, mode, return_done)
+    step for step, its lattice in ``msg_dtype``; same contract as
+    ``bp_decode``."""
+    _check(llr, prior, num_iter, check_every, early_stop, mode, return_done,
+           msg_dtype)
     n, bs = llr.shape
     S = n.bit_length() - 1
     dev = llr.device
-    if mode in ("minsum", "max") and float(msf) != 1.0:
+    if msg_dtype == torch.bfloat16:
+        # one rounding per op, in bf16
+        f = (f_exact_per_op if F_FUNCTIONS[mode] is f_exact
+             else functools.partial(scaled_minsum_per_op, msf))
+
+        def f_add(x, y, z):
+            return f(x, y, llr_max) + z
+    elif mode in ("minsum", "max") and float(msf) != 1.0:
         f = make_scaled_minsum(msf)
 
         def f_add(x, y, z):
@@ -216,7 +270,8 @@ def bp_decode_plain(llr, prior, *, num_iter: int, check_every: int,
         def f_add(x, y, z):
             return f(x, y, llr_max) + z
 
-    lmsg = torch.zeros((S + 1, n, bs), dtype=torch.float32, device=dev)
+    # the copies round the LLRs and the prior to msg_dtype
+    lmsg = torch.zeros((S + 1, n, bs), dtype=msg_dtype, device=dev)
     rmsg = torch.zeros_like(lmsg)
     lmsg[S] = -llr if negate else llr
     rmsg[0] = prior[:, None]
@@ -266,5 +321,5 @@ def bp_decode_plain(llr, prior, *, num_iter: int, check_every: int,
     else:
         for _ in range(num_iter):
             sweep_(lmsg, rmsg)
-    out = lmsg[0] + rmsg[0]
+    out = (lmsg[0] + rmsg[0]).to(torch.float32)
     return (out, done.to(torch.int32)) if return_done else out

@@ -31,9 +31,10 @@ class HybridSCLDecoder:
     u_hat[..., k]`` (and ``crc_status[...]`` with ``return_crc_status``);
     ``k`` is the length of payload and CRC.
 
-    ``schedule`` is taken for the JAX package's signature (the port's SC
-    has one schedule); ``lower_stages`` is the SCL decoder's subtree
-    depth. ``pc_pos`` goes to both decoders (PC-aided SC and CA-SCL)."""
+    ``schedule`` goes to both decoders (it resolves the SCL decoder's
+    ``use_fast_scl=None``; the port's SC has one schedule);
+    ``lower_stages`` is the SCL decoder's subtree depth. ``pc_pos`` goes
+    to both decoders (PC-aided SC and CA-SCL)."""
 
     def __init__(self, frozen_pos, n: int, list_size: int = 8,
                  crc_degree=None, mode: str = "minsum",
@@ -52,7 +53,8 @@ class HybridSCLDecoder:
         self._scl = PolarSCLDecoder(
             frozen_pos, n, list_size=list_size, crc_degree=crc_degree,
             mode=mode, llr_max=llr_max, ind_iil_inv=ind_iil_inv,
-            return_crc_status=True, pc_pos=pc_pos, use_fast_scl=use_fast_scl,
+            schedule=schedule, return_crc_status=True, pc_pos=pc_pos,
+            use_fast_scl=use_fast_scl,
             lower_stages=lower_stages, device=self.device)
         self.n = self._sc.n
         self.k = self._sc.k
@@ -60,6 +62,7 @@ class HybridSCLDecoder:
         self.info_pos = self._sc.info_pos
         self.list_size = int(list_size)
         self.lower_stages = self._scl.lower_stages
+        self.schedule = self._scl.schedule
         self.mode = mode
         self.return_crc_status = bool(return_crc_status)
         self.min_capacity = int(min_capacity)

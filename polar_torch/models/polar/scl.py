@@ -12,9 +12,12 @@ the input is on the card:
 * ``use_fast_scl=False``: the plain sweep (``scan_core.scl_sweep_hybrid``),
   one fork per info leaf, no pruning.
 
-``use_fast_scl=None`` resolves as the JAX package does: fast below
-n = 256, plain from n = 256 up. Under min-sum the two sweeps decide
-differently, so each blocklength keeps the reference's bit contract.
+``use_fast_scl=None`` resolves as the JAX package does, from ``schedule``:
+``"unrolled"`` takes the fast sweep, ``"scan"`` the plain one, and
+``"auto"`` is ``"unrolled"`` below n = 256 and ``"scan"`` from n = 256 up.
+Under min-sum the two sweeps decide differently, so each schedule keeps
+the JAX engine's bit contract. (The port has no unrolled tree or scan
+engine: ``schedule`` picks the sweep, nothing else.)
 
 With ``pc_pos`` (5G's parity-check bits, TS 38.212 5.3.1.2) every path
 carries a 5-bit PC register that its info bits fill, and a PC position
@@ -40,7 +43,7 @@ from polar_torch.models.polar.cuda_scl import LIST_SIZES
 from polar_torch.models.polar.scan_core import (
     default_lower_stages, plan_fast_sweep, plan_plain_sweep,
     resolve_lower_stages, scl_sweep_hybrid, scl_sweep_hybrid_fast)
-from polar_torch.models.polar.sc import pc_setup
+from polar_torch.models.polar.sc import SCHEDULES, pc_setup
 from polar_torch.ops.crc import CRCDecoder, CRCEncoder, crc_polynomial
 from polar_torch.ops.fg import F_FUNCTIONS
 
@@ -54,10 +57,11 @@ class PolarSCLDecoder:
     ``crc_status[...]`` with ``return_crc_status``); logits are positive
     for bit 1.
 
-    ``use_fast_scl`` picks the sweep (module docstring; None resolves by
-    n). ``fast_rate1`` adds rate-1 node shortcuts to the rate-0/repetition
-    pruning, and ``spc_min_stage`` SPC nodes from that stage up (off when
-    None); both need the fast sweep. ``lower_stages`` is the subtree depth b
+    ``use_fast_scl`` picks the sweep (module docstring; None resolves from
+    ``schedule``, ``"auto"``, ``"unrolled"`` or ``"scan"``). ``fast_rate1``
+    adds rate-1 node shortcuts to the rate-0/repetition pruning, and
+    ``spc_min_stage`` SPC nodes from that stage up (off when None); both
+    need the fast sweep. ``lower_stages`` is the subtree depth b
     (``scan_core.resolve_lower_stages``; by default
     ``scan_core.default_lower_stages(list_size)``): one kernel call per
     2^b-leaf subtree. ``crc_degree``, ``ind_iil_inv``,
@@ -69,7 +73,7 @@ class PolarSCLDecoder:
                  crc_degree=None, use_hybrid_sc: bool = False,
                  use_fast_scl=None, return_crc_status: bool = False,
                  mode: str = "minsum", llr_max: float = 30.0,
-                 ind_iil_inv=None, pc_pos=None,
+                 ind_iil_inv=None, schedule: str = "auto", pc_pos=None,
                  fast_rate1: bool = False, spc_min_stage=None,
                  lower_stages=None, output_dtype=torch.float32,
                  device=None):
@@ -82,11 +86,16 @@ class PolarSCLDecoder:
             raise ValueError(f"unknown mode {mode!r}")
         if crc_degree is None and return_crc_status:
             raise ValueError("returning the CRC status needs crc_degree")
+        if schedule not in SCHEDULES:
+            raise ValueError(f"schedule must be one of {SCHEDULES}")
+        if schedule == "auto":
+            schedule = "scan" if n >= PLAIN_SWEEP_MIN_N else "unrolled"
         if pc_pos is not None:
-            # the register walks every leaf: no pruned nodes (as JAX)
-            use_fast_scl = False
+            # the register walks every leaf: no pruned nodes (as JAX, which
+            # runs its unrolled tree without fast-SCL pruning)
+            schedule, use_fast_scl = "unrolled", False
         elif use_fast_scl is None:
-            use_fast_scl = n < PLAIN_SWEEP_MIN_N
+            use_fast_scl = schedule == "unrolled"
         if (fast_rate1 or spc_min_stage is not None) and not use_fast_scl:
             raise ValueError("fast_rate1 and spc_min_stage need the fast "
                              "sweep (use_fast_scl=True), which PC-aided "
@@ -102,6 +111,7 @@ class PolarSCLDecoder:
         self.k = len(info_idx)
         self.list_size = int(list_size)
         self.use_fast_scl = bool(use_fast_scl)
+        self.schedule = schedule
         self.mode = mode
         self.llr_max = float(llr_max)
         self.fast_rate1 = bool(fast_rate1)
@@ -114,7 +124,8 @@ class PolarSCLDecoder:
             self._hybrid = HybridSCLDecoder(
                 self.frozen_pos, n, list_size=list_size,
                 crc_degree=crc_degree, mode=mode, llr_max=llr_max,
-                ind_iil_inv=ind_iil_inv, return_crc_status=return_crc_status,
+                ind_iil_inv=ind_iil_inv, schedule=schedule,
+                return_crc_status=return_crc_status,
                 pc_pos=self.pc_pos, use_fast_scl=use_fast_scl,
                 lower_stages=lower_stages, output_dtype=output_dtype,
                 device=self.device)

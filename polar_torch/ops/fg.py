@@ -10,6 +10,11 @@ update, as element-wise tensor functions.
 * ``make_scaled_minsum``: BP's normalized min-sum ``alpha f_minsum(x, y)``,
   and ``scaled_minsum_add``, ``alpha f_minsum(x, y) + z`` rounded once, as
   XLA contracts it into a fused multiply-add on the CPU.
+* ``scaled_minsum_per_op``, ``logaddexp_per_op`` and ``f_exact_per_op``: the
+  same updates computed in the dtype of their inputs with one rounding per
+  op, as XLA runs bf16 on the CPU (BP's bf16 message lattice): no fused
+  multiply-add, and ``jnp.logaddexp``'s own formula in place of
+  ``torch.logaddexp``.
 """
 
 import torch
@@ -81,6 +86,34 @@ def fma_f32(a: float, b, c):
 def scaled_minsum_add(alpha: float, x, y, z, llr_max=LLR_MAX):
     """``alpha * f_minsum(x, y) + z`` with one rounding."""
     return fma_f32(alpha, f_minsum(x, y, llr_max), z)
+
+
+def scaled_minsum_per_op(alpha: float, x, y, llr_max=LLR_MAX):
+    """``alpha * f_minsum(x, y)`` in the inputs' dtype: ``alpha`` and
+    ``llr_max`` rounded to it first (as JAX casts a weak-typed constant),
+    the product rounded once. ``alpha == 1`` leaves min-sum exact."""
+    f = f_minsum(x, y, _rounded(llr_max, x.dtype))
+    return f if float(alpha) == 1.0 else _rounded(alpha, x.dtype) * f
+
+
+def logaddexp_per_op(p, q):
+    """``max(p, q) + log1p(exp(-|p - q|))``, each op rounded to the inputs'
+    dtype (``jnp.logaddexp``'s formula)."""
+    return torch.maximum(p, q) + torch.log1p(torch.exp(-(p - q).abs()))
+
+
+def f_exact_per_op(x, y, llr_max=LLR_MAX):
+    """Exact boxplus in the inputs' dtype, one rounding per op."""
+    m = _rounded(llr_max, x.dtype)
+    x = _clip(x, m)
+    y = _clip(y, m)
+    return (logaddexp_per_op(torch.zeros_like(x), x + y)
+            - logaddexp_per_op(x, y))
+
+
+def _rounded(v: float, dtype) -> float:
+    """``v`` rounded to ``dtype``, back as a Python float."""
+    return torch.tensor(float(v), dtype=dtype).item()
 
 
 def g(x, y, u_hat):

@@ -38,7 +38,8 @@ def qam(n_bits_per_sym: int, normalize: bool = True) -> np.ndarray:
 
 
 class Constellation:
-    """A (by default unit-power) QAM constellation on ``device``."""
+    """A (by default unit-power) QAM constellation on ``device``; calling it
+    returns its points."""
 
     def __init__(self, n_bits_per_sym: int, normalize: bool = True,
                  device=None):
@@ -51,12 +52,45 @@ class Constellation:
         self.points_np = pts.astype(np.complex64)
         self.points = torch.from_numpy(self.points_np).to(self.device)
 
+    def __call__(self):
+        return self.points
+
+    def show(self, labels: bool = True, figsize=(7, 7)):
+        """Scatter plot of the points, each labelled with its bits
+        (host-side; needs matplotlib). Returns the figure."""
+        import matplotlib.pyplot as plt
+
+        pts = self.points_np
+        maxval = np.max(np.abs(pts)) * 1.05
+        fig = plt.figure(figsize=figsize)
+        ax = fig.add_subplot(111)
+        ax.set_xlim(-maxval, maxval)
+        ax.set_ylim(-maxval, maxval)
+        ax.scatter(np.real(pts), np.imag(pts))
+        ax.set_aspect("equal", adjustable="box")
+        ax.set_xlabel("Real Part")
+        ax.set_ylabel("Imaginary Part")
+        ax.grid(True, which="both", axis="both")
+        ax.set_title("Constellation Plot")
+        if labels:
+            for j, p in enumerate(pts):
+                ax.annotate(np.binary_repr(j, self.n_bits_per_sym),
+                            (np.real(p), np.imag(p)))
+        return fig
+
+
+# the reference-compatible name
+QamConstell = Constellation
+
 
 class Mapper:
-    """Bits ``[..., n]`` to symbols ``[..., n / n_bits_per_sym]``."""
+    """Bits ``[..., n]`` to symbols ``[..., n / n_bits_per_sym]``; with
+    ``return_indices`` also each symbol's point index (int64)."""
 
-    def __init__(self, constell: Constellation):
+    def __init__(self, constell: Constellation,
+                 return_indices: bool = False):
         self.constell = constell
+        self.return_indices = bool(return_indices)
         m = constell.n_bits_per_sym
         self._binary_base = torch.tensor(
             [2 ** i for i in range(m - 1, -1, -1)], dtype=torch.int64,
@@ -68,7 +102,8 @@ class Mapper:
             raise ValueError("last dim must be a multiple of n_bits_per_sym")
         groups = bits.reshape(bits.shape[:-1] + (bits.shape[-1] // m, m))
         idx = (groups.to(torch.int64) * self._binary_base).sum(dim=-1)
-        return self.constell.points[idx]
+        x = self.constell.points[idx]
+        return (x, idx) if self.return_indices else x
 
 
 class SymbolLogits2LLRs:

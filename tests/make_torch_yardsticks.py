@@ -1,6 +1,6 @@
 """BLER yardsticks of the JAX package on the CPU for ``chip_smoke.py``'s
-phases 10, 11 and 12 (the ``--kern`` OSD path, the BEC link and the 5G
-uplink UCI chain with PC bits).
+phases 9, 10, 11 and 12 (BP-20 with bf16 messages, the ``--kern`` OSD
+path, the BEC link and the 5G uplink UCI chain with PC bits).
 
     JAX_PLATFORMS=cpu python tests/make_torch_yardsticks.py [--blocks N]
         [--bs B] [--only NAME ...]
@@ -22,7 +22,11 @@ line with the block errors, the blocks and the BLER. The rows:
   ``Polar5GEncoder(19, 864)`` (uplink, CRC6, 3 PC bits, n_polar 256), QPSK
   over AWGN, ``Polar5GDecoder`` SC, CA-SCL-8 and hybSCL-8 in exact mode at
   4.5 dB; ``pc_scl8_k12_e48``: CA-SCL-8 on ``Polar5GEncoder(12, 48)`` at
-  2.0 dB.
+  2.0 dB;
+* ``bp20_n1024_bf16``: the CLI's BP-20 (scaled min-sum, msf 0.9375, early
+  stop every 2 sweeps) with ``msg_dtype=jnp.bfloat16`` on the 5G k=512
+  n=1024 code, QPSK over AWGN at 2.0 dB (the XLA engine: the CPU never
+  takes the Pallas kernel).
 """
 
 import argparse
@@ -45,7 +49,9 @@ PC_ROWS = (("pc_sc_k19_e864", 19, 864, "SC", 4.5),
 def rows():
     from polar_tpu.config import PolarConfig
     from polar_tpu.main import gen_code
+    import jax.numpy as jnp
     from polar_tpu.models.osd import OSDecoder
+    from polar_tpu.models.polar.bp import PolarBPDecoder
     from polar_tpu.models.polar.construction import generate_5g_ranking
     from polar_tpu.models.polar.decode5g import Polar5GDecoder
     from polar_tpu.models.polar.encode import Polar5GEncoder, PolarEncoder
@@ -82,6 +88,13 @@ def rows():
             return SystemAWGNModel(e, k, enc, dec)
         return make
 
+    def bp_bf16():
+        frozen, _ = generate_5g_ranking(512, 1024)
+        enc = PolarEncoder(frozen, 1024)
+        dec = PolarBPDecoder(frozen, 1024, num_iter=20,
+                             msg_dtype=jnp.bfloat16)
+        return SystemAWGNModel(1024, 512, enc, dec)
+
     out = [(f"g16_osd2_{e}", g16, e) for e in G16_EBNO_DB]
     out.append(("osd2_k64_n128", osd2, 2.0))
     for pe in BEC_PE:
@@ -89,6 +102,7 @@ def rows():
                 (f"bec_scl8_{pe}", bec("scl"), pe)]
     out += [(name, uci(k, e, dec_type), ebno)
             for name, k, e, dec_type, ebno in PC_ROWS]
+    out.append(("bp20_n1024_bf16", bp_bf16, 2.0))
     return out
 
 

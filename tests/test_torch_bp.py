@@ -405,8 +405,9 @@ def test_two_pass_all_converged_noiseless():
 
 def test_options_and_errors():
     frozen, _ = generate_5g_ranking(32, 64)
-    with pytest.raises(NotImplementedError, match="BP's bf16 message lattice"):
-        PolarBPDecoder(frozen, 64, msg_dtype=torch.bfloat16, device="cpu")
+    # the JAX package documents f32 and bf16 messages only
+    with pytest.raises(ValueError, match="msg_dtype"):
+        PolarBPDecoder(frozen, 64, msg_dtype=torch.float16, device="cpu")
     with pytest.raises(ValueError):
         PolarBPDecoder(frozen, 64, two_pass=True, early_stop=False,
                        device="cpu")

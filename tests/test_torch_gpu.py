@@ -1,7 +1,7 @@
 """polar_torch on the card: the SCL and SC subtree kernels and the BP
 kernel against their plain versions on the same CUDA inputs (the SCL
 kernel at L up to 32 and in its traced form; BP with its lattice in shared
-and in global memory), and the decoders (fast and plain SCL, SC, the 5G
+and in global memory, f32 and bf16 messages), and the decoders (fast and plain SCL, SC, the 5G
 CA-SCL and hybrid chain, BP single- and two-pass) on the card against the
 same decoders on the CPU; OSD and the dense-G decoder, the BEC channel,
 and the SC and SCL decoders on BEC logits, on the card against the CPU.
@@ -376,6 +376,37 @@ def test_bp_kernel_exact_mode_on_card(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n,lattice,mode", [
+    (1024, "auto", "minsum"), (1024, "global", "minsum"),
+    (2048, "auto", "minsum"), (4096, "auto", "minsum"),
+    (256, "auto", "minsum"), (1024, "auto", "exact")])
+def test_bp_bf16_kernel_equals_plain_on_card(cuda, n, lattice, mode):
+    """The bf16 instance against ``bp_decode_plain(msg_dtype=bf16)`` on the
+    same CUDA inputs: min-sum bit-equal (every LLR and flag); exact mode
+    by decisions, equal on every block the plain version marks converged
+    and on 99% of all."""
+    from polar_torch.models.polar.cuda_bp import bp_decode, bp_decode_plain
+    bs = 256 if n >= 2048 else 2048
+    prior, logits = _bp_inputs(n, bs, 2.0, n + 1)
+    prior, logits = prior.to(cuda), logits.to(cuda)
+    kw = dict(num_iter=13, check_every=2, early_stop=True, mode=mode,
+              msf=0.9375, llr_max=LLR_MAX, return_done=True,
+              msg_dtype=torch.bfloat16)
+    before = bp_decode.launches_bf16
+    got, got_done = bp_decode(logits.t(), prior, negate=True,
+                              lattice=lattice, **kw)
+    torch.cuda.synchronize()
+    assert bp_decode.launches_bf16 == before + 1
+    want, done = bp_decode_plain(-logits.t(), prior, **kw)
+    if mode == "minsum":
+        assert torch.equal(got_done, done) and torch.equal(got, want)
+        return
+    differ = ((got <= 0) != (want <= 0))[prior == 0].any(dim=0)
+    assert not differ[done > 0].any()
+    assert differ.float().mean().item() <= 0.01
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("two_pass", [False, True])
 def test_bp_decoder_on_card_equals_cpu(cuda, two_pass):
     from polar_torch.models.polar.bp import PolarBPDecoder
@@ -383,12 +414,14 @@ def test_bp_decoder_on_card_equals_cpu(cuda, two_pass):
     n, k = 1024, 512
     frozen, _ = generate_5g_ranking(k, n)
     _, logits = _bp_inputs(n, 1024, 2.0, 7)
-    kw = dict(num_iter=20, hard_out=False, two_pass=two_pass)
-    want = PolarBPDecoder(frozen, n, device="cpu", **kw)(logits)
-    before = bp_decode.launches
-    got = PolarBPDecoder(frozen, n, device=cuda, **kw)(logits.to(cuda))
-    assert bp_decode.launches > before
-    assert torch.equal(got.cpu(), want)
+    for msg in (torch.float32, torch.bfloat16):
+        kw = dict(num_iter=20, hard_out=False, two_pass=two_pass,
+                  msg_dtype=msg)
+        want = PolarBPDecoder(frozen, n, device="cpu", **kw)(logits)
+        before = bp_decode.launches
+        got = PolarBPDecoder(frozen, n, device=cuda, **kw)(logits.to(cuda))
+        assert bp_decode.launches > before
+        assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.gpu
