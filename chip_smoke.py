@@ -7,7 +7,9 @@ with SC, SCL-8 and BP-20 (phase 6), the 5G NR CA-SCL chain (phase 8),
 BP's two-pass serving path and BP-20 with bf16 messages (phase 9), the
 ``--kern`` CLI path with OSD
 (phase 10), the BEC link (phase 11), the 5G uplink UCI chain with PC bits
-(phase 12) and the data-parallel and profiling tools over it (phase 13).
+(phase 12) and the data-parallel and profiling tools over it (phase 13);
+then the entry points a user runs, each in its own process: the headline
+benchmark and the four walkthroughs (phase 14).
 Phases (any failure exits non-zero and prints no result):
 
 1. the card: CUDA must be available; prints the card's name and power
@@ -63,8 +65,10 @@ Phases (any failure exits non-zero and prints no result):
 4. the main path: ``SystemAWGNModel.step`` (source -> 5G k=512 n=1024
    polar encoder -> QPSK -> AWGN -> demapper -> SCL-8 min-sum fast-SCL
    decoder with rate-1 nodes) at a batch of 8192 codewords and 2.0 dB,
-   with every kernel's launch count reset just before and read just after;
-   prints info bit/s and ms per step;
+   built and timed by ``polar_torch.bench``'s ``build_model`` and
+   ``time_steps`` (one warm-up step, 10 timed steps, the counts summed on
+   the card, one synchronisation), with every kernel's launch count reset
+   just before and read just after; prints info bit/s and ms per step;
 5. BLER at 1.5 dB over 32768 blocks against the ``scl8_n1024_fast_r1`` row
    of ``benchmarks/bler_validation.json`` (+-0.006, about 4 sigma);
 6. the CLI path: ``polar_torch.main.sweep`` at k=512 n=1024 (5G), bs=8192,
@@ -137,7 +141,18 @@ Phases (any failure exits non-zero and prints no result):
     ``sim_ber``, its counters equal to the unsharded model's on the same
     derived generators; ``trace`` of one step, whose file must name the
     SCL kernel; ``flop_estimate`` of one decode and one step beside the
-    kernel call's own work count.
+    kernel call's own work count;
+14. the entry points, each in its own process on the card:
+    ``python -m polar_torch.bench`` at its defaults (k=512 n=1024 SCL-8,
+    bs=8192, 8 warm-up and 24 timed steps), which must exit 0 and print
+    one JSON line with every key, the card's name and power limit as
+    ``nvidia-smi`` reports them, info bit/s > 0 and ``scl_subtree``
+    launches; its figure is logged beside phase 4's with their ratio (not
+    gated). Then ``examples/torch_01`` ... ``torch_04`` side by side at
+    small sizes (``torch_03`` over every card present, NCCL): each must
+    exit 0, print its result lines and launch the kernels of its path
+    (``sc_subtree``, ``scl_subtree`` and ``bp``; ``scl_subtree`` and
+    ``sc_subtree``; ``scl_subtree``; ``scl_subtree``).
 
 The line before the card's line is one JSON object ``{"kernels": [...]}``
 with each kernel form's launches on its path (``scl_subtree`` static
@@ -280,6 +295,25 @@ UCI_DECODERS = (("SC", "SC", "pc_sc_k19_e864"),
 UCI_SMALL_K, UCI_SMALL_E, UCI_SMALL_EBNO_DB = 12, 48, 2.0
 # phase 13: batches of the sharded run
 SHARDED_BATCHES = 2
+# phase 14: the entry points a user runs, each in its own process: the
+# benchmark at its defaults, then the walkthroughs side by side at small
+# sizes, (script, arguments, the kernels its run must launch, the result
+# lines it must print); torch_03 runs over every card present
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "ms_per_step", "bs",
+              "iters", "lower_stages", "scl_subtree_launches", "device",
+              "power_limit"}
+EXAMPLE_RUNS = (
+    ("torch_01_bler_sweep.py", ["--max-mc-iter", "2"],
+     ("sc_subtree", "scl_subtree", "bp"),
+     (r"^SC: BLER \[", r"^SCL-8: BLER \[", r"^BP-20: BLER \[")),
+    ("torch_02_5g_chain.py", [], ("scl_subtree", "sc_subtree"),
+     (r"^BER \S+; CRC pass rate \S+$", r"^hybSCL BER \S+$")),
+    ("torch_03_multichip.py", ["--max-mc-iter", "2"], ("scl_subtree",),
+     (r"^world of \d+ \(nccl\)", r"^BER :", r"^BLER:")),
+    ("torch_04_osd_any_linear_code.py", [], ("scl_subtree",),
+     (r"^OSD-2 codeword BER \S+  \(SCL-8 info BER \S+\)$",)),
+)
+ENTRY_TIMEOUT_S = 300
 
 # NVIDIA H100 SXM data sheet: HBM bandwidth and fp32 rate outside the
 # tensor cores, at the full 700 W power limit
@@ -947,6 +981,76 @@ def tools_phase(dev, card, model, reset_counts, counts):
         raise AssertionError("flop_estimate missed the kernel's work")
 
 
+def entry_points_phase(card, info_bps):
+    """Phase 14: ``python -m polar_torch.bench`` at its defaults, alone on
+    the card, then the four ``examples/torch_0*.py`` side by side, each in
+    its own process: every one exits 0; the bench prints one JSON line with
+    every key, the card's name and limit, info bit/s > 0 and SCL kernel
+    launches; each example prints its result lines and launches the
+    kernels on its path. Returns the bench's JSON object."""
+    import re
+    import signal
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "polar_torch.bench"],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=ENTRY_TIMEOUT_S)
+    if out.returncode != 0:
+        raise AssertionError(f"polar_torch.bench exited {out.returncode}: "
+                             f"{out.stderr[-3000:]}")
+    lines = out.stdout.strip().splitlines()
+    row = json.loads(lines[0]) if len(lines) == 1 else {}
+    name, power = (x.strip() for x in card.rsplit(",", 1))
+    if (set(row) != BENCH_KEYS or row["device"] != name
+            or row["power_limit"] != power or not row["value"] > 0
+            or not row["scl_subtree_launches"] > 0):
+        raise AssertionError(f"polar_torch.bench printed {out.stdout!r}")
+    log(f"phase 14: python -m polar_torch.bench ({time.perf_counter() - t0:.1f}"
+        f" s): {lines[0]}")
+    for line in out.stderr.strip().splitlines():
+        log(f"  {line}")
+    log(f"phase 14: the bench {row['value']:.6g} info bit/s "
+        f"({row['ms_per_step']:.3f} ms per step, {row['iters']} steps), "
+        f"phase 4 {info_bps:.6g} ({BATCH * K / info_bps * 1e3:.3f} ms): "
+        f"ratio {row['value'] / info_bps:.4f} [{card}]")
+
+    # each walkthrough leads a process group of its own, so that its
+    # workers (torch_03's ranks) go with it
+    t0 = time.perf_counter()
+    procs = [(script, want, pattern, subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "examples", script), *args],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True))
+        for script, args, want, pattern in EXAMPLE_RUNS]
+    try:
+        for script, want, patterns, proc in procs:
+            stdout, stderr = proc.communicate(timeout=ENTRY_TIMEOUT_S)
+            if proc.returncode != 0:
+                raise AssertionError(f"{script} exited {proc.returncode}: "
+                                     f"{stderr[-3000:]}")
+            got = re.search(r"^kernel launches[^:]*: (\{.*\})$", stdout,
+                            re.M)
+            launched = json.loads(got[1]) if got else {}
+            missing = [p for p in patterns if not re.search(p, stdout, re.M)]
+            if missing or not all(launched.get(k, 0) > 0 for k in want):
+                raise AssertionError(f"{script}: result lines {missing} "
+                                     f"missing or launches {launched}; "
+                                     f"stdout {stdout[-2000:]!r}")
+            results = [ln for ln in stdout.splitlines()
+                       if any(re.search(p, ln) for p in patterns)]
+            log(f"phase 14: {script}: " + "; ".join(results)
+                + f"; launches {launched}")
+    finally:
+        for *_, proc in procs:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+    log(f"phase 14: the four walkthroughs side by side in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return row
+
+
 def bec_link_phase(dev, gen, card, encoder, frozen, reset_counts, counts):
     """Phase 11: ``SystemBECModel`` with the CLI's SC and SCL-8 decoders on
     the k=512 n=1024 code through ``sim_ber``, each BLER against its
@@ -1018,7 +1122,8 @@ def main():
         return 2
     sys.path.insert(0, ROOT)
     import numpy as np
-    from polar_torch import _build, from_numpy_state, generate_5g_ranking
+    from polar_torch import _build, generate_5g_ranking
+    from polar_torch.bench import build_model, time_steps
     from polar_torch._device import resolve_device
     from polar_torch.config import PolarConfig
     from polar_torch.main import sweep
@@ -1036,29 +1141,12 @@ def main():
     from polar_torch.models.polar.decode5g import Polar5GDecoder
     from polar_torch.models.polar.encode import Polar5GEncoder
     from polar_torch.models.systems import SystemAWGNModel
-    from polar_torch.sim import count_block_errors, count_errors, sim_ber
+    from polar_torch.sim import count_block_errors, sim_ber
     from polar_torch.ops.channels import BinaryErasureChannel
     from polar_torch.ops.source import binary_source
-    from polar_torch.utils.kernel_work import (bp_work, sc_subtree_work,
-                                               subtree_work)
-
-    def reset_counts():
-        """Every kernel wrapper's launch counts to 0."""
-        for c in ("launches", "launches_traced", "launches_wide"):
-            setattr(cuda_scl.scl_subtree, c, 0)
-        cuda_sc.sc_subtree.launches = 0
-        cuda_bp.bp_decode.launches = 0
-        cuda_bp.bp_decode.launches_bf16 = 0
-
-    def counts():
-        """The launch counts by kernel form (the scl_subtree forms
-        overlap: a traced launch at L=32 counts as traced and as wide)."""
-        return {"scl_subtree": cuda_scl.scl_subtree.launches,
-                "scl_subtree traced": cuda_scl.scl_subtree.launches_traced,
-                "scl_subtree wide": cuda_scl.scl_subtree.launches_wide,
-                "sc_subtree": cuda_sc.sc_subtree.launches,
-                "bp": cuda_bp.bp_decode.launches,
-                "bp bf16": cuda_bp.bp_decode.launches_bf16}
+    from polar_torch.utils.kernel_work import (
+        bp_work, launch_counts as counts, reset_launch_counts as reset_counts,
+        sc_subtree_work, subtree_work)
 
     # ---- phase 1: the card ----
     kind = torch.cuda.get_device_name(0)
@@ -1118,11 +1206,12 @@ def main():
                      "minsum", spc)
 
     frozen, _ = generate_5g_ranking(K, N)
-    state = dict(frozen_pos=frozen, n=N, k=K, list_size=LIST_SIZE,
-                 mode=MODE, llr_max=30.0, use_fast_scl=True,
-                 fast_rate1=True, spc_min_stage=None)
-    model = from_numpy_state(state, device=dev)
+    # the main path's chain, as python -m polar_torch.bench builds it
+    model = build_model(K, N, LIST_SIZE, device=dev)
     dec = model.decoder
+    if (dec.mode, dec.use_fast_scl, dec.fast_rate1) != (MODE, True, True):
+        raise AssertionError("the bench chain is not min-sum fast-SCL with "
+                             "rate-1 nodes")
     main_b = dec.lower_stages
     _, _, llr = model.front(gen, BATCH, EBNO_MAIN_DB)
     llr_ch = (-llr).t().contiguous()
@@ -1487,20 +1576,13 @@ def main():
     bp16_check = BpCheck()
     bp_cases(BP_BF16_CASES, torch.bfloat16, bp16_check)
 
-    # ---- phase 4: the main path ----
+    # ---- phase 4: the main path, timed as python -m polar_torch.bench
+    # times it (time_steps zeroes the counts again after its warm-up) ----
     steps = 10
     reset_counts()
     torch.cuda.synchronize()
-    bits, bits_hat = model.step(gen, BATCH, EBNO_MAIN_DB)      # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    errs = blk = 0
-    for _ in range(steps):
-        bits, bits_hat = model.step(gen, BATCH, EBNO_MAIN_DB)
-        errs += count_errors(bits, bits_hat).item()
-        blk += count_block_errors(bits, bits_hat).item()
-    torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / steps
+    step_s, errs, blk = time_steps(model, gen, BATCH, EBNO_MAIN_DB, warmup=1,
+                                   iters=steps)
     main_counts = counts()
     launches = main_counts["scl_subtree"]
     if launches == 0:
@@ -1508,16 +1590,18 @@ def main():
     if main_counts["scl_subtree traced"] or main_counts["scl_subtree wide"]:
         raise AssertionError(f"the fast main path left the static L=8 "
                              f"form: {main_counts}")
+    bits, bits_hat = model.step(gen, BATCH, EBNO_MAIN_DB)
     if bits_hat.shape != (BATCH, K) or not torch.isin(
             bits_hat, torch.tensor([0.0, 1.0], device=dev)).all():
         raise AssertionError(f"decoder output of shape {bits_hat.shape} is "
                              "not a [batch, k] array of bits")
     info_bps = BATCH * K / step_s
     log(f"phase 4: k={K} n={N} SCL-{LIST_SIZE} {MODE} fast+rate-1, "
-        f"bs={BATCH}, {EBNO_MAIN_DB} dB, b={main_b}: {step_s * 1e3:.1f} ms "
-        f"per step, {info_bps:.4g} info bit/s; {launches} scl_subtree "
-        f"launches in {steps + 1} steps; BER {errs / (steps * BATCH * K):.3g},"
-        f" BLER {blk / (steps * BATCH):.4g} [{card}]")
+        f"bs={BATCH}, {EBNO_MAIN_DB} dB, b={main_b}: {step_s * 1e3:.3f} ms "
+        f"per step, {info_bps:.6g} info bit/s; {launches} scl_subtree "
+        f"launches in {steps} timed steps; BER "
+        f"{errs / (steps * BATCH * K):.3g}, BLER {blk / (steps * BATCH):.4g} "
+        f"[{card}]")
 
     # ---- phase 5: BLER against the committed yardstick ----
     with open(os.path.join(ROOT, "benchmarks", "bler_validation.json")) as fh:
@@ -1917,6 +2001,9 @@ def main():
                                                 counts, kernel_times)
     tools_phase(dev, card, uci_model, reset_counts, counts)
 
+    # ---- phase 14: the entry points, each in its own process ----
+    bench_row = entry_points_phase(card, info_bps)
+
     def entry(name, source, replaces, launches, c, times, **extra):
         return dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=launches,
@@ -1963,7 +2050,8 @@ def main():
     ]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}; main path {info_bps:.6g} info bit/s, "
-          f"{step_s * 1e3:.3f} ms per step")
+          f"{step_s * 1e3:.3f} ms per step; python -m polar_torch.bench "
+          f"{bench_row['value']:.6g} info bit/s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -5,7 +5,8 @@ move and the f32 operations it must at least do, from its arguments.
 ``profiling.flop_estimate`` adds the operations of every kernel launch that
 runs while it counts, since a kernel called through ``ctypes`` is no
 dispatcher op that it could see. Each wrapper reports its launches through
-``report``, which costs nothing while no estimate runs.
+``report``, which costs nothing while no estimate runs. ``launch_counts``
+and ``reset_launch_counts`` read and clear the wrappers' launch counts.
 """
 
 # f32 operations per element, as the kernels' routines spend them
@@ -102,3 +103,26 @@ def bp_work(n, bs, sweeps, checks, mode, msf):
                                                            else 0))
     per_check = 5 * n + OPS_XOR * S * (n // 2)
     return n_bytes, sweeps * per_sweep + checks * per_check
+
+
+def launch_counts():
+    """Each kernel form's launch count, as its wrapper keeps it. The
+    ``scl_subtree`` forms overlap: a traced launch at L=32 counts as
+    traced and as wide."""
+    from polar_torch.models.polar import cuda_bp, cuda_sc, cuda_scl
+    return {"scl_subtree": cuda_scl.scl_subtree.launches,
+            "scl_subtree traced": cuda_scl.scl_subtree.launches_traced,
+            "scl_subtree wide": cuda_scl.scl_subtree.launches_wide,
+            "sc_subtree": cuda_sc.sc_subtree.launches,
+            "bp": cuda_bp.bp_decode.launches,
+            "bp bf16": cuda_bp.bp_decode.launches_bf16}
+
+
+def reset_launch_counts():
+    """Every kernel wrapper's launch counts to 0."""
+    from polar_torch.models.polar import cuda_bp, cuda_sc, cuda_scl
+    for name in ("launches", "launches_traced", "launches_wide"):
+        setattr(cuda_scl.scl_subtree, name, 0)
+    cuda_sc.sc_subtree.launches = 0
+    cuda_bp.bp_decode.launches = 0
+    cuda_bp.bp_decode.launches_bf16 = 0

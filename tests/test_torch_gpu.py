@@ -4,7 +4,8 @@ kernel at L up to 32 and in its traced form; BP with its lattice in shared
 and in global memory, f32 and bf16 messages), and the decoders (fast and plain SCL, SC, the 5G
 CA-SCL and hybrid chain, BP single- and two-pass) on the card against the
 same decoders on the CPU; OSD and the dense-G decoder, the BEC channel,
-and the SC and SCL decoders on BEC logits, on the card against the CPU.
+and the SC and SCL decoders on BEC logits, on the card against the CPU;
+the headline benchmark (``python -m polar_torch.bench``) at a small size.
 Every test here needs a CUDA card and skips without one.
 
 The file imports no JAX, so it also runs where JAX is not installed:
@@ -638,3 +639,26 @@ def test_tools_on_card(cuda, tmp_path):
     with open(tmp_path / name) as fh:
         assert "scl_subtree_kernel" in json.dumps(json.load(fh))
     assert flop_estimate(lambda: model.step(gen, 512, 2.0)) > 0
+
+
+@pytest.mark.gpu
+def test_bench_on_card(cuda):
+    """``python -m polar_torch.bench`` at a small size on the card: one
+    JSON line with the card's name, info bit/s and the SCL kernel's
+    launches over the timed steps."""
+    import json
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run(
+        [sys.executable, "-m", "polar_torch.bench", "--k", "128", "--n",
+         "256", "--bs", "1024", "--iters", "3", "--warmup", "1"], cwd=repo,
+        capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    (line,) = out.stdout.strip().splitlines()
+    row = json.loads(line)
+    assert row["metric"] == "scl8_n256_chain_info_bits_per_s"
+    assert row["value"] > 0 and row["ms_per_step"] > 0
+    assert row["scl_subtree_launches"] >= 3
+    assert row["device"] != "cpu" and row["lower_stages"] == 8

@@ -316,6 +316,10 @@ def _port_sources():
         for fn in files:
             if fn.endswith(".py"):
                 yield os.path.join(dirpath, fn)
+    examples = os.path.join(REPO, "examples")
+    for fn in sorted(os.listdir(examples)):
+        if fn.startswith("torch_") and fn.endswith(".py"):
+            yield os.path.join(examples, fn)
     yield os.path.join(REPO, "chip_smoke.py")
 
 
