@@ -9,7 +9,9 @@ BP's two-pass serving path and BP-20 with bf16 messages (phase 9), the
 (phase 10), the BEC link (phase 11), the 5G uplink UCI chain with PC bits
 (phase 12) and the data-parallel and profiling tools over it (phase 13);
 then the entry points a user runs, each in its own process: the headline
-benchmark and the four walkthroughs (phase 14).
+benchmark and the four walkthroughs (phase 14); last the probe kernels of
+``benchmarks/probe_r4.py`` through their entry point (phase 15), which no
+path of the system runs.
 Phases (any failure exits non-zero and prints no result):
 
 1. the card: CUDA must be available; prints the card's name and power
@@ -152,7 +154,18 @@ Phases (any failure exits non-zero and prints no result):
     small sizes (``torch_03`` over every card present, NCCL): each must
     exit 0, print its result lines and launch the kernels of its path
     (``sc_subtree``, ``scl_subtree`` and ``bp``; ``scl_subtree`` and
-    ``sc_subtree``; ``scl_subtree``; ``scl_subtree``).
+    ``sc_subtree``; ``scl_subtree``; ``scl_subtree``);
+15. the probe kernels (``polar_torch.probes``, ``csrc/probes.cu``): every
+    step of the entry point in this process, with the launch counts reset
+    just before and read just after (each kernel launched, none differing
+    from its plain version); each kernel against its plain version at the
+    script's draw and another, 0 elements differing (bit for bit), its ms
+    per launch over 200 launches (CUDA events; the host paces launches this
+    short) and the kernel's own device time (torch.profiler, 20 launches)
+    beside its plain version's, the library
+    call's (``torch.gather`` for ``gather``, ``torch.amin`` for
+    ``reduce``) and its bound; then ``python -m polar_torch.probes`` in
+    its own process, which must exit 0 and print one line a step.
 
 The line before the card's line is one JSON object ``{"kernels": [...]}``
 with each kernel form's launches on its path (``scl_subtree`` static
@@ -165,7 +178,9 @@ that differ in min-sum or, in exact mode, in their decisions; for
 ``scl_subtree`` and ``sc_subtree`` also the BEC blocks checked, and with
 a ``pc_`` prefix the PC path's launches in phase 12, the PC blocks checked
 in phase 3 and the times of one (19, 864) decode), and its time, the
-plain version's time and its bound at the path's shape. The last line
+plain version's time and its bound at the path's shape; then one entry a
+probe (``probe <name>``: launches on phase 15's path, elements checked,
+times at the script's shapes). The last line
 is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
@@ -315,10 +330,10 @@ EXAMPLE_RUNS = (
 )
 ENTRY_TIMEOUT_S = 300
 
-# NVIDIA H100 SXM data sheet: HBM bandwidth and fp32 rate outside the
-# tensor cores, at the full 700 W power limit
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
+# phase 15: the probes' draws (the script's and another); the calls of
+# the profiled loop and of the plain version's timed one
+PROBE_SEEDS = (0, 11)
+PROBE_FEW_REPS = 20
 SMEM_OPT_IN = 232448                # shared memory a block may opt in to
 
 
@@ -366,15 +381,6 @@ def bp_bf16_resources(lib):
             out.append(f"bp_kernel<{m[1]}, {lattice}, bf16>: "
                        f"{line.split(': ', 1)[1]}")
     return out or ["bf16 instances: resource usage not measured"]
-
-
-def bound_ms(n_bytes, n_ops):
-    """(least time in ms, "bytes" or "operations") on the card's data-sheet
-    rates."""
-    bytes_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
-    ops_ms = 1e3 * n_ops / FP32_OPS_PER_S
-    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
-                                   else "operations")
 
 
 def binomial_gate(name, errors, blocks, key):
@@ -592,18 +598,9 @@ def recorder(calls, subtree):
 
 def cuda_ms(fn, reps):
     """Mean device time of ``fn()`` over ``reps`` calls after one warm-up,
-    from CUDA events."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    from CUDA events (``polar_torch.utils.profiling.cuda_ms``)."""
+    from polar_torch.utils.profiling import cuda_ms as mean_device_ms
+    return mean_device_ms(fn, reps)
 
 
 def profile_step(model, gen, top=8, ebno_db=EBNO_MAIN_DB):
@@ -634,6 +631,26 @@ def profile_step(model, gen, top=8, ebno_db=EBNO_MAIN_DB):
         f"{busy:.3f} ms ({busy / wall_ms:.1%})")
     for ms, key, count in rows[:top]:
         log(f"  {ms:9.3f} ms  {count:4d}x  {key[:90]}")
+
+
+def kernel_device_ms(fn, reps, match):
+    """Mean device time of the kernels whose name holds ``match`` over
+    ``reps`` calls of ``fn`` (torch.profiler), without the host's pacing
+    of back-to-back launches; None where the profiler saw none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and match in e.key]
+    count = sum(e.count for e in events)
+    return (sum(e.self_device_time_total for e in events) / 1e3 / count
+            if count else None)
 
 
 def kern_phase(dev, gen, card, reset_counts, counts):
@@ -1051,6 +1068,100 @@ def entry_points_phase(card, info_bps):
     return row
 
 
+def probes_phase(dev, card, reset_counts, counts):
+    """Phase 15: the probe kernels of ``polar_torch.probes``. Their path,
+    every step of the entry point (``run_step``), with the launch counts
+    reset just before and read just after: each kernel launched, 0
+    elements differing from its plain version. Then each kernel against
+    its plain version at the script's draw and another (0 differing
+    elements), its ms per launch beside the plain version's, the library
+    call's where one exists, and the bound; last ``python -m
+    polar_torch.probes`` in its own process, which must exit 0 and print
+    one line a step. Returns the probes' ``kernels`` entries."""
+    import torch
+    from polar_torch import probes
+    from polar_torch.utils.kernel_work import bound_ms, probe_work
+    t0 = t_phase = time.perf_counter()
+    reset_counts()
+    rows = [probes.run_step(step) for step in probes.STEPS]
+    run = counts()
+    launches = {name: run[f"probe {name}"] for name in probes.PROBES}
+    for row in rows:
+        results = ([row[p] for p in probes.BF16] if row["step"] == "bf16"
+                   else [row])
+        if any(r["mismatches"] for r in results):
+            raise AssertionError(f"phase 15: a probe differs: {row}")
+    if not all(launches.values()):
+        raise AssertionError(f"phase 15: a probe did not launch: {launches}")
+    log(f"phase 15: every step of polar_torch.probes "
+        f"({time.perf_counter() - t0:.1f} s), launches {launches}")
+
+    # the library calls that compute a probe's function in one call: the
+    # gather's pointers already int64; amin writes [1, cols] (the
+    # broadcast is a view)
+    def library(name, args):
+        if name == "gather":
+            ptr = args[1].long()
+            return lambda: torch.gather(args[0], 0, ptr)
+        if name == "reduce":
+            return lambda: torch.amin(args[0], dim=0, keepdim=True)
+        return None
+
+    entries = []
+    for name in probes.PROBES:
+        step = "bf16" if name in probes.BF16 else f"mini:{name}"
+        wrapper, plain = probes.WRAPPERS[name], probes.PLAIN[name]
+        checked, max_abs = 0, 0.0
+        for seed in PROBE_SEEDS:
+            args = tuple(a.to(dev) for a in probes.step_inputs(step,
+                                                               seed)[name])
+            got, want = wrapper(*args), plain(*args)
+            torch.cuda.synchronize()
+            n_bad = probes.differing(want, got)
+            if n_bad:
+                raise AssertionError(f"phase 15: {name} differs from its "
+                                     f"plain version on {n_bad} elements "
+                                     f"(seed {seed})")
+            checked += got.numel()
+            max_abs = max(max_abs, (want.double() - got.double()).abs()
+                          .max().item())
+        args = tuple(a.to(dev) for a in probes.step_inputs(step)[name])
+        k_ms = cuda_ms(lambda: wrapper(*args), probes.REPS)
+        dev_ms = kernel_device_ms(lambda: wrapper(*args), PROBE_FEW_REPS,
+                                  "probe_")
+        p_ms = cuda_ms(lambda: plain(*args), PROBE_FEW_REPS)
+        lib = library(name, args)
+        lib_ms = cuda_ms(lib, probes.REPS) if lib else None
+        bnd, by = bound_ms(*probe_work(name, *args))
+        entries.append(dict(
+            name=f"probe {name}", route="cuda",
+            source="polar_torch/csrc/probes.cu",
+            replaces=f"benchmarks/probe_r4.py:{probes.REPLACES[name]}",
+            launches=launches[name], max_abs_err=max_abs,
+            mismatch_elements=0, checked_elements=checked, ms=k_ms,
+            plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=lib_ms,
+            device_ms=dev_ms))
+        log(f"phase 15: {name}: {k_ms:.4f} ms a launch, the kernel alone "
+            f"{'not measured' if dev_ms is None else f'{dev_ms:.4f}'} "
+            f"(plain {p_ms:.4f}, library "
+            f"{'none' if lib_ms is None else f'{lib_ms:.4f}'}), bound "
+            f"{bnd:.6f} ms ({by}); {checked} elements, 0 differ [{card}]")
+
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "polar_torch.probes"],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=ENTRY_TIMEOUT_S)
+    lines = out.stdout.strip().splitlines()
+    steps = [json.loads(line).get("step") for line in lines]
+    if out.returncode != 0 or steps != list(probes.STEPS):
+        raise AssertionError(f"polar_torch.probes exited {out.returncode}, "
+                             f"steps {steps}: {out.stderr[-3000:]}")
+    log(f"phase 15: python -m polar_torch.probes "
+        f"({time.perf_counter() - t0:.1f} s): {len(lines)} lines, exit 0; "
+        f"the phase {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
 def bec_link_phase(dev, gen, card, encoder, frozen, reset_counts, counts):
     """Phase 11: ``SystemBECModel`` with the CLI's SC and SCL-8 decoders on
     the k=512 n=1024 code through ``sim_ber``, each BLER against its
@@ -1145,8 +1256,8 @@ def main():
     from polar_torch.ops.channels import BinaryErasureChannel
     from polar_torch.ops.source import binary_source
     from polar_torch.utils.kernel_work import (
-        bp_work, launch_counts as counts, reset_launch_counts as reset_counts,
-        sc_subtree_work, subtree_work)
+        bound_ms, bp_work, launch_counts as counts,
+        reset_launch_counts as reset_counts, sc_subtree_work, subtree_work)
 
     # ---- phase 1: the card ----
     kind = torch.cuda.get_device_name(0)
@@ -1158,7 +1269,7 @@ def main():
 
     # ---- phase 2: build every kernel of the paths, compilers in parallel
     t0 = time.perf_counter()
-    kernels_built = ("scl_subtree", "sc_subtree", "bp")
+    kernels_built = ("scl_subtree", "sc_subtree", "bp", "probes")
     libs = _build.build([(name, "cuda") for name in kernels_built])
     for name in kernels_built:
         _build.load(name, "cuda")
@@ -1801,7 +1912,7 @@ def main():
     # the redesigned BP and SC kernels: resources, resident blocks per SM,
     # BP's launch plans and SC's time at other launch choices
     log("phase 7: bp and sc_subtree kernel resources:")
-    for line in resource_usage(libs[1:]):
+    for line in resource_usage(libs[1:3]):
         log(f"  {line}")
     bp_lib, sc_lib = _build.load("bp", "cuda"), _build.load("sc_subtree",
                                                              "cuda")
@@ -2004,6 +2115,9 @@ def main():
     # ---- phase 14: the entry points, each in its own process ----
     bench_row = entry_points_phase(card, info_bps)
 
+    # ---- phase 15: the probe kernels ----
+    probe_entries = probes_phase(dev, card, reset_counts, counts)
+
     def entry(name, source, replaces, launches, c, times, **extra):
         return dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=launches,
@@ -2047,6 +2161,7 @@ def main():
                   f"{k}_no_early_stop": v
                   for k, v in bp16_times[False].items()}),
               msg_dtype="bfloat16"),
+        *probe_entries,
     ]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}; main path {info_bps:.6g} info bit/s, "

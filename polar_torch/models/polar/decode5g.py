@@ -27,7 +27,9 @@ class Polar5GDecoder:
     ``crc_status[...]`` with ``return_crc_status``), ``k`` and ``n`` the
     encoder's targets. ``dec_type`` is ``"SC"``, ``"SCL"`` (CA-SCL) or
     ``"hybSCL"`` (SC first, CA-SCL on the blocks whose CRC fails). It runs
-    on the encoder's device; ``lower_stages`` is the SCL subtree depth."""
+    on the encoder's device; ``lower_stages`` is the SCL subtree depth.
+    ``requires_host`` is its polar decoder's, as in the JAX package
+    (informational: the port's eager chain does not read it)."""
 
     def __init__(self, enc_polar: Polar5GEncoder, dec_type: str = "SC",
                  list_size: int = 8, return_crc_status: bool = False,
@@ -75,6 +77,7 @@ class Polar5GDecoder:
                 crc_degree=crc_degree, mode=mode, ind_iil_inv=iil_inv,
                 pc_pos=pc_pos, use_fast_scl=use_fast_scl,
                 lower_stages=lower_stages, device=self.device)
+        self.requires_host = getattr(self._polar_dec, "requires_host", False)
         self._dec_crc = CRCDecoder(enc_polar.enc_crc)
 
     def rate_recover(self, llr_ch):

@@ -34,7 +34,14 @@ class HybridSCLDecoder:
     ``schedule`` goes to both decoders (it resolves the SCL decoder's
     ``use_fast_scl=None``; the port's SC has one schedule);
     ``lower_stages`` is the SCL decoder's subtree depth. ``pc_pos`` goes
-    to both decoders (PC-aided SC and CA-SCL)."""
+    to both decoders (PC-aided SC and CA-SCL).
+
+    ``requires_host`` is True, as in the JAX package, where it keeps this
+    decoder out of one jitted chain (the CRC mask goes to the host to size
+    the SCL re-decode). The port's eager chain does not read it; it is
+    informational."""
+
+    requires_host = True
 
     def __init__(self, frozen_pos, n: int, list_size: int = 8,
                  crc_degree=None, mode: str = "minsum",

@@ -67,7 +67,9 @@ class PolarSCLDecoder:
     2^b-leaf subtree. ``crc_degree``, ``ind_iil_inv``,
     ``return_crc_status``, ``use_hybrid_sc`` and ``pc_pos`` as in the
     module docstring; ``k`` is then the length of payload and CRC (PC
-    positions left out)."""
+    positions left out). ``requires_host`` is ``use_hybrid_sc``, as in the
+    JAX package (informational: the port's eager chain does not read
+    it)."""
 
     def __init__(self, frozen_pos, n: int, list_size: int = 8,
                  crc_degree=None, use_hybrid_sc: bool = False,
@@ -118,6 +120,7 @@ class PolarSCLDecoder:
         self.spc_min_stage = spc_min_stage
         self.output_dtype = output_dtype
         self.return_crc_status = bool(return_crc_status)
+        self.requires_host = bool(use_hybrid_sc)
         self._hybrid = None
         if use_hybrid_sc:
             from polar_torch.models.polar.hybrid import HybridSCLDecoder

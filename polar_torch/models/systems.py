@@ -1,5 +1,10 @@
 """End-to-end link models: source -> encode -> (map) -> channel -> (demap)
--> decode, over AWGN or the binary erasure channel."""
+-> decode, over AWGN or the binary erasure channel.
+
+Each model's ``requires_host`` is its decoder's (False where the decoder
+has none), as in the JAX package, whose models and ``sim_ber`` keep such a
+decoder out of one jitted program. The port runs eagerly and does not read
+it; it is informational."""
 
 import torch
 
@@ -29,6 +34,7 @@ class SystemAWGNModel:
         self.awgn_channel = AWGN()
         self.encoder = encoder
         self.decoder = decoder
+        self.requires_host = getattr(decoder, "requires_host", False)
 
     def front(self, generator: torch.Generator, batch_size: int, ebno_db):
         """Source -> encode -> map -> AWGN -> demap. Returns
@@ -69,6 +75,7 @@ class SystemBECModel:
         self.channel = BinaryErasureChannel(return_llrs=True)
         self.encoder = encoder
         self.decoder = decoder
+        self.requires_host = getattr(decoder, "requires_host", False)
 
     def front(self, generator: torch.Generator, batch_size: int, pe):
         """Source -> encode -> BEC. Returns ``(bits, codewords, llr)``."""

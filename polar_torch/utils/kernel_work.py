@@ -6,12 +6,25 @@ move and the f32 operations it must at least do, from its arguments.
 runs while it counts, since a kernel called through ``ctypes`` is no
 dispatcher op that it could see. Each wrapper reports its launches through
 ``report``, which costs nothing while no estimate runs. ``launch_counts``
-and ``reset_launch_counts`` read and clear the wrappers' launch counts.
+and ``reset_launch_counts`` read and clear the wrappers' launch counts;
+``bound_ms`` turns a count into the least time on the card.
 """
 
 # f32 operations per element, as the kernels' routines spend them
 OPS_F = {"minsum": 8, "exact": 20}   # clip x2, |.|, min, sign product
 OPS_G, OPS_SOFTPLUS, OPS_XOR = 2, 6, 1
+
+# NVIDIA H100 SXM data sheet: HBM bandwidth and fp32 rate outside the
+# tensor cores, at the full 700 W power limit
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+
+# the probes' operations per element (polar_torch/probes.py): k_sweepcombo
+# and k_big spend 5 a stage (two |.|, the min, two sign products)
+PROBE_OPS = {"fori": 5, "bcast": 1, "roll": 1, "reduce": 1, "shift": 3,
+             "scratchfori": 10, "sweepcombo": 4 * 3 * 5, "arith": 5,
+             "gather": 0, "int8": 3}
+PROBE_SWEEPS = {"bigsweep": 4, "bigsweep_noloop": 1}
 
 # the running estimates' counters (objects with a ``flops`` attribute)
 _estimates = []
@@ -105,24 +118,58 @@ def bp_work(n, bs, sweeps, checks, mode, msf):
     return n_bytes, sweeps * per_sweep + checks * per_check
 
 
+def probe_work(name, x, ptr=None):
+    """(bytes, operations) one launch of probe ``name`` on ``x`` (and
+    ``k_gather``'s pointers ``ptr``) must at least move and do: ``x`` read
+    once (``k_bcast`` reads one 128-column block) and its output written
+    once; ``k_big`` 8 stages of its 1,024-row scratch a sweep, 5
+    operations an element and stage. The operations are the f32 (or, for
+    ``int8``, integer) ones of ``PROBE_OPS`` over the output."""
+    n_out = x.numel() * x.element_size()
+    n_in = n_out
+    if name == "bcast":
+        n_in = x.shape[0] * 128 * x.element_size()
+    if ptr is not None:
+        n_in += ptr.numel() * ptr.element_size()
+    if name in PROBE_SWEEPS:
+        return n_in + n_out, PROBE_SWEEPS[name] * 8 * 1024 * x.shape[1] * 5
+    return n_in + n_out, PROBE_OPS[name] * x.numel()
+
+
+def bound_ms(n_bytes, n_ops):
+    """(least time in ms, "bytes" or "operations") of a call that moves
+    ``n_bytes`` and does ``n_ops`` f32 operations, on the card's
+    data-sheet rates."""
+    bytes_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * n_ops / FP32_OPS_PER_S
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
 def launch_counts():
     """Each kernel form's launch count, as its wrapper keeps it. The
     ``scl_subtree`` forms overlap: a traced launch at L=32 counts as
     traced and as wide."""
+    from polar_torch import probes
     from polar_torch.models.polar import cuda_bp, cuda_sc, cuda_scl
     return {"scl_subtree": cuda_scl.scl_subtree.launches,
             "scl_subtree traced": cuda_scl.scl_subtree.launches_traced,
             "scl_subtree wide": cuda_scl.scl_subtree.launches_wide,
             "sc_subtree": cuda_sc.sc_subtree.launches,
             "bp": cuda_bp.bp_decode.launches,
-            "bp bf16": cuda_bp.bp_decode.launches_bf16}
+            "bp bf16": cuda_bp.bp_decode.launches_bf16,
+            **{f"probe {name}": probes.WRAPPERS[name].launches
+               for name in probes.PROBES}}
 
 
 def reset_launch_counts():
     """Every kernel wrapper's launch counts to 0."""
+    from polar_torch import probes
     from polar_torch.models.polar import cuda_bp, cuda_sc, cuda_scl
     for name in ("launches", "launches_traced", "launches_wide"):
         setattr(cuda_scl.scl_subtree, name, 0)
     cuda_sc.sc_subtree.launches = 0
     cuda_bp.bp_decode.launches = 0
     cuda_bp.bp_decode.launches_bf16 = 0
+    for wrapper in probes.WRAPPERS.values():
+        wrapper.launches = 0

@@ -1,8 +1,9 @@
 """Complexity accounting and profiling tools: closed-form element-op
 counts of one SC, SCL or BP decode and the one-line meter the CLI prints
-per decoder; ``trace``, a ``torch.profiler`` trace of a block of code; and
+per decoder; ``trace``, a ``torch.profiler`` trace of a block of code;
 ``flop_estimate``, the operations of one call counted as XLA's cost
-analysis counts them."""
+analysis counts them; and ``cuda_ms``, a call's mean device time on the
+card."""
 
 import contextlib
 import os
@@ -211,3 +212,18 @@ def flop_estimate(fn, *args) -> float:
     finally:
         kernel_work._estimates.remove(est)
     return float(est.flops)
+
+
+def cuda_ms(fn, reps):
+    """Mean device time of ``fn()`` over ``reps`` calls after one warm-up,
+    from CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps

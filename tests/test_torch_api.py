@@ -134,3 +134,35 @@ def test_hybrid_passes_schedule():
     with pytest.raises(ValueError, match="schedule"):
         HybridSCLDecoder(frozen, n, device="cpu",
                          **dict(kw, schedule="fused"))
+
+
+def _with_requires_host(pkg, config, **dev):
+    """The object of ``config`` built from ``pkg`` (``polar_tpu`` or
+    ``polar_torch``, with ``dev`` its device keyword)."""
+    n, k = 64, 40
+    frozen, _ = pkg.generate_5g_ranking(k, n)
+    scl = dict(list_size=8, crc_degree="CRC11")
+    if config == "scl":
+        return pkg.PolarSCLDecoder(frozen, n, list_size=8, **dev)
+    if config == "scl_hybrid":
+        return pkg.PolarSCLDecoder(frozen, n, use_hybrid_sc=True, **scl,
+                                   **dev)
+    if config == "hybrid":
+        return pkg.HybridSCLDecoder(frozen, n, **scl, **dev)
+    system, dec_type = config.split("_")
+    enc = pkg.Polar5GEncoder(40, 100, **dev)
+    dec = pkg.Polar5GDecoder(enc, dec_type=dec_type, list_size=8)
+    if system == "5g":
+        return dec
+    model = (pkg.SystemAWGNModel if system == "awgn" else pkg.SystemBECModel)
+    return model(100, 40, enc, dec)
+
+
+@pytest.mark.parametrize("config", [
+    "scl", "scl_hybrid", "hybrid", "5g_SC", "5g_SCL", "5g_hybSCL",
+    "awgn_SCL", "awgn_hybSCL", "bec_SC", "bec_hybSCL"])
+def test_requires_host_equals_jax(config):
+    want = _with_requires_host(polar_tpu, config).requires_host
+    got = _with_requires_host(pt, config, device="cpu").requires_host
+    assert got == want
+    assert want == config.endswith(("hybrid", "hybSCL"))

@@ -5,7 +5,8 @@ and in global memory, f32 and bf16 messages), and the decoders (fast and plain S
 CA-SCL and hybrid chain, BP single- and two-pass) on the card against the
 same decoders on the CPU; OSD and the dense-G decoder, the BEC channel,
 and the SC and SCL decoders on BEC logits, on the card against the CPU;
-the headline benchmark (``python -m polar_torch.bench``) at a small size.
+the headline benchmark (``python -m polar_torch.bench``) at a small size;
+the probe kernels (``polar_torch.probes``) against their plain versions.
 Every test here needs a CUDA card and skips without one.
 
 The file imports no JAX, so it also runs where JAX is not installed:
@@ -662,3 +663,32 @@ def test_bench_on_card(cuda):
     assert row["value"] > 0 and row["ms_per_step"] > 0
     assert row["scl_subtree_launches"] >= 3
     assert row["device"] != "cpu" and row["lower_stages"] == 8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["fori", "bcast", "roll", "reduce", "shift",
+                                  "scratchfori", "sweepcombo", "bigsweep",
+                                  "bigsweep_noloop", "arith", "gather",
+                                  "int8"])
+def test_probe_kernel_equals_plain_on_card(cuda, name):
+    """Each probe kernel against its plain version on the card, bit for
+    bit, at the script's inputs, another draw and (f32 probes) a wider
+    input than the script's four blocks."""
+    from polar_torch import probes
+    step = "bf16" if name in probes.BF16 else f"mini:{name}"
+    cases = [probes.step_inputs(step, seed)[name] for seed in (0, 7)]
+    if name in probes.MINI:
+        cases.append((torch.from_numpy(np.random.default_rng(3).normal(
+            0, 2, (64, 6 * 128)).astype(np.float32)),))
+    for args in cases:
+        args = tuple(a.to(cuda) for a in args)
+        before = probes.WRAPPERS[name].launches
+        got = probes.WRAPPERS[name](*args)
+        torch.cuda.synchronize()
+        assert probes.WRAPPERS[name].launches == before + 1
+        assert got.device == args[0].device
+        assert probes.differing(probes.PLAIN[name](*args), got) == 0
+        # the host build agrees too
+        cpu = tuple(a.cpu() for a in args)
+        assert probes.differing(probes.probe_host(name, *cpu),
+                                got.cpu()) == 0
