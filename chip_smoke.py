@@ -156,13 +156,13 @@ Phases (any failure exits non-zero and prints no result):
     (``sc_subtree``, ``scl_subtree`` and ``bp``; ``scl_subtree`` and
     ``sc_subtree``; ``scl_subtree``; ``scl_subtree``);
 15. the probe kernels (``polar_torch.probes``, ``csrc/probes.cu``): every
-    step of the entry point in this process, with the launch counts reset
-    just before and read just after (each kernel launched, none differing
-    from its plain version); each kernel against its plain version at the
-    script's draw and another, 0 elements differing (bit for bit), its ms
-    per launch over 200 launches (CUDA events; the host paces launches this
-    short) and the kernel's own device time (torch.profiler, 20 launches)
-    beside its plain version's, the library
+    step of the entry point in this process, with the probes' launch
+    counts reset just before and read just after: each kernel launched,
+    0 elements differing from its plain version at the script's draw (bit
+    for bit), its ms per launch over 200 launches (CUDA events; the host
+    paces launches this short). Then each kernel against its plain version
+    at another draw, 0 elements differing; the kernel's own device time
+    (torch.profiler, 20 launches) beside its plain version's, the library
     call's (``torch.gather`` for ``gather``, ``torch.amin`` for
     ``reduce``) and its bound; then ``python -m polar_torch.probes`` in
     its own process, which must exit 0 and print one line a step.
@@ -179,8 +179,8 @@ that differ in min-sum or, in exact mode, in their decisions; for
 a ``pc_`` prefix the PC path's launches in phase 12, the PC blocks checked
 in phase 3 and the times of one (19, 864) decode), and its time, the
 plain version's time and its bound at the path's shape; then one entry a
-probe (``probe <name>``: launches on phase 15's path, elements checked,
-times at the script's shapes). The last line
+probe (``probe <name>``: launches on phase 15's path, elements checked
+and differing over both draws, times at the script's shapes). The last line
 is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
@@ -330,9 +330,10 @@ EXAMPLE_RUNS = (
 )
 ENTRY_TIMEOUT_S = 300
 
-# phase 15: the probes' draws (the script's and another); the calls of
-# the profiled loop and of the plain version's timed one
-PROBE_SEEDS = (0, 11)
+# phase 15: the probes' second draw (the entry point's path runs the
+# script's); the calls of the profiled loop and of the plain version's
+# timed one
+PROBE_OTHER_SEED = 11
 PROBE_FEW_REPS = 20
 SMEM_OPT_IN = 232448                # shared memory a block may opt in to
 
@@ -438,6 +439,7 @@ def osd_split_ms(osd, llr, reps):
     """Device ms of one OSD decode of ``llr``: the whole decode, its
     reliability sort and elimination (``basis``) and its pattern sweep
     (``sweep``), CUDA events."""
+    from polar_torch.utils.profiling import cuda_ms
     total = cuda_ms(lambda: osd.decode(llr), reps=reps)
     front = cuda_ms(lambda: osd.basis(llr), reps=reps)
     _, llr_sort, c, gm_mrb = osd.basis(llr)
@@ -596,13 +598,6 @@ def recorder(calls, subtree):
     return recording
 
 
-def cuda_ms(fn, reps):
-    """Mean device time of ``fn()`` over ``reps`` calls after one warm-up,
-    from CUDA events (``polar_torch.utils.profiling.cuda_ms``)."""
-    from polar_torch.utils.profiling import cuda_ms as mean_device_ms
-    return mean_device_ms(fn, reps)
-
-
 def profile_step(model, gen, top=8, ebno_db=EBNO_MAIN_DB):
     """Device time by kernel over one step of ``model`` at ``ebno_db``
     (torch.profiler; by default the main path's), and the device's busy
@@ -665,6 +660,7 @@ def kern_phase(dev, gen, card, reset_counts, counts):
     from polar_torch.models.polar.dense import DenseKernelEncoder
     from polar_torch.models.polar.encode import PolarEncoder
     from polar_torch.sim import sim_ber
+    from polar_torch.utils.profiling import cuda_ms
 
     kern_cfg = PolarConfig(bs=KERN_BS, mc_iter=KERN_MC_ITER,
                            target_block_errs=None, seed=SEED,
@@ -834,6 +830,7 @@ def uci_phase(dev, gen, card, reset_counts, counts, kernel_times):
     from polar_torch.models.polar.encode import Polar5GEncoder
     from polar_torch.models.systems import SystemAWGNModel
     from polar_torch.sim import sim_ber
+    from polar_torch.utils.profiling import cuda_ms
 
     totals = {"scl_subtree": 0, "sc_subtree": 0}
     times, scl_model = {}, None
@@ -1068,29 +1065,29 @@ def entry_points_phase(card, info_bps):
     return row
 
 
-def probes_phase(dev, card, reset_counts, counts):
+def probes_phase(dev, card):
     """Phase 15: the probe kernels of ``polar_torch.probes``. Their path,
-    every step of the entry point (``run_step``), with the launch counts
-    reset just before and read just after: each kernel launched, 0
-    elements differing from its plain version. Then each kernel against
-    its plain version at the script's draw and another (0 differing
-    elements), its ms per launch beside the plain version's, the library
-    call's where one exists, and the bound; last ``python -m
-    polar_torch.probes`` in its own process, which must exit 0 and print
-    one line a step. Returns the probes' ``kernels`` entries."""
+    every step of the entry point (``run_step``), with the probes' launch
+    counts reset just before and read just after: each kernel launched,
+    0 elements differing from its plain version at the script's draw, its
+    ms per launch. Then each kernel against its plain version at another
+    draw (0 differing elements), its time alone under ``torch.profiler``,
+    the plain version's and the library call's where one exists, and the
+    bound; last ``python -m polar_torch.probes`` in its own process, which
+    must exit 0 and print one line a step. Returns the probes' ``kernels``
+    entries."""
     import torch
     from polar_torch import probes
     from polar_torch.utils.kernel_work import bound_ms, probe_work
+    from polar_torch.utils.profiling import cuda_ms
     t0 = t_phase = time.perf_counter()
-    reset_counts()
+    probes.reset_launch_counts()
     rows = [probes.run_step(step) for step in probes.STEPS]
-    run = counts()
-    launches = {name: run[f"probe {name}"] for name in probes.PROBES}
-    for row in rows:
-        results = ([row[p] for p in probes.BF16] if row["step"] == "bf16"
-                   else [row])
-        if any(r["mismatches"] for r in results):
-            raise AssertionError(f"phase 15: a probe differs: {row}")
+    launches = probes.launch_counts()
+    on_path = {name: r for row in rows
+               for name, r in probes.results(row).items()}
+    if any(r["mismatches"] for r in on_path.values()):
+        raise AssertionError(f"phase 15: a probe differs: {rows}")
     if not all(launches.values()):
         raise AssertionError(f"phase 15: a probe did not launch: {launches}")
     log(f"phase 15: every step of polar_torch.probes "
@@ -1111,22 +1108,21 @@ def probes_phase(dev, card, reset_counts, counts):
     for name in probes.PROBES:
         step = "bf16" if name in probes.BF16 else f"mini:{name}"
         wrapper, plain = probes.WRAPPERS[name], probes.PLAIN[name]
-        checked, max_abs = 0, 0.0
-        for seed in PROBE_SEEDS:
-            args = tuple(a.to(dev) for a in probes.step_inputs(step,
-                                                               seed)[name])
-            got, want = wrapper(*args), plain(*args)
-            torch.cuda.synchronize()
-            n_bad = probes.differing(want, got)
-            if n_bad:
-                raise AssertionError(f"phase 15: {name} differs from its "
-                                     f"plain version on {n_bad} elements "
-                                     f"(seed {seed})")
-            checked += got.numel()
-            max_abs = max(max_abs, (want.double() - got.double()).abs()
-                          .max().item())
+        args = tuple(a.to(dev) for a in probes.step_inputs(
+            step, PROBE_OTHER_SEED)[name])
+        got, want = wrapper(*args), plain(*args)
+        torch.cuda.synchronize()
+        n_bad = probes.differing(want, got)
+        if n_bad:
+            raise AssertionError(f"phase 15: {name} differs from its plain "
+                                 f"version on {n_bad} elements (seed "
+                                 f"{PROBE_OTHER_SEED})")
+        n_bad += on_path[name]["mismatches"]
+        checked = 2 * got.numel()               # both draws' shapes agree
+        max_abs = max(on_path[name]["max_abs_err"],
+                      (want.double() - got.double()).abs().max().item())
         args = tuple(a.to(dev) for a in probes.step_inputs(step)[name])
-        k_ms = cuda_ms(lambda: wrapper(*args), probes.REPS)
+        k_ms = on_path[name]["ms"]
         dev_ms = kernel_device_ms(lambda: wrapper(*args), PROBE_FEW_REPS,
                                   "probe_")
         p_ms = cuda_ms(lambda: plain(*args), PROBE_FEW_REPS)
@@ -1138,14 +1134,15 @@ def probes_phase(dev, card, reset_counts, counts):
             source="polar_torch/csrc/probes.cu",
             replaces=f"benchmarks/probe_r4.py:{probes.REPLACES[name]}",
             launches=launches[name], max_abs_err=max_abs,
-            mismatch_elements=0, checked_elements=checked, ms=k_ms,
+            mismatch_elements=n_bad, checked_elements=checked, ms=k_ms,
             plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=lib_ms,
             device_ms=dev_ms))
         log(f"phase 15: {name}: {k_ms:.4f} ms a launch, the kernel alone "
             f"{'not measured' if dev_ms is None else f'{dev_ms:.4f}'} "
             f"(plain {p_ms:.4f}, library "
             f"{'none' if lib_ms is None else f'{lib_ms:.4f}'}), bound "
-            f"{bnd:.6f} ms ({by}); {checked} elements, 0 differ [{card}]")
+            f"{bnd:.6f} ms ({by}); {checked} elements, {n_bad} differ "
+            f"[{card}]")
 
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-m", "polar_torch.probes"],
@@ -1258,6 +1255,7 @@ def main():
     from polar_torch.utils.kernel_work import (
         bound_ms, bp_work, launch_counts as counts,
         reset_launch_counts as reset_counts, sc_subtree_work, subtree_work)
+    from polar_torch.utils.profiling import cuda_ms
 
     # ---- phase 1: the card ----
     kind = torch.cuda.get_device_name(0)
@@ -2116,7 +2114,7 @@ def main():
     bench_row = entry_points_phase(card, info_bps)
 
     # ---- phase 15: the probe kernels ----
-    probe_entries = probes_phase(dev, card, reset_counts, counts)
+    probe_entries = probes_phase(dev, card)
 
     def entry(name, source, replaces, launches, c, times, **extra):
         return dict(name=name, route="cuda", source=source,

@@ -31,13 +31,12 @@ loop. ``chip_smoke.py`` times its main path through the same
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 
 import torch
 
-from polar_torch._device import resolve_device
+from polar_torch._device import card_info, resolve_device
 from polar_torch.models.polar.construction import generate_5g_ranking
 from polar_torch.models.polar.encode import PolarEncoder
 from polar_torch.models.polar.scl import PolarSCLDecoder
@@ -100,19 +99,6 @@ def time_steps(model, generator, bs, ebno_db, warmup, iters):
     step_s = (time.perf_counter() - t0) / iters
     bit_errors, block_errors = errors.tolist()
     return step_s, bit_errors, block_errors
-
-
-def card_info(device):
-    """(name, power limit) of ``device`` as ``nvidia-smi --query-gpu=
-    name,power.limit`` prints them; ``("cpu", None)`` on the CPU."""
-    if device.type != "cuda":
-        return "cpu", None
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()
-    name, power = out[min(device.index, len(out) - 1)].rsplit(",", 1)
-    return name.strip(), power.strip()
 
 
 def check_launches(counts, list_size, fast_scl):

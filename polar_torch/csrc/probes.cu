@@ -10,12 +10,15 @@
 // arithmetic lives in probes.cuh and is shared with the host build that
 // the CPU tests run.
 //
-// What bounds them: bytes, but at these sizes neither bound is in reach.
-// An f32 probe moves 256 KiB (0.078 us at 3.35 TB/s); k_big does about
-// 8.4e7 operations in its four sweeps (1.25 us at 67 TFLOP/s) and is bound
-// by them; a bf16 or int8 probe moves 16 KiB. A launch costs several
-// microseconds, so launch latency sets every time, and the design aims
-// only at being plainly right.
+// What bounds them: bytes. An f32 probe moves 256 KiB (0.078 us at 3.35
+// TB/s), a bf16 or int8 probe 16 KiB. The stage sweeps need little
+// arithmetic: the two rows of a pair take one value, so each group of rows
+// that the stages pair inside (8 rows for k_sweepcombo, the 64-row block
+// for k_big, whose 16 scratch tiles stay equal) ends as its least |x|,
+// whatever the sweeps. These kernels do the work op by op as the TPU
+// kernels do, k_big over all 16 tiles (about 8.4e7 operations in four
+// sweeps), so they run far above that bound; a launch costs several
+// microseconds besides. The design aims only at being plainly right.
 //
 // Design. Every probe mixes rows of one column only (the roll, the
 // reduction, the row-bit selects and the stage partners), so a thread owns

@@ -19,14 +19,16 @@ card's cost of each construct alone.
 
 Each step prints one JSON line: the step, the card's name and power limit,
 and per probe the card's ms per launch (CUDA events; null on the CPU), the
-elements whose bits differ from the plain version and the bound. A failure
+elements whose bits differ from the plain version, the largest absolute
+difference and the bound. A failure
 or a differing element exits non-zero.
 
 * Each probe's wrapper (``fori``, ``bcast``, ..., ``int8``, also in
   ``WRAPPERS``) launches the kernel (``csrc/probes.cu``) on a CUDA tensor
   and runs the plain version on a CPU one; nothing falls back from one to
-  the other. It counts its launches in ``launches`` and reports each
-  launch's work to a running ``profiling.flop_estimate``.
+  the other. It counts its launches in ``launches`` (``launch_counts``,
+  ``reset_launch_counts``) and reports each launch's work to a running
+  ``profiling.flop_estimate``.
 * ``<name>_plain`` is the plain PyTorch version, on any device. It rounds
   as the JAX package's kernel does on the CPU (in interpret mode): the
   five adds of ``k_fori`` in order (``6 x`` rounds differently),
@@ -51,8 +53,7 @@ import numpy as np
 import torch
 
 from polar_torch import _build
-from polar_torch._device import resolve_device
-from polar_torch.bench import card_info
+from polar_torch._device import card_info, resolve_device
 from polar_torch.ops.fg import fma_f32
 from polar_torch.utils import kernel_work
 from polar_torch.utils.profiling import cuda_ms
@@ -245,6 +246,17 @@ WRAPPERS = {name: _wrapper(name) for name in PROBES}
  bigsweep_noloop, arith, gather, int8) = WRAPPERS.values()
 
 
+def launch_counts():
+    """Each probe kernel's launch count, as its wrapper keeps it."""
+    return {name: WRAPPERS[name].launches for name in PROBES}
+
+
+def reset_launch_counts():
+    """Every probe wrapper's launch count to 0."""
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
+
+
 def probe_host(name, *args):
     """Probe ``name`` through the kernels' routines built for the CPU
     (g++), CPU tensors only; for the tests. The main path never calls
@@ -320,9 +332,12 @@ def run_step(step, device=None, seed=0):
         args = tuple(a.to(dev) for a in args)
         wrapper = WRAPPERS[probe]
         got = wrapper(*args)
+        want = PLAIN[probe](*args)
         result = {"ms": (cuda_ms(lambda: wrapper(*args), REPS)
                          if dev.type == "cuda" else None),
-                  "mismatches": differing(PLAIN[probe](*args), got)}
+                  "mismatches": differing(want, got),
+                  "max_abs_err": (want.double() - got.double()).abs().max()
+                  .item()}
         bound, by = kernel_work.bound_ms(*kernel_work.probe_work(probe,
                                                                  *args))
         result.update(bound_ms=bound, bound_by=by)
@@ -331,6 +346,13 @@ def run_step(step, device=None, seed=0):
         else:
             row.update(result)
     return row
+
+
+def results(row):
+    """{probe name: its result} of a ``run_step`` row."""
+    if row["step"] == "bf16":
+        return {probe: row[probe] for probe in BF16}
+    return {row["step"].partition(":")[2]: row}
 
 
 def main(argv=None):
@@ -347,8 +369,7 @@ def main(argv=None):
     for step in args.steps:
         row = run_step(step, args.device)
         print(json.dumps(row), flush=True)
-        results = [row[p] for p in BF16] if step == "bf16" else [row]
-        if any(r["mismatches"] for r in results):
+        if any(r["mismatches"] for r in results(row).values()):
             bad.append(step)
     if bad:
         print(f"probes: kernels differ from their plain versions in {bad}",

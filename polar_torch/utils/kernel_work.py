@@ -6,8 +6,9 @@ move and the f32 operations it must at least do, from its arguments.
 runs while it counts, since a kernel called through ``ctypes`` is no
 dispatcher op that it could see. Each wrapper reports its launches through
 ``report``, which costs nothing while no estimate runs. ``launch_counts``
-and ``reset_launch_counts`` read and clear the wrappers' launch counts;
-``bound_ms`` turns a count into the least time on the card.
+and ``reset_launch_counts`` read and clear the decoder kernels' launch
+counts (the probes keep theirs in ``polar_torch.probes``); ``bound_ms``
+turns a count into the least time on the card.
 """
 
 # f32 operations per element, as the kernels' routines spend them
@@ -19,12 +20,14 @@ OPS_G, OPS_SOFTPLUS, OPS_XOR = 2, 6, 1
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
-# the probes' operations per element (polar_torch/probes.py): k_sweepcombo
-# and k_big spend 5 a stage (two |.|, the min, two sign products)
+# the probes' operations per element (polar_torch/probes.py)
 PROBE_OPS = {"fori": 5, "bcast": 1, "roll": 1, "reduce": 1, "shift": 3,
-             "scratchfori": 10, "sweepcombo": 4 * 3 * 5, "arith": 5,
-             "gather": 0, "int8": 3}
-PROBE_SWEEPS = {"bigsweep": 4, "bigsweep_noloop": 1}
+             "scratchfori": 10, "arith": 5, "gather": 0, "int8": 3}
+# the stage sweeps' row groups: stages 0..g-1 pair rows inside groups of
+# 2^g rows (k_big's stages 6 and 7 pair the equal tiles of its scratch)
+PROBE_GROUP_ROWS = {"sweepcombo": 8, "bigsweep": 64, "bigsweep_noloop": 64}
+# one stage update: two |.|, the min, two sign products
+OPS_MINSUM = 5
 
 # the running estimates' counters (objects with a ``flops`` attribute)
 _estimates = []
@@ -122,17 +125,27 @@ def probe_work(name, x, ptr=None):
     """(bytes, operations) one launch of probe ``name`` on ``x`` (and
     ``k_gather``'s pointers ``ptr``) must at least move and do: ``x`` read
     once (``k_bcast`` reads one 128-column block) and its output written
-    once; ``k_big`` 8 stages of its 1,024-row scratch a sweep, 5
-    operations an element and stage. The operations are the f32 (or, for
-    ``int8``, integer) ones of ``PROBE_OPS`` over the output."""
+    once; the f32 (or, for ``int8``, integer) operations of ``PROBE_OPS``
+    over the output.
+
+    The stage sweeps need far less than their kernels do. The two rows of
+    a pair take one value, so once the stages that pair rows inside a
+    group of ``PROBE_GROUP_ROWS`` rows have run, every row of the group
+    holds the same value (in ``k_big``'s scratch, so does that row in
+    each of the 16 tiles). The next stage pairs two equal values, which
+    gives their |.|, and nothing later changes it. So each group's result
+    is its least |x|, whatever the sweeps (``test_torch_probes`` holds the
+    plain versions to that): g - 1 min-sum updates and one |.| a group of
+    ``x``."""
     n_out = x.numel() * x.element_size()
     n_in = n_out
     if name == "bcast":
         n_in = x.shape[0] * 128 * x.element_size()
     if ptr is not None:
         n_in += ptr.numel() * ptr.element_size()
-    if name in PROBE_SWEEPS:
-        return n_in + n_out, PROBE_SWEEPS[name] * 8 * 1024 * x.shape[1] * 5
+    if name in PROBE_GROUP_ROWS:
+        g = PROBE_GROUP_ROWS[name]
+        return n_in + n_out, x.numel() // g * ((g - 1) * OPS_MINSUM + 1)
     return n_in + n_out, PROBE_OPS[name] * x.numel()
 
 
@@ -150,26 +163,20 @@ def launch_counts():
     """Each kernel form's launch count, as its wrapper keeps it. The
     ``scl_subtree`` forms overlap: a traced launch at L=32 counts as
     traced and as wide."""
-    from polar_torch import probes
     from polar_torch.models.polar import cuda_bp, cuda_sc, cuda_scl
     return {"scl_subtree": cuda_scl.scl_subtree.launches,
             "scl_subtree traced": cuda_scl.scl_subtree.launches_traced,
             "scl_subtree wide": cuda_scl.scl_subtree.launches_wide,
             "sc_subtree": cuda_sc.sc_subtree.launches,
             "bp": cuda_bp.bp_decode.launches,
-            "bp bf16": cuda_bp.bp_decode.launches_bf16,
-            **{f"probe {name}": probes.WRAPPERS[name].launches
-               for name in probes.PROBES}}
+            "bp bf16": cuda_bp.bp_decode.launches_bf16}
 
 
 def reset_launch_counts():
     """Every kernel wrapper's launch counts to 0."""
-    from polar_torch import probes
     from polar_torch.models.polar import cuda_bp, cuda_sc, cuda_scl
     for name in ("launches", "launches_traced", "launches_wide"):
         setattr(cuda_scl.scl_subtree, name, 0)
     cuda_sc.sc_subtree.launches = 0
     cuda_bp.bp_decode.launches = 0
     cuda_bp.bp_decode.launches_bf16 = 0
-    for wrapper in probes.WRAPPERS.values():
-        wrapper.launches = 0

@@ -143,7 +143,6 @@ def test_no_card_raises_without_cpu_flag():
 
 
 def test_launch_counts_read_and_reset_every_wrapper():
-    from polar_torch import probes
     from polar_torch.models.polar import cuda_bp, cuda_sc, cuda_scl
     from polar_torch.utils.kernel_work import (launch_counts,
                                                reset_launch_counts)
@@ -153,9 +152,7 @@ def test_launch_counts_read_and_reset_every_wrapper():
                 (cuda_scl.scl_subtree, "launches_wide", "scl_subtree wide"),
                 (cuda_sc.sc_subtree, "launches", "sc_subtree"),
                 (cuda_bp.bp_decode, "launches", "bp"),
-                (cuda_bp.bp_decode, "launches_bf16", "bp bf16")] + [
-                    (probes.WRAPPERS[name], "launches", f"probe {name}")
-                    for name in probes.PROBES]
+                (cuda_bp.bp_decode, "launches_bf16", "bp bf16")]
     for i, (fn, attr, _) in enumerate(wrappers):
         setattr(fn, attr, i + 1)
     assert launch_counts() == {key: i + 1

@@ -167,10 +167,9 @@ def test_main_on_cpu_prints_one_line_per_step(capsys):
     assert [row["step"] for row in rows] == list(probes.STEPS)
     for row in rows:
         assert (row["device"], row["power_limit"]) == ("cpu", None)
-        results = ([row[p] for p in probes.BF16] if row["step"] == "bf16"
-                   else [row])
-        for r in results:
+        for r in probes.results(row).values():
             assert r["ms"] is None and r["mismatches"] == 0
+            assert r["max_abs_err"] == 0
             assert r["bound_ms"] > 0 and r["bound_by"] in ("bytes",
                                                            "operations")
     assert probes.main(["--device", "cpu", "mini:roll"]) == 0
@@ -217,10 +216,41 @@ def test_probe_work_and_bounds():
     work = {name: kernel_work.probe_work(name, x) for name in probes.MINI}
     assert {work[n][0] for n in probes.MINI if n != "bcast"} == {262144}
     assert work["bcast"][0] == 163840
-    assert work["bigsweep"][1] == 4 * 8 * 1024 * 512 * 5
-    assert work["bigsweep_noloop"][1] == 8 * 1024 * 512 * 5
+    # the sweeps' least work: g - 1 min-sums (5 operations) and one |.|
+    # a group of g rows (test_sweeps_give_each_groups_least_magnitude)
+    assert work["sweepcombo"][1] == 64 // 8 * 512 * (7 * 5 + 1)
+    assert work["bigsweep"][1] == work["bigsweep_noloop"][1] == \
+        512 * (63 * 5 + 1)
     for name, args in probes.bf16_inputs().items():
         assert kernel_work.probe_work(name, *args)[0] == 16384
-    assert kernel_work.bound_ms(*work["bigsweep"])[1] == "operations"
     bound, by = kernel_work.bound_ms(*work["fori"])
     assert by == "bytes" and bound == pytest.approx(262144 / 3.35e9)
+    for name in probes.MINI:
+        assert kernel_work.bound_ms(*work[name])[1] == "bytes"
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_sweeps_give_each_groups_least_magnitude(seed):
+    """The premise of the sweeps' work count: each group of rows that
+    the stages pair inside (8 for ``k_sweepcombo``, the 64-row block for
+    ``k_big``, whose scratch tiles it) ends as its least |x|, signed zeros
+    included, whatever the sweeps."""
+    x = probes.mini_input(seed)
+    x[0, :4] = torch.tensor([0.0, -0.0, 0.0, -0.0])
+    x[1:9, 4] = -0.0
+    for name, g in kernel_work.PROBE_GROUP_ROWS.items():
+        least = x.abs().view(64 // g, g, -1).amin(1, keepdim=True)
+        want = least.expand(64 // g, g, x.shape[1]).reshape(x.shape)
+        assert probes.differing(want.contiguous(),
+                                probes.PLAIN[name](x)) == 0, name
+
+
+def test_launch_counts_read_and_reset_every_probe():
+    for i, name in enumerate(probes.PROBES):
+        probes.WRAPPERS[name].launches = i + 1
+    assert probes.launch_counts() == {name: i + 1 for i, name
+                                      in enumerate(probes.PROBES)}
+    probes.reset_launch_counts()
+    assert set(probes.launch_counts().values()) == {0}
+    # the decoder kernels' counts leave the probes out
+    assert not set(kernel_work.launch_counts()) & set(probes.PROBES)
