@@ -164,8 +164,12 @@ Phases (any failure exits non-zero and prints no result):
     at another draw, 0 elements differing; the kernel's own device time
     (torch.profiler, 20 launches) beside its plain version's, the library
     call's (``torch.gather`` for ``gather``, ``torch.amin`` for
-    ``reduce``) and its bound; then ``python -m polar_torch.probes`` in
-    its own process, which must exit 0 and print one line a step.
+    ``reduce``) and its bound. For those two also the library kernel's
+    own device time (profiler) and the kernel's and the library call's ms a
+    launch in turns (kernel, library, library, kernel, ...: the medians of
+    five runs of 200 launches each, with their ratio; not gated). Then
+    ``python -m polar_torch.probes`` in its own process, which must exit 0
+    and print one line a step.
 
 The line before the card's line is one JSON object ``{"kernels": [...]}``
 with each kernel form's launches on its path (``scl_subtree`` static
@@ -180,13 +184,15 @@ a ``pc_`` prefix the PC path's launches in phase 12, the PC blocks checked
 in phase 3 and the times of one (19, 864) decode), and its time, the
 plain version's time and its bound at the path's shape; then one entry a
 probe (``probe <name>``: launches on phase 15's path, elements checked
-and differing over both draws, times at the script's shapes). The last line
-is
+and differing over both draws, times at the script's shapes; for
+``gather`` and ``reduce`` also ``library_device_ms``, the in-turn medians
+``turns_ms`` and ``library_turns_ms``). The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -332,9 +338,10 @@ ENTRY_TIMEOUT_S = 300
 
 # phase 15: the probes' second draw (the entry point's path runs the
 # script's); the calls of the profiled loop and of the plain version's
-# timed one
+# timed one; the timed runs of kernel and library call each, in turns
 PROBE_OTHER_SEED = 11
 PROBE_FEW_REPS = 20
+PROBE_TURN_ROUNDS = 5
 SMEM_OPT_IN = 232448                # shared memory a block may opt in to
 
 
@@ -1065,6 +1072,40 @@ def entry_points_phase(card, info_bps):
     return row
 
 
+# the PyTorch call that computes a probe's function in one call, and the
+# profiler name of its kernel
+PROBE_LIBRARY = {"gather": ("torch.gather", "gather"),
+                 "reduce": ("torch.amin", "reduce_kernel")}
+
+
+def probe_library(name, args):
+    """The library call of probe ``name`` on ``args``: ``torch.gather``
+    with the pointers already int64, ``torch.amin(dim=0, keepdim=True)``
+    (it writes [1, cols]; the broadcast is a view); None for the other
+    probes."""
+    import torch
+    if name == "gather":
+        ptr = args[1].long()
+        return lambda: torch.gather(args[0], 0, ptr)
+    if name == "reduce":
+        return lambda: torch.amin(args[0], dim=0, keepdim=True)
+    return None
+
+
+def in_turns(kernel, library, reps, rounds=PROBE_TURN_ROUNDS):
+    """(kernel ms, library ms) a launch, each the median of ``rounds``
+    CUDA-event means of ``reps`` back-to-back launches, timed in turns:
+    kernel, library, library, kernel, ..."""
+    from polar_torch.utils.profiling import cuda_ms
+    times = {kernel: [], library: []}
+    order = [kernel, library, library, kernel]
+    for i in range(2 * rounds):
+        fn = order[i % 4]
+        times[fn].append(cuda_ms(fn, reps))
+    return (statistics.median(times[kernel]),
+            statistics.median(times[library]))
+
+
 def probes_phase(dev, card):
     """Phase 15: the probe kernels of ``polar_torch.probes``. Their path,
     every step of the entry point (``run_step``), with the probes' launch
@@ -1073,9 +1114,12 @@ def probes_phase(dev, card):
     ms per launch. Then each kernel against its plain version at another
     draw (0 differing elements), its time alone under ``torch.profiler``,
     the plain version's and the library call's where one exists, and the
-    bound; last ``python -m polar_torch.probes`` in its own process, which
-    must exit 0 and print one line a step. Returns the probes' ``kernels``
-    entries."""
+    bound. For ``gather`` and ``reduce``, which have a library call: the
+    library kernel's own device time, and kernel against library in
+    turns (``in_turns``), printed side by side with their ratio (not
+    gated). Last ``python -m polar_torch.probes`` in its own process,
+    which must exit 0 and print one line a step. Returns the probes'
+    ``kernels`` entries."""
     import torch
     from polar_torch import probes
     from polar_torch.utils.kernel_work import bound_ms, probe_work
@@ -1092,17 +1136,6 @@ def probes_phase(dev, card):
         raise AssertionError(f"phase 15: a probe did not launch: {launches}")
     log(f"phase 15: every step of polar_torch.probes "
         f"({time.perf_counter() - t0:.1f} s), launches {launches}")
-
-    # the library calls that compute a probe's function in one call: the
-    # gather's pointers already int64; amin writes [1, cols] (the
-    # broadcast is a view)
-    def library(name, args):
-        if name == "gather":
-            ptr = args[1].long()
-            return lambda: torch.gather(args[0], 0, ptr)
-        if name == "reduce":
-            return lambda: torch.amin(args[0], dim=0, keepdim=True)
-        return None
 
     entries = []
     for name in probes.PROBES:
@@ -1126,23 +1159,40 @@ def probes_phase(dev, card):
         dev_ms = kernel_device_ms(lambda: wrapper(*args), PROBE_FEW_REPS,
                                   "probe_")
         p_ms = cuda_ms(lambda: plain(*args), PROBE_FEW_REPS)
-        lib = library(name, args)
+        lib = probe_library(name, args)
         lib_ms = cuda_ms(lib, probes.REPS) if lib else None
         bnd, by = bound_ms(*probe_work(name, *args))
-        entries.append(dict(
+        entry = dict(
             name=f"probe {name}", route="cuda",
             source="polar_torch/csrc/probes.cu",
             replaces=f"benchmarks/probe_r4.py:{probes.REPLACES[name]}",
             launches=launches[name], max_abs_err=max_abs,
             mismatch_elements=n_bad, checked_elements=checked, ms=k_ms,
             plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=lib_ms,
-            device_ms=dev_ms))
+            device_ms=dev_ms)
         log(f"phase 15: {name}: {k_ms:.4f} ms a launch, the kernel alone "
             f"{'not measured' if dev_ms is None else f'{dev_ms:.4f}'} "
             f"(plain {p_ms:.4f}, library "
             f"{'none' if lib_ms is None else f'{lib_ms:.4f}'}), bound "
             f"{bnd:.6f} ms ({by}); {checked} elements, {n_bad} differ "
             f"[{card}]")
+        if lib:
+            lib_name, lib_kernel = PROBE_LIBRARY[name]
+            lib_dev = kernel_device_ms(lib, PROBE_FEW_REPS, lib_kernel)
+            k_turn, l_turn = in_turns(lambda: wrapper(*args), lib,
+                                      probes.REPS)
+            if dev_ms is None or lib_dev is None:
+                raise AssertionError(f"phase 15: the profiler saw no kernel "
+                                     f"of {name} ({dev_ms}) or {lib_name} "
+                                     f"({lib_dev})")
+            entry.update(library_device_ms=lib_dev, turns_ms=k_turn,
+                         library_turns_ms=l_turn)
+            log(f"phase 15: {name} against {lib_name}: alone {dev_ms:.4f} "
+                f"vs {lib_dev:.4f} ms ({dev_ms / lib_dev:.3f}x); a launch "
+                f"in turns (medians of {PROBE_TURN_ROUNDS} x {probes.REPS} "
+                f"launches) {k_turn:.4f} vs {l_turn:.4f} ms "
+                f"({k_turn / l_turn:.3f}x) [{card}]")
+        entries.append(entry)
 
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-m", "polar_torch.probes"],

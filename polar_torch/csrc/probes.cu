@@ -11,22 +11,36 @@
 // the CPU tests run.
 //
 // What bounds them: bytes. An f32 probe moves 256 KiB (0.078 us at 3.35
-// TB/s), a bf16 or int8 probe 16 KiB. The stage sweeps need little
+// TB/s), a bf16 or int8 probe 16 KiB (0.005 us). A launch costs far more:
+// the lightest kernels here take 1.5-1.8 us alone on the card, and a
+// wrapper's call 9-15 us of the host's time (NVIDIA H100 80GB HBM3,
+// 700.00 W; chip_smoke.py phase 15). That floor sits 20-190x above
+// k_reduce's bound and 300-3000x, three orders of magnitude, above
+// k_gather's; so their designs aim at the fewest dependent round trips
+// to memory a launch, not at bandwidth. The stage sweeps need little
 // arithmetic: the two rows of a pair take one value, so each group of rows
 // that the stages pair inside (8 rows for k_sweepcombo, the 64-row block
 // for k_big, whose 16 scratch tiles stay equal) ends as its least |x|,
 // whatever the sweeps. These kernels do the work op by op as the TPU
 // kernels do, k_big over all 16 tiles (about 8.4e7 operations in four
-// sweeps), so they run far above that bound; a launch costs several
-// microseconds besides. The design aims only at being plainly right.
+// sweeps), so they run far above that bound.
 //
 // Design. Every probe mixes rows of one column only (the roll, the
-// reduction, the row-bit selects and the stage partners), so a thread owns
-// a column and needs no barrier.
-// * The f32 probes but k_big: 4 CTAs of 128 threads, one CTA per TPU grid
-//   block, thread c on column c of its block; the column's 64 values in
-//   registers. k_bcast reads block 0's column in every CTA, as its
-//   constant index map does.
+// reduction, the row-bit selects, the gather and the stage partners).
+// * The f32 probes but k_reduce and k_big: 4 CTAs of 128 threads, one CTA
+//   per TPU grid block, thread c on column c of its block; the column's 64
+//   values in registers; no barrier. k_bcast reads block 0's column in
+//   every CTA, as its constant index map does. Aimed only at being plainly
+//   right.
+// * k_reduce (replaces k_reduce, :227; bytes-bound, 256 KiB): CTAs of 64
+//   threads on slabs of 32 columns (16 CTAs at [64, 512]). A thread owns
+//   4 neighbouring columns of 8 consecutive rows and reads them in one
+//   round of eight 16-byte loads; the 64 rows split across the 2 warps
+//   (32 rows each). Each thread folds its rows, the 8 chunks' minima meet
+//   in shared memory and every thread folds them in row order (ordered
+//   trees, depth 3 + 3: the bits of one fold over the rows, probes.cuh
+//   probe_min), then writes its rows of the broadcast as 16-byte stores.
+//   Tensors not 16-byte aligned take the same kernel with 4-byte accesses.
 // * k_big: its scratch is 1,024 x 128 x 4 B = 512 KiB a TPU block, more
 //   than the 227 KB of shared memory a CTA may take. Columns are
 //   independent, so each CTA takes 32 of them: a [1024][32] f32 tile, 128
@@ -35,8 +49,28 @@
 //   stage's 512 pairs, with a barrier between stages; the two rows of a
 //   pair take the same value, so a stage updates in place (probes.cuh
 //   probe_pair).
-// * bf16 and int8: CTAs of 256 threads, one thread a column (one CTA at
+// * k_gather (replaces k_gather, :337; bytes-bound, 16 KiB at [8, 256]):
+//   all of a slab's loads in one round, then one barrier, then the
+//   stores. CTAs of 256 threads on slabs of up to 256 columns and all rows
+//   (one CTA at [8, 256]): each thread stages 8 neighbouring columns of x
+//   in a shared tile with one 16-byte load and reads their 8 pointers as
+//   two 16-byte loads, then gathers its 8 outputs from the tile and
+//   stores them as one 16-byte store: one round trip to memory where a
+//   thread that walks its column's rows (a pointer load, a dependent x
+//   load and a store a row, through pointers that may alias) makes 16 at
+//   8 rows. Widths that are not a multiple of 8, and unaligned tensors,
+//   take the same kernel element by element, the columns past the last
+//   masked. A thread takes 4 units of 8 columns with their pointers held
+//   from the first round, and more (up to 12, at 3,072 rows, whose 8
+//   columns fill the 48 KiB tile) with their pointers read after the
+//   barrier. More rows than the tile holds gather each element straight
+//   from x (probe_gather_direct_kernel).
+// * k_arith and k_i8: CTAs of 256 threads, one thread a column (one CTA at
 //   the probes' 256 columns), looping over the rows.
+//
+// The C ABI is one entry point a probe (probe_<name>), each launching its
+// kernel on the given stream and returning a cudaError_t, so a wrapper
+// makes one short call a launch.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libprobes.so probes.cu
@@ -49,6 +83,7 @@ namespace polar_torch {
 constexpr int kProbeBigCols = 32;      // k_big's columns a CTA
 constexpr int kProbeBigThreads = 512;  // 16 warps
 constexpr int kProbeSmallThreads = 256;
+constexpr int kGatherDirectGrid = 132 * 8;  // grid-stride CTAs, 8 an SM
 
 template <int P>
 __global__ void __launch_bounds__(kProbeBlockCols)
@@ -56,6 +91,20 @@ __global__ void __launch_bounds__(kProbeBlockCols)
   const int c = threadIdx.x;
   const int col = blockIdx.x * kProbeBlockCols + c;
   probe_column<P>(x + (P == kProbeBcast ? c : col), o + col, cols);
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kReduceThreads)
+    probe_reduce_kernel(const float* __restrict__ x, float* __restrict__ o,
+                        int cols) {
+  __shared__ ProbeVec part[kReduceChunks][kReduceQuads];
+  const int q = threadIdx.x % kReduceQuads;   // 4 columns of the slab
+  const int g = threadIdx.x / kReduceQuads;   // a chunk of rows
+  const int col = blockIdx.x * kReduceCols + 4 * q;
+  part[g][q] = probe_reduce_chunk<kVec>(x + col, cols, g);
+  __syncthreads();
+  probe_reduce_store<kVec>(o + col, cols, g,
+                           probe_reduce_combine(&part[0][q], kReduceQuads));
 }
 
 __global__ void __launch_bounds__(kProbeBigThreads)
@@ -78,95 +127,184 @@ __global__ void __launch_bounds__(kProbeBigThreads)
     o[r * cols + col] = tile[r * kProbeBigCols + c];
 }
 
+template <bool kVec>
+__global__ void __launch_bounds__(kGatherThreads)
+    probe_gather_kernel(const uint16_t* __restrict__ x,
+                        const int32_t* __restrict__ p,
+                        uint16_t* __restrict__ o, int rows, int cols,
+                        int n8) {
+  extern __shared__ ProbeVec smem[];  // the tile [rows][8 n8]
+  uint16_t* tile = reinterpret_cast<uint16_t*>(smem);
+  const int units = rows * n8, s = blockIdx.x;
+  int32_t ptr[kGatherUnits][8];
+#pragma unroll
+  for (int k = 0; k < kGatherUnits; ++k) {
+    const int u = threadIdx.x + k * kGatherThreads;
+    if (u < units) {
+      probe_gather_stage<kVec>(x, tile, cols, n8, s, u);
+      probe_gather_ptrs<kVec>(p, cols, n8, s, u, ptr[k]);
+    }
+  }
+  // units past the held pointers; kept rolled, as unrolled they made ptxas
+  // spill held pointers to local memory (16 bytes, in the first round)
+#pragma unroll 1
+  for (int u = threadIdx.x + kGatherCtaUnits; u < units; u += kGatherThreads)
+    probe_gather_stage<kVec>(x, tile, cols, n8, s, u);
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kGatherUnits; ++k) {
+    const int u = threadIdx.x + k * kGatherThreads;
+    if (u < units) probe_gather_store<kVec>(tile, ptr[k], o, cols, n8, s, u);
+  }
+#pragma unroll 1
+  for (int u = threadIdx.x + kGatherCtaUnits; u < units;
+       u += kGatherThreads) {
+    int32_t later[8];
+    probe_gather_ptrs<kVec>(p, cols, n8, s, u, later);
+    probe_gather_store<kVec>(tile, later, o, cols, n8, s, u);
+  }
+}
+
+__global__ void __launch_bounds__(kGatherThreads)
+    probe_gather_direct_kernel(const uint16_t* __restrict__ x,
+                               const int32_t* __restrict__ p,
+                               uint16_t* __restrict__ o, int cols,
+                               size_t n) {
+  const size_t step = (size_t)gridDim.x * kGatherThreads;
+  for (size_t i = blockIdx.x * (size_t)kGatherThreads + threadIdx.x; i < n;
+       i += step)
+    o[i] = probe_gather_direct(x, p, cols, i);
+}
+
 template <int P>
 __global__ void __launch_bounds__(kProbeSmallThreads)
-    probe_small_kernel(const void* x, const int32_t* p, void* o, int rows,
-                       int cols) {
+    probe_small_kernel(const void* x, void* o, int rows, int cols) {
   const int c = blockIdx.x * kProbeSmallThreads + threadIdx.x;
   if (c >= cols) return;
   if constexpr (P == kProbeArith) {
     probe_arith_column(static_cast<const uint16_t*>(x) + c,
                        static_cast<uint16_t*>(o) + c, rows, cols);
-  } else if constexpr (P == kProbeGather) {
-    probe_gather_column(static_cast<const uint16_t*>(x) + c, p + c,
-                        static_cast<uint16_t*>(o) + c, rows, cols);
   } else {
     probe_int8_column(static_cast<const int8_t*>(x) + c,
                       static_cast<int8_t*>(o) + c, rows, cols);
   }
 }
 
-template <int P>
-void launch_f32(const float* x, float* o, int cols, cudaStream_t st) {
-  probe_f32_kernel<P><<<cols / kProbeBlockCols, kProbeBlockCols, 0, st>>>(
-      x, o, cols);
+bool f32_shape_ok(int cols) {
+  return cols >= kProbeBlockCols && cols % kProbeBlockCols == 0;
+}
+
+bool aligned16(const void* a, const void* b, const void* c = nullptr) {
+  return (((uintptr_t)a | (uintptr_t)b | (uintptr_t)c) & 15) == 0;
 }
 
 template <int P>
-void launch_small(const void* x, const int32_t* p, void* o, int rows,
-                  int cols, cudaStream_t st) {
-  const int grid = (cols + kProbeSmallThreads - 1) / kProbeSmallThreads;
-  probe_small_kernel<P><<<grid, kProbeSmallThreads, 0, st>>>(x, p, o, rows,
-                                                             cols);
+int launch_f32(const float* x, float* o, int cols, void* st) {
+  if (!f32_shape_ok(cols)) return (int)cudaErrorInvalidValue;
+  probe_f32_kernel<P><<<cols / kProbeBlockCols, kProbeBlockCols, 0,
+                        static_cast<cudaStream_t>(st)>>>(x, o, cols);
+  return (int)cudaGetLastError();
 }
 
-int launch_big(const float* x, float* o, int cols, int sweeps,
-               cudaStream_t st) {
+int launch_big(const float* x, float* o, int cols, int sweeps, void* st) {
   constexpr int kSmem = kProbeBigRows * kProbeBigCols * sizeof(float);
+  if (!f32_shape_ok(cols)) return (int)cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
       probe_big_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return (int)err;
-  probe_big_kernel<<<cols / kProbeBigCols, kProbeBigThreads, kSmem, st>>>(
-      x, o, cols, sweeps);
-  return 0;
+  probe_big_kernel<<<cols / kProbeBigCols, kProbeBigThreads, kSmem,
+                     static_cast<cudaStream_t>(st)>>>(x, o, cols, sweeps);
+  return (int)cudaGetLastError();
+}
+
+template <int P>
+int launch_small(const void* x, void* o, int rows, int cols, void* st) {
+  if (rows < 1 || cols < 1) return (int)cudaErrorInvalidValue;
+  const int grid = (cols + kProbeSmallThreads - 1) / kProbeSmallThreads;
+  probe_small_kernel<P><<<grid, kProbeSmallThreads, 0,
+                          static_cast<cudaStream_t>(st)>>>(x, o, rows, cols);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace polar_torch
 
-// One launch of probe `probe` (a ProbeId) on stream `stream`: x [rows,
-// cols] (f32, bf16 or int8 as the probe takes), for k_gather the int32
-// pointers p of x's shape, out of x's shape and type. The f32 probes take
-// rows = 64 and cols a multiple of 128. Returns a cudaError_t.
-extern "C" int probes_launch(int probe, const void* x, const int32_t* p,
-                             void* out, int rows, int cols, void* stream) {
-  using namespace polar_torch;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* xf = static_cast<const float*>(x);
-  float* of = static_cast<float*>(out);
-  if (probe < 0 || probe >= kProbeCount || rows < 1 || cols < 1)
-    return (int)cudaErrorInvalidValue;
-  if (probe < kProbeArith
-      && (rows != kProbeRows || cols % kProbeBlockCols != 0))
-    return (int)cudaErrorInvalidValue;
-  switch (probe) {
-    case kProbeFori: launch_f32<kProbeFori>(xf, of, cols, st); break;
-    case kProbeBcast: launch_f32<kProbeBcast>(xf, of, cols, st); break;
-    case kProbeRoll: launch_f32<kProbeRoll>(xf, of, cols, st); break;
-    case kProbeReduce: launch_f32<kProbeReduce>(xf, of, cols, st); break;
-    case kProbeShift: launch_f32<kProbeShift>(xf, of, cols, st); break;
-    case kProbeScratchFori:
-      launch_f32<kProbeScratchFori>(xf, of, cols, st);
-      break;
-    case kProbeSweepCombo:
-      launch_f32<kProbeSweepCombo>(xf, of, cols, st);
-      break;
-    case kProbeBigSweep: {
-      const int err = launch_big(xf, of, cols, kProbeLoopSweeps, st);
-      if (err) return err;
-      break;
-    }
-    case kProbeBigSweepNoLoop: {
-      const int err = launch_big(xf, of, cols, 1, st);
-      if (err) return err;
-      break;
-    }
-    case kProbeArith:
-      launch_small<kProbeArith>(x, p, out, rows, cols, st);
-      break;
-    case kProbeGather:
-      launch_small<kProbeGather>(x, p, out, rows, cols, st);
-      break;
-    default: launch_small<kProbeInt8>(x, p, out, rows, cols, st); break;
+// One entry point a probe: one launch on stream `stream` of x (f32 [64,
+// cols] with cols a multiple of 128; bf16 or int8 [rows, cols] for arith,
+// gather and int8; for gather also the int32 pointers p of x's shape)
+// into out, of x's shape and type. Each returns a cudaError_t:
+// cudaErrorInvalidValue for a shape its kernel does not take (an f32
+// probe's columns not a multiple of 128, an empty tensor).
+extern "C" {
+
+#define PROBE_F32_ENTRY(name, id)                                     \
+  int probe_##name(const float* x, float* out, int cols, void* stream) { \
+    return polar_torch::launch_f32<polar_torch::id>(x, out, cols, stream); \
   }
+PROBE_F32_ENTRY(fori, kProbeFori)
+PROBE_F32_ENTRY(bcast, kProbeBcast)
+PROBE_F32_ENTRY(roll, kProbeRoll)
+PROBE_F32_ENTRY(shift, kProbeShift)
+PROBE_F32_ENTRY(scratchfori, kProbeScratchFori)
+PROBE_F32_ENTRY(sweepcombo, kProbeSweepCombo)
+#undef PROBE_F32_ENTRY
+
+int probe_bigsweep(const float* x, float* out, int cols, void* stream) {
+  return polar_torch::launch_big(x, out, cols, polar_torch::kProbeLoopSweeps,
+                                 stream);
+}
+
+int probe_bigsweep_noloop(const float* x, float* out, int cols,
+                          void* stream) {
+  return polar_torch::launch_big(x, out, cols, 1, stream);
+}
+
+int probe_reduce(const float* x, float* out, int cols, void* stream) {
+  using namespace polar_torch;
+  if (!f32_shape_ok(cols)) return (int)cudaErrorInvalidValue;
+  const int grid = cols / kReduceCols;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (aligned16(x, out))
+    probe_reduce_kernel<true><<<grid, kReduceThreads, 0, st>>>(x, out, cols);
+  else
+    probe_reduce_kernel<false><<<grid, kReduceThreads, 0, st>>>(x, out, cols);
   return (int)cudaGetLastError();
 }
+
+int probe_arith(const void* x, void* out, int rows, int cols, void* stream) {
+  return polar_torch::launch_small<polar_torch::kProbeArith>(x, out, rows,
+                                                             cols, stream);
+}
+
+int probe_int8(const void* x, void* out, int rows, int cols, void* stream) {
+  return polar_torch::launch_small<polar_torch::kProbeInt8>(x, out, rows,
+                                                            cols, stream);
+}
+
+int probe_gather(const uint16_t* x, const int32_t* p, uint16_t* out,
+                 int rows, int cols, void* stream) {
+  using namespace polar_torch;
+  if (rows < 1 || cols < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (rows > kGatherTileRows) {
+    const size_t n = (size_t)rows * cols;
+    const size_t blocks = (n + kGatherThreads - 1) / kGatherThreads;
+    const int grid = blocks < kGatherDirectGrid ? (int)blocks
+                                                : kGatherDirectGrid;
+    probe_gather_direct_kernel<<<grid, kGatherThreads, 0, st>>>(x, p, out,
+                                                                cols, n);
+    return (int)cudaGetLastError();
+  }
+  const int n8 = probe_gather_n8(rows);
+  const int slab = 8 * n8;
+  const dim3 grid((cols + slab - 1) / slab);
+  const size_t smem = (size_t)rows * n8 * sizeof(ProbeVec);
+  if (cols % 8 == 0 && aligned16(x, p, out))
+    probe_gather_kernel<true><<<grid, kGatherThreads, smem, st>>>(
+        x, p, out, rows, cols, n8);
+  else
+    probe_gather_kernel<false><<<grid, kGatherThreads, smem, st>>>(
+        x, p, out, rows, cols, n8);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

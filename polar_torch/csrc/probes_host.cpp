@@ -1,9 +1,11 @@
 // Host build of the probe routines (probes.cuh), compiled with g++ and no
 // CUDA or torch headers: one thread runs every column in turn, with the
 // card's column mapping (k_bcast reads block 0's column; k_big a 1,024-row
-// scratch a column). The CPU tests hold it bit-equal to the plain PyTorch
-// versions, which checks the CUDA kernels' arithmetic where no card
-// exists. The main path never uses it.
+// scratch a column), and k_reduce's and k_gather's slabs in the card's
+// order (every thread's first round, then every thread's second). The
+// CPU tests hold it bit-equal to the plain PyTorch versions, which checks
+// the CUDA kernels' arithmetic where no card exists. The main path never
+// uses it.
 //
 // Build: g++ -std=c++17 -O2 -shared -fPIC -o libprobes_host.so
 //        probes_host.cpp
@@ -21,10 +23,60 @@ void run_f32(const float* x, float* o, int cols) {
                     cols);
 }
 
+template <bool kVec>
+void run_reduce(const float* x, float* o, int cols) {
+  using namespace polar_torch;
+  ProbeVec part[kReduceChunks][kReduceQuads];
+  for (int s = 0; s < cols / kReduceCols; ++s) {
+    for (int g = 0; g < kReduceChunks; ++g)
+      for (int q = 0; q < kReduceQuads; ++q)
+        part[g][q] =
+            probe_reduce_chunk<kVec>(x + s * kReduceCols + 4 * q, cols, g);
+    for (int g = 0; g < kReduceChunks; ++g)
+      for (int q = 0; q < kReduceQuads; ++q)
+        probe_reduce_store<kVec>(
+            o + s * kReduceCols + 4 * q, cols, g,
+            probe_reduce_combine(&part[0][q], kReduceQuads));
+  }
+}
+
+// The card's gather: the tiled form's two rounds a slab (every pointer read
+// in the first), or element by element past kGatherTileRows rows.
+template <bool kVec>
+void run_gather(const uint16_t* x, const int32_t* p, uint16_t* o, int rows,
+                int cols) {
+  using namespace polar_torch;
+  if (rows > kGatherTileRows) {
+    for (size_t i = 0; i < (size_t)rows * cols; ++i)
+      o[i] = probe_gather_direct(x, p, cols, i);
+    return;
+  }
+  const int n8 = probe_gather_n8(rows), units = rows * n8;
+  std::vector<uint16_t> tile((size_t)units * 8);
+  std::vector<int32_t> ptr((size_t)units * 8);
+  for (int s = 0; s * 8 * n8 < cols; ++s) {
+    for (int u = 0; u < units; ++u) {
+      probe_gather_stage<kVec>(x, tile.data(), cols, n8, s, u);
+      probe_gather_ptrs<kVec>(p, cols, n8, s, u, &ptr[(size_t)u * 8]);
+    }
+    for (int u = 0; u < units; ++u)
+      probe_gather_store<kVec>(tile.data(), &ptr[(size_t)u * 8], o, cols, n8,
+                               s, u);
+  }
+}
+
+bool aligned16(const void* a, const void* b, const void* c = nullptr) {
+  return (((uintptr_t)a | (uintptr_t)b | (uintptr_t)c) & 15) == 0;
+}
+
 }  // namespace
 
-// probes_launch's contract (probes.cu), run on the host. Returns 0, or 1
-// on arguments the card would refuse.
+// Probe `probe` (a ProbeId) as the card's entry point probe_<name>
+// (probes.cu) runs it: x [rows, cols] (f32 [64, 128 g], bf16 or int8), for
+// k_gather the int32 pointers p of x's shape, out of x's shape and type;
+// k_reduce and k_gather take the vector form where the card would (16-byte
+// aligned tensors; for k_gather also cols a multiple of 8). Returns 0, or
+// 1 on arguments the card would refuse.
 extern "C" int probes_host(int probe, const void* x, const int32_t* p,
                            void* out, int rows, int cols) {
   using namespace polar_torch;
@@ -38,7 +90,12 @@ extern "C" int probes_host(int probe, const void* x, const int32_t* p,
     case kProbeFori: run_f32<kProbeFori>(xf, of, cols); break;
     case kProbeBcast: run_f32<kProbeBcast>(xf, of, cols); break;
     case kProbeRoll: run_f32<kProbeRoll>(xf, of, cols); break;
-    case kProbeReduce: run_f32<kProbeReduce>(xf, of, cols); break;
+    case kProbeReduce:
+      if (aligned16(x, out))
+        run_reduce<true>(xf, of, cols);
+      else
+        run_reduce<false>(xf, of, cols);
+      break;
     case kProbeShift: run_f32<kProbeShift>(xf, of, cols); break;
     case kProbeScratchFori: run_f32<kProbeScratchFori>(xf, of, cols); break;
     case kProbeSweepCombo: run_f32<kProbeSweepCombo>(xf, of, cols); break;
@@ -55,11 +112,15 @@ extern "C" int probes_host(int probe, const void* x, const int32_t* p,
         probe_arith_column(static_cast<const uint16_t*>(x) + c,
                            static_cast<uint16_t*>(out) + c, rows, cols);
       break;
-    case kProbeGather:
-      for (int c = 0; c < cols; ++c)
-        probe_gather_column(static_cast<const uint16_t*>(x) + c, p + c,
-                            static_cast<uint16_t*>(out) + c, rows, cols);
+    case kProbeGather: {
+      const auto* xb = static_cast<const uint16_t*>(x);
+      auto* ob = static_cast<uint16_t*>(out);
+      if (cols % 8 == 0 && aligned16(x, p, out))
+        run_gather<true>(xb, p, ob, rows, cols);
+      else
+        run_gather<false>(xb, p, ob, rows, cols);
       break;
+    }
     default:
       for (int c = 0; c < cols; ++c)
         probe_int8_column(static_cast<const int8_t*>(x) + c,

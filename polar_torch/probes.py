@@ -16,12 +16,15 @@ card's cost of each construct alone.
     python -m polar_torch.probes                      # every step, the card
     python -m polar_torch.probes mini:bigsweep bf16   # the named steps
     python -m polar_torch.probes --device cpu         # the plain versions
+    python -m polar_torch.probes --split              # a launch's host time
 
 Each step prints one JSON line: the step, the card's name and power limit,
 and per probe the card's ms per launch (CUDA events; null on the CPU), the
 elements whose bits differ from the plain version, the largest absolute
 difference and the bound. A failure
-or a differing element exits non-zero.
+or a differing element exits non-zero. ``--split`` prints instead what one
+call of the ``gather`` and ``reduce`` wrappers spends on the card's host,
+piece by piece (``launch_split``).
 
 * Each probe's wrapper (``fori``, ``bcast``, ..., ``int8``, also in
   ``WRAPPERS``) launches the kernel (``csrc/probes.cu``) on a CUDA tensor
@@ -42,12 +45,18 @@ grid of four 128-column blocks); ``bcast`` writes twice block 0 into every
 block, as its constant index map reads it. ``arith`` takes bf16, ``gather``
 bf16 ``x`` and int32 pointers of its shape in ``[0, rows)`` (not checked on
 the card), ``int8`` int8, each 2-D.
+
+A wrapper's call on the card is its launch and little else: a cheap check
+of its arguments (``_check``), no device switch when the tensor lies on
+the current card, the current stream's raw handle, and one ``ctypes`` call
+of the probe's own entry point.
 """
 
 import argparse
 import ctypes
 import json
 import sys
+import time
 
 import numpy as np
 import torch
@@ -77,6 +86,7 @@ REPLACES = {"fori": 213, "bcast": 220, "roll": 223, "reduce": 227,
             "bigsweep": 278, "bigsweep_noloop": 278, "arith": 333,
             "gather": 337, "int8": 340}
 REPS = 200      # timed launches a probe
+SPLIT_CALLS = 10 ** 4  # calls a piece of launch_split
 
 
 # ----------------------------------------------------------------------
@@ -123,8 +133,26 @@ def roll_plain(x):
     return torch.cat([x[8:], x[:8]]) + x
 
 
+def _xla_min(x, y):
+    """``jnp.minimum`` as XLA runs it on the CPU (LLVM's x86 lowering of
+    ``llvm.minimum``): where ``x``'s sign bit is set the operands swap,
+    then ``nx`` if it is NaN or below ``ny``, else ``ny``. So -0 < +0, a
+    NaN propagates, and of two NaNs ``x`` is kept when it is a positive
+    NaN, else ``y`` (``torch.minimum`` and ``torch.min`` keep other zeros
+    and NaNs)."""
+    swap = torch.signbit(x)
+    nx, ny = torch.where(swap, y, x), torch.where(swap, x, y)
+    return torch.where(torch.isnan(nx) | (nx < ny), nx, ny)
+
+
 def reduce_plain(x):
-    return x.min(dim=0, keepdim=True).values.expand_as(x).contiguous()
+    """``jnp.min(x, axis=0)`` as XLA folds it on the CPU, row by row with
+    ``_xla_min``: a column's first positive NaN, else its last NaN, else
+    its least value with -0 below +0; broadcast to every row."""
+    m = x[0]
+    for r in range(1, x.shape[0]):
+        m = _xla_min(m, x[r])
+    return m.expand_as(x).contiguous()
 
 
 def shift_plain(x):
@@ -173,65 +201,112 @@ PLAIN = {name: globals()[f"{name}_plain"] for name in PROBES}
 # ----------------------------------------------------------------------
 # the wrappers
 # ----------------------------------------------------------------------
+def _checker(name):
+    """The check of probe ``name``'s arguments, which raises unless they
+    are what it takes: per-probe constants, the types compared by
+    identity, the shape read once."""
+    dtype = DTYPES.get(name, torch.float32)
+    n_args, mini, gather = (2 if name == "gather" else 1), name in MINI, \
+        name == "gather"
+
+    def check(args):
+        if len(args) != n_args:
+            raise TypeError(f"{name} takes {n_args} tensor(s), not "
+                            f"{len(args)}")
+        x = args[0]
+        s = x.shape
+        if x.dtype is not dtype or len(s) != 2 or not s[0] or not s[1]:
+            raise TypeError(f"{name} takes a non-empty 2-D {dtype} tensor")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} takes a contiguous tensor")
+        if mini and (s[0] != ROWS or s[1] % TB):
+            raise ValueError(f"{name} takes [{ROWS}, {TB} g], not {list(s)}")
+        if gather:
+            ptr = args[1]
+            if (ptr.dtype is not torch.int32 or ptr.shape != s
+                    or not ptr.is_contiguous() or ptr.device != x.device):
+                raise ValueError("gather takes contiguous int32 pointers of "
+                                 "x's shape on x's device")
+
+    return check
+
+
+_CHECKS = {name: _checker(name) for name in PROBES}
+
+
 def _check(name, args):
     """Raises unless ``args`` are what probe ``name`` takes."""
-    if name not in PROBES:
+    if name not in _CHECKS:
         raise ValueError(f"unknown probe {name!r}")
-    want = 2 if name == "gather" else 1
-    if len(args) != want:
-        raise TypeError(f"{name} takes {want} tensor(s), not {len(args)}")
-    x = args[0]
-    dtype = DTYPES.get(name, torch.float32)
-    if x.dtype != dtype or x.dim() != 2 or x.numel() == 0:
-        raise TypeError(f"{name} takes a non-empty 2-D {dtype} tensor")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} takes a contiguous tensor")
-    if name in MINI and (x.shape[0] != ROWS or x.shape[1] % TB):
-        raise ValueError(f"{name} takes [{ROWS}, {TB} g], not "
-                         f"{list(x.shape)}")
-    if name == "gather":
-        ptr = args[1]
-        if (ptr.dtype != torch.int32 or ptr.shape != x.shape
-                or ptr.device != x.device or not ptr.is_contiguous()):
-            raise ValueError("gather takes contiguous int32 pointers of "
-                             "x's shape on x's device")
+    _CHECKS[name](args)
 
 
-def _native_call(fn, name, args, last):
-    """Call ``probes_launch`` or ``probes_host``; ``last`` is the stream's
-    (ctypes type, value), or None for the host."""
-    x = args[0]
-    ptr = args[1] if name == "gather" else None
-    out = torch.empty_like(x)
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + (
-                           [] if last is None else [last[0]])
-        fn.restype = ctypes.c_int
-    rc = fn(PROBES.index(name), x.data_ptr(),
-            None if ptr is None else ptr.data_ptr(), out.data_ptr(),
-            x.shape[0], x.shape[1], *([] if last is None else [last[1]]))
-    if rc != 0:
-        raise RuntimeError(f"probe {name}: native call failed with code {rc}")
-    return out
+def _entry(name):
+    """``probe_<name>`` of the card's library (``csrc/probes.cu``), its
+    argument types set: the tensors' pointers, then ``cols`` (f32 probes)
+    or ``rows, cols``, then the stream."""
+    fn = getattr(_build.load("probes", "cuda"), f"probe_{name}")
+    n_ptrs = 3 if name == "gather" else 2
+    n_ints = 1 if name in MINI else 2
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _stream(idx):
+    """The raw handle of card ``idx``'s current stream. No public call of
+    torch returns it without building a ``Stream`` object, which costs the
+    host more (``launch_split``); torch's own generated launchers read it
+    so."""
+    return torch._C._cuda_getCurrentRawStream(idx)
+
+
+def _launcher(name):
+    """The function that launches probe ``name``'s kernel on ``x`` (and
+    the pointers in ``args``) on the current stream of card ``idx``, which
+    holds them, and returns its output."""
+    fn, is_f32, is_gather = None, name in MINI, name == "gather"
+
+    def launch(x, args, idx):
+        nonlocal fn
+        if fn is None:
+            fn = _entry(name)
+        out = torch.empty_like(x)
+        rows, cols = x.shape
+        if is_f32:
+            rc = fn(x.data_ptr(), out.data_ptr(), cols, _stream(idx))
+        elif is_gather:
+            rc = fn(x.data_ptr(), args[1].data_ptr(), out.data_ptr(), rows,
+                    cols, _stream(idx))
+        else:
+            rc = fn(x.data_ptr(), out.data_ptr(), rows, cols, _stream(idx))
+        if rc != 0:
+            raise RuntimeError(f"probe {name}: launch failed with code {rc}")
+        return out
+
+    return launch
 
 
 def _wrapper(name):
+    check, plain, launch = _CHECKS[name], PLAIN[name], _launcher(name)
+
     def probe(*args):
-        _check(name, args)
+        check(args)
         x = args[0]
+        if x.is_cuda:
+            idx = x.get_device()
+            if idx == torch.cuda.current_device():
+                out = launch(x, args, idx)
+            else:
+                with torch.cuda.device(idx):
+                    out = launch(x, args, idx)
+            probe.launches += 1
+            kernel_work.report(kernel_work.probe_work, name, *args)
+            return out
         if x.device.type == "cpu":
-            return PLAIN[name](*args)
-        if x.device.type != "cuda":
-            raise ValueError(f"{name}: unsupported device {x.device}")
-        lib = _build.load("probes", "cuda")
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            out = _native_call(lib.probes_launch, name, args,
-                               (ctypes.c_void_p, stream))
-        probe.launches += 1
-        kernel_work.report(kernel_work.probe_work, name, *args)
-        return out
+            return plain(*args)
+        raise ValueError(f"{name}: unsupported device {x.device}")
 
     probe.__name__ = probe.__qualname__ = name
     probe.__doc__ = (f"The ``{name}`` probe (``benchmarks/probe_r4.py:"
@@ -262,10 +337,18 @@ def probe_host(name, *args):
     (g++), CPU tensors only; for the tests. The main path never calls
     it."""
     _check(name, args)
-    if args[0].device.type != "cpu":
+    x = args[0]
+    if x.device.type != "cpu":
         raise ValueError("probe_host takes CPU tensors")
-    return _native_call(_build.load("probes", "host").probes_host, name,
-                        args, None)
+    fn = _build.load("probes", "host").probes_host
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+    out = torch.empty_like(x)
+    rc = fn(PROBES.index(name), x.data_ptr(),
+            args[1].data_ptr() if name == "gather" else None,
+            out.data_ptr(), *x.shape)
+    if rc != 0:
+        raise RuntimeError(f"probe_host {name}: refused with code {rc}")
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -355,6 +438,73 @@ def results(row):
     return {row["step"].partition(":")[2]: row}
 
 
+def _host_us(fn, calls):
+    """Mean host time of ``fn()`` in µs over ``calls`` calls, from a
+    synchronised card to a synchronised card."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def launch_split(device=None, calls=SPLIT_CALLS):
+    """What one call of the ``gather`` and ``reduce`` wrappers spends on
+    the card's host, piece by piece, at the script's inputs: {probe:
+    {piece: µs a call}}, each piece timed alone over ``calls`` calls. The
+    pieces of the wrapper's path; the entry point called with 0 columns,
+    which returns before any launch (the ``ctypes`` call alone); two
+    calls the path avoids (a ``torch.cuda.device`` context, the stream
+    through a ``Stream`` object); the library call of the same function
+    (``torch.gather`` on int64 pointers, ``torch.amin``)."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError("launch_split times the card's launches")
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    split = {}
+    for name in ("gather", "reduce"):
+        step = "bf16" if name in BF16 else f"mini:{name}"
+        args = tuple(a.to(dev) for a in step_inputs(step)[name])
+        x = args[0]
+        out = torch.empty_like(x)
+        wrapper, fn = WRAPPERS[name], _entry(name)
+        ptrs = [a.data_ptr() for a in args] + [out.data_ptr()]
+        shape = [x.shape[1]] if name in MINI else list(x.shape)
+        stream = _stream(idx)
+
+        def device_context():
+            with torch.cuda.device(x.device):
+                pass
+
+        if name == "gather":
+            ptr = args[1].long()
+            library = ("torch.gather", lambda: torch.gather(x, 0, ptr))
+        else:
+            library = ("torch.amin",
+                       lambda: torch.amin(x, dim=0, keepdim=True))
+        pieces = {
+            "wrapper": lambda: wrapper(*args),
+            "_check": lambda: _CHECKS[name](args),
+            "x.get_device, torch.cuda.current_device":
+                lambda: x.get_device() == torch.cuda.current_device(),
+            "raw stream handle": lambda: _stream(idx),
+            "torch.empty_like": lambda: torch.empty_like(x),
+            "ctypes call, no launch": lambda: fn(*ptrs, *[0] * len(shape),
+                                                 stream),
+            "ctypes call and launch": lambda: fn(*ptrs, *shape, stream),
+            "kernel_work.report": lambda: kernel_work.report(
+                kernel_work.probe_work, name, *args),
+            "not on the path: torch.cuda.device context": device_context,
+            "not on the path: current_stream().cuda_stream":
+                lambda: torch.cuda.current_stream(x.device).cuda_stream,
+            f"library: {library[0]}": library[1],
+        }
+        split[name] = {k: _host_us(f, calls) for k, f in pieces.items()}
+    return split
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="python -m polar_torch.probes",
@@ -364,7 +514,16 @@ def main(argv=None):
                     help=f"steps to run (default: all): {' '.join(STEPS)}")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
+    ap.add_argument("--split", action="store_true",
+                    help="print the gather and reduce wrappers' host time "
+                         "a call, piece by piece, instead (the card only)")
     args = ap.parse_args(argv)
+    if args.split:
+        name, power = card_info(resolve_device(args.device))
+        print(json.dumps({"device": name, "power_limit": power,
+                          "calls": SPLIT_CALLS,
+                          "us_a_call": launch_split(args.device)}))
+        return 0
     bad = []
     for step in args.steps:
         row = run_step(step, args.device)

@@ -90,3 +90,50 @@ def assert_osd_agrees(llr, got, want, llr_max):
         f"blocks {np.flatnonzero(bad).tolist()} differ with distance gaps "
         f"{gap.tolist()}")
     return int(bad.sum())
+
+
+# NaNs of two payloads and both signs (f32 bits)
+NAN_A, NAN_B, NAN_C, NAN_D = 0x7FC00001, 0xFFC00002, 0x7FC00004, 0xFFC00008
+
+
+def reduce_zero_nan_input(x):
+    """``x`` (f32 [64, cols], cols >= 10) with columns 0..9 holding their
+    minimum as zeros of both signs and NaNs of two payloads on both sides
+    of the card's row split for ``k_reduce`` (8 chunks of 8 rows, two
+    warps of 32 rows), of a chunk's edge (rows 7 | 8) and of the warps'
+    (rows 31 | 32); their other values positive."""
+    x = x.clone()
+    x[:, :10] = x[:, :10].abs() + 1.0
+    nan = {k: torch.tensor([k], dtype=torch.int64).to(torch.int32).view(
+        torch.float32)[0] for k in (NAN_A, NAN_B, NAN_C, NAN_D)}
+    cells = [(0, 1, 0.0), (0, 40, -0.0),        # +0, then -0
+             (1, 3, -0.0), (1, 60, 0.0),        # -0, then +0
+             (2, 0, 0.0), (2, 33, 0.0),         # +0 twice
+             (3, 7, -0.0), (3, 8, -0.0),        # -0 each side of a chunk
+             (4, 10, nan[NAN_A]), (4, 50, nan[NAN_B]),
+             (5, 10, nan[NAN_B]), (5, 50, nan[NAN_A]),
+             (6, 2, nan[NAN_B]), (6, 63, nan[NAN_D]),   # negative NaNs
+             (7, 63, nan[NAN_A]), (7, 0, nan[NAN_C]),   # positive NaNs
+             (8, 1, nan[NAN_B]), (8, 2, -0.0),
+             (9, 31, 0.0), (9, 32, -0.0)]      # each side of the warps
+    for col, row, v in cells:
+        x[row, col] = v
+    return x
+
+
+# the column minima of reduce_zero_nan_input's columns 0..9, as JAX's
+# jnp.min gives them on the CPU
+REDUCE_ZERO_NAN_MINIMA = [0x80000000, 0x80000000, 0, 0x80000000, NAN_A,
+                          NAN_A, NAN_D, NAN_C, NAN_B, 0x80000000]
+
+
+def gather_zero_nan_input(rows, cols, seed):
+    """bf16 ``x`` [rows, cols] of random bits (NaNs of many payloads and
+    both signs, infinities) with +0 and -0 in its first row, and int32
+    pointers of its shape in ``[0, rows)``."""
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(-2 ** 15, 2 ** 15, (rows, cols), dtype=np.int16)
+    bits[0, :2] = (0, -2 ** 15)
+    ptr = rng.integers(0, rows, (rows, cols)).astype(np.int32)
+    return (torch.from_numpy(bits).view(torch.bfloat16),
+            torch.from_numpy(ptr))

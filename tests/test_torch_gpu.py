@@ -26,7 +26,8 @@ from polar_torch.models.polar.scan_core import (leaf_schedule,
 from polar_torch.models.polar.scl import PolarSCLDecoder
 
 from _torch_parity import (BLOCK_AGREEMENT, assert_blocks_agree,
-                           assert_osd_agrees)
+                           assert_osd_agrees, gather_zero_nan_input,
+                           reduce_zero_nan_input)
 
 LLR_MAX = 30.0
 
@@ -673,14 +674,40 @@ def test_bench_on_card(cuda):
 def test_probe_kernel_equals_plain_on_card(cuda, name):
     """Each probe kernel against its plain version on the card, bit for
     bit, at the script's inputs, another draw and (f32 probes) a wider
-    input than the script's four blocks."""
+    input than the script's four blocks; ``reduce`` also on signed zeros
+    and NaNs of two payloads each side of its row split, on [64, 1536]
+    and on a tensor not 16-byte aligned; ``gather`` on random bf16 bits
+    (NaNs, signed zeros) and on [16, 1024], [8, 250] (element by element
+    past the last 8 columns), [3072, 16] (12 units a thread, the 48 KiB
+    tile), [3073, 24] (straight from ``x``) and a tensor not 16-byte
+    aligned."""
     from polar_torch import probes
     step = "bf16" if name in probes.BF16 else f"mini:{name}"
     cases = [probes.step_inputs(step, seed)[name] for seed in (0, 7)]
     if name in probes.MINI:
         cases.append((torch.from_numpy(np.random.default_rng(3).normal(
             0, 2, (64, 6 * 128)).astype(np.float32)),))
+    if name == "reduce":
+        cases += [(reduce_zero_nan_input(probes.mini_input(4)),),
+                  (reduce_zero_nan_input(torch.from_numpy(
+                      np.random.default_rng(5).normal(
+                          0, 2, (64, 1536)).astype(np.float32))),),
+                  "unaligned"]
+    if name == "gather":
+        cases += [gather_zero_nan_input(8, 256, 8),
+                  gather_zero_nan_input(16, 1024, 16),
+                  gather_zero_nan_input(8, 250, 10),
+                  gather_zero_nan_input(3072, 16, 12),
+                  gather_zero_nan_input(3073, 24, 13), "unaligned"]
     for args in cases:
+        if args == "unaligned":
+            args = (cases[-2] if name == "reduce"
+                    else gather_zero_nan_input(8, 256, 11))
+            x = args[0].to(cuda)
+            flat = x.new_empty(x.numel() + 1)
+            flat[1:] = x.flatten()
+            args = (flat[1:].view(x.shape),) + args[1:]  # one element past
+            assert args[0].data_ptr() % 16 and args[0].is_contiguous()
         args = tuple(a.to(cuda) for a in args)
         before = probes.WRAPPERS[name].launches
         got = probes.WRAPPERS[name](*args)
@@ -692,3 +719,17 @@ def test_probe_kernel_equals_plain_on_card(cuda, name):
         cpu = tuple(a.cpu() for a in args)
         assert probes.differing(probes.probe_host(name, *cpu),
                                 got.cpu()) == 0
+
+
+@pytest.mark.gpu
+def test_probe_wrappers_raise_on_the_card(cuda):
+    """``gather`` raises on a CPU/CUDA mix of ``x`` and its pointers, and
+    launches nothing."""
+    from polar_torch import probes
+    x, ptr = probes.bf16_inputs()["gather"]
+    before = probes.launch_counts()
+    with pytest.raises(ValueError, match="pointers"):
+        probes.gather(x.to(cuda), ptr)
+    with pytest.raises(ValueError, match="pointers"):
+        probes.gather(x, ptr.to(cuda))
+    assert probes.launch_counts() == before

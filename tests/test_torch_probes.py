@@ -14,6 +14,7 @@ its specs (``:234-237``, ``:307-317``, ``:358``)."""
 import ast
 import json
 import os
+import re
 
 import numpy as np
 import jax
@@ -26,6 +27,9 @@ from jax.experimental.pallas import tpu as pltpu
 
 from polar_torch import probes
 from polar_torch.utils import kernel_work
+
+from _torch_parity import (REDUCE_ZERO_NAN_MINIMA, gather_zero_nan_input,
+                           reduce_zero_nan_input)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = os.path.join(REPO, "benchmarks", "probe_r4.py")
@@ -137,6 +141,68 @@ def test_plain_keeps_jax_signed_zeros_and_nan(script):
             _bits(probes.probe_host(variant, x)), _bits(got))
 
 
+def test_reduce_combine_order_keeps_jax_bits(script):
+    """JAX's ``jnp.min`` keeps -0 below +0 and picks between NaNs by sign
+    and order (``probes._xla_min``); the plain version and the host build
+    of the card's split reduction (row chunks combined in row order) give
+    its bits."""
+    x = reduce_zero_nan_input(probes.mini_input(4))
+    want = _jax_mini(script, "reduce", jnp.asarray(x.numpy()))
+    got = probes.reduce(x)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    np.testing.assert_array_equal(_bits(probes.probe_host("reduce", x)),
+                                  _bits(want))
+    # the columns' minima, as JAX folds them
+    assert list(_bits(want)[0, :10].view(np.uint32)) == \
+        REDUCE_ZERO_NAN_MINIMA
+
+
+@pytest.mark.parametrize("shape", [(8, 250), (8, 3), (13, 1001), (16, 1024),
+                                   (300, 40), (1024, 9), (1025, 8),
+                                   (3072, 16), (3073, 9)])
+def test_gather_host_build_tiles_and_masks(script, shape):
+    """The host build of the card's gather (slabs of up to 256 columns, 8
+    columns a thread; widths not a multiple of 8 element by element,
+    masked past the last column; more units a slab than a CTA holds
+    pointers for past 1,024 rows; element by element from ``x`` past the
+    3,072 rows a tile holds) against the plain version and the script's
+    kernel, bit for bit (against the plain version on random bf16 bits:
+    NaNs of many payloads, signed zeros)."""
+    rows, cols = shape
+    x, ptr = gather_zero_nan_input(rows, cols, rows * cols)
+    assert probes.differing(probes.gather(x, ptr),
+                            probes.probe_host("gather", x, ptr)) == 0
+    if rows * cols <= 8192:
+        # finite values: XLA's gather on the CPU rewrites a bf16 NaN's
+        # payload (ROADMAP Queue 3), the card's and the plain version copy
+        # its bits
+        xf = probes._to_bf16(np.random.default_rng(cols).normal(0, 2, shape))
+        want = pl.pallas_call(
+            script["k_gather"], interpret=True,
+            out_shape=jax.ShapeDtypeStruct(shape, jnp.bfloat16))(
+                jnp.asarray(xf.float().numpy(), jnp.bfloat16),
+                jnp.asarray(ptr.numpy()))
+        got = probes.probe_host("gather", xf, ptr)
+        np.testing.assert_array_equal(_bits(got), _bits(np.asarray(want)))
+
+
+@pytest.mark.parametrize("name", ["reduce", "gather"])
+def test_host_build_takes_unaligned_tensors(name):
+    """A contiguous view one element past a 16-byte boundary takes the
+    card's element-by-element form, bit-equal to the plain version."""
+    step = "bf16" if name in probes.BF16 else f"mini:{name}"
+    args = probes.step_inputs(step, 2)[name]
+    if name == "reduce":
+        args = (reduce_zero_nan_input(args[0]),)
+    x = args[0]
+    flat = x.new_empty(x.numel() + 1)
+    flat[1:] = x.flatten()
+    args = (flat[1:].view(x.shape),) + args[1:]
+    assert args[0].data_ptr() % 16 and args[0].is_contiguous()
+    np.testing.assert_array_equal(_bits(probes.probe_host(name, *args)),
+                                  _bits(probes.PLAIN[name](*args)))
+
+
 @pytest.mark.parametrize("name", probes.PROBES)
 def test_host_build_equals_plain(name):
     for seed in SEEDS:
@@ -209,6 +275,45 @@ def test_wrappers_check_their_arguments():
         probes.fori(torch.empty((64, 128), device="meta"))
     with pytest.raises(ValueError, match="CPU tensors"):
         probes.probe_host("fori", torch.empty((64, 128), device="meta"))
+
+
+def _argument_cases(name):
+    """Arguments of probe ``name`` that ``_check`` accepts (first) and
+    ones it refuses, each way it can."""
+    step = "bf16" if name in probes.BF16 else f"mini:{name}"
+    good = probes.step_inputs(step)[name]
+    x = good[0]
+    other = torch.float32 if x.dtype != torch.float32 else torch.float64
+    cases = [good, good + good[:1], (),
+             (x.to(other),) + good[1:],
+             (x[:, :0].contiguous(),) + good[1:],
+             (x.reshape(-1),) + good[1:],
+             (x.t(),) + good[1:],
+             (x[:, :x.shape[1] // 2 + 1].contiguous(),) + good[1:],
+             (x[:x.shape[0] // 2].contiguous(),) + good[1:]]
+    if name == "gather":
+        ptr = good[1]
+        cases += [(x, ptr.long()), (x, ptr[:4].contiguous()), (x, ptr.t()),
+                  (x, ptr.to("meta"))]
+    return cases
+
+
+@pytest.mark.parametrize("name", probes.PROBES)
+def test_wrapper_checks_every_call(name):
+    """Every call runs ``_check``: arguments it refuses raise the same
+    error from the wrapper, and ones it accepts give the plain version's
+    answer."""
+    cases = _argument_cases(name)
+    probes._check(name, cases[0])
+    for args in cases:
+        try:
+            probes._check(name, args)
+        except (TypeError, ValueError) as err:
+            with pytest.raises(type(err), match=re.escape(str(err))):
+                probes.WRAPPERS[name](*args)
+            continue
+        assert probes.differing(probes.PLAIN[name](*args),
+                                probes.WRAPPERS[name](*args)) == 0
 
 
 def test_probe_work_and_bounds():
