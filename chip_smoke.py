@@ -161,15 +161,21 @@ Phases (any failure exits non-zero and prints no result):
     0 elements differing from its plain version at the script's draw (bit
     for bit), its ms per launch over 200 launches (CUDA events; the host
     paces launches this short). Then each kernel against its plain version
-    at another draw, 0 elements differing; the kernel's own device time
+    at another draw, 0 elements differing (the stage sweeps also on f32 of
+    random bits at [64, 512] and [64, 768], on every ordered pair of NaNs,
+    +-1 and +-0 at each stage of ``k_sweepcombo`` and on normal values at
+    [64, 768]); the kernel's own device time
     (torch.profiler, 20 launches) beside its plain version's, the library
     call's (``torch.gather`` for ``gather``, ``torch.amin`` for
     ``reduce``) and its bound. For those two also the library kernel's
     own device time (profiler) and the kernel's and the library call's ms a
     launch in turns (kernel, library, library, kernel, ...: the medians of
     five runs of 200 launches each, with their ratio; not gated). Then
-    ``python -m polar_torch.probes`` in its own process, which must exit 0
-    and print one line a step.
+    ``k_big``'s two instances in the SASS (``cuobjdump -sass``): 40
+    shuffles a sweep each (every cross-lane stage of every sweep kept),
+    with their counts of min, select, logic and barrier instructions
+    logged. Then ``python -m polar_torch.probes`` in its own process,
+    which must exit 0 and print one line a step.
 
 The line before the card's line is one JSON object ``{"kernels": [...]}``
 with each kernel form's launches on its path (``scl_subtree`` static
@@ -342,6 +348,12 @@ ENTRY_TIMEOUT_S = 300
 PROBE_OTHER_SEED = 11
 PROBE_FEW_REPS = 20
 PROBE_TURN_ROUNDS = 5
+# the stage sweeps, also checked on NaN, zero and wider inputs; the wider
+# width; k_big's shuffles a sweep in its SASS (5 cross-lane stages of a
+# lane's 8 rows)
+PROBE_SWEEPS = ("sweepcombo", "bigsweep", "bigsweep_noloop")
+PROBE_WIDE_COLS = 768
+BIG_SHFL_A_SWEEP = 40
 SMEM_OPT_IN = 232448                # shared memory a block may opt in to
 
 
@@ -1092,6 +1104,31 @@ def probe_library(name, args):
     return None
 
 
+def sass_counts(lib, match, opcodes):
+    """{kernel: {opcode: count}} of the kernels in library ``lib`` whose
+    mangled name holds ``match``, counting the SASS instructions
+    (``cuobjdump -sass``) whose opcode starts with each of ``opcodes``."""
+    from polar_torch import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            if match in name:
+                counts[name] = dict.fromkeys(opcodes, 0)
+            else:
+                name = None
+        elif name and line.strip().startswith("/*") and "*/" in line:
+            words = line.split("*/", 1)[1].replace("{", " ").split()
+            words = [w for w in words if not w.startswith("@")]
+            for op in opcodes:
+                if words and words[0].startswith(op):
+                    counts[name][op] += 1
+    return counts
+
+
 def in_turns(kernel, library, reps, rounds=PROBE_TURN_ROUNDS):
     """(kernel ms, library ms) a launch, each the median of ``rounds``
     CUDA-event means of ``reps`` back-to-back launches, timed in turns:
@@ -1152,6 +1189,24 @@ def probes_phase(dev, card):
                                  f"{PROBE_OTHER_SEED})")
         n_bad += on_path[name]["mismatches"]
         checked = 2 * got.numel()               # both draws' shapes agree
+        if name in PROBE_SWEEPS:
+            # NaNs, signed zeros and infinities at the script's width and
+            # a wider one, and every ordered pair of NaNs, +-1 and +-0
+            for x in (probes.bits_input(PROBE_OTHER_SEED),
+                      probes.bits_input(PROBE_OTHER_SEED, PROBE_WIDE_COLS),
+                      probes.pair_input(PROBE_OTHER_SEED),
+                      probes.mini_input(PROBE_OTHER_SEED).repeat(1, 2)[
+                          :, :PROBE_WIDE_COLS].contiguous()):
+                x = x.to(dev)
+                got_x = wrapper(x)
+                torch.cuda.synchronize()
+                n_x = probes.differing(plain(x), got_x)
+                if n_x:
+                    raise AssertionError(
+                        f"phase 15: {name} differs from its plain version "
+                        f"on {n_x} elements of a NaN, zero or wide input "
+                        f"{list(x.shape)}")
+                checked += got_x.numel()
         max_abs = max(on_path[name]["max_abs_err"],
                       (want.double() - got.double()).abs().max().item())
         args = tuple(a.to(dev) for a in probes.step_inputs(step)[name])
@@ -1193,6 +1248,25 @@ def probes_phase(dev, card):
                 f"launches) {k_turn:.4f} vs {l_turn:.4f} ms "
                 f"({k_turn / l_turn:.3f}x) [{card}]")
         entries.append(entry)
+
+    # k_big's whole sweep is in its code: every cross-lane stage of every
+    # sweep shuffles a lane's 8 rows (the quarters are warps of their own,
+    # folded into the output)
+    from polar_torch import _build
+    (lib,) = _build.build([("probes", "cuda")])
+    sass = sass_counts(lib, "probe_big_kernel",
+                       ("SHFL", "FMNMX", "FSETP", "SEL", "LOP3", "ISETP", "BAR"))
+    sweeps = {"ILi4E": 4, "ILi1E": 1}
+    for fn, ops in sass.items():
+        want = [BIG_SHFL_A_SWEEP * n for key, n in sweeps.items()
+                if key in fn]
+        if want != [ops["SHFL"]]:
+            raise AssertionError(f"phase 15: {fn} has {ops['SHFL']} "
+                                 f"shuffles, not {want}")
+        log(f"phase 15: SASS of {fn}: {ops}")
+    if len(sass) != 2:
+        raise AssertionError(f"phase 15: k_big's two instances not found "
+                             f"in the SASS: {sorted(sass)}")
 
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-m", "polar_torch.probes"],

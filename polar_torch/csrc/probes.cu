@@ -18,12 +18,14 @@
 // k_reduce's bound and 300-3000x, three orders of magnitude, above
 // k_gather's; so their designs aim at the fewest dependent round trips
 // to memory a launch, not at bandwidth. The stage sweeps need little
-// arithmetic: the two rows of a pair take one value, so each group of rows
-// that the stages pair inside (8 rows for k_sweepcombo, the 64-row block
-// for k_big, whose 16 scratch tiles stay equal) ends as its least |x|,
-// whatever the sweeps. These kernels do the work op by op as the TPU
-// kernels do, k_big over all 16 tiles (about 8.4e7 operations in four
-// sweeps), so they run far above that bound.
+// arithmetic: off NaN the two rows of a pair take one value, so each group
+// of rows that the stages pair inside (8 rows for k_sweepcombo, the 64-row
+// block for k_big, whose 16 scratch tiles stay equal) ends as its least
+// |x|, whatever the sweeps. These kernels do the work op by op as the TPU
+// kernels do, k_big over all 16 tiles (about 1.7e7 row updates in four
+// sweeps), so they run far above that bound. Every stage update takes the
+// NaN bits XLA gives on the CPU (probes.cuh probe_minsum: with a NaN the
+// two rows of a pair may differ), in integer operations and selects.
 //
 // Design. Every probe mixes rows of one column only (the roll, the
 // reduction, the row-bit selects, the gather and the stage partners).
@@ -41,17 +43,28 @@
 //   trees, depth 3 + 3: the bits of one fold over the rows, probes.cuh
 //   probe_min), then writes its rows of the broadcast as 16-byte stores.
 //   Tensors not 16-byte aligned take the same kernel with 4-byte accesses.
-// * k_big: its scratch is 1,024 x 128 x 4 B = 512 KiB a TPU block, more
-//   than the 227 KB of shared memory a CTA may take. Columns are
-//   independent, so each CTA takes 32 of them: a [1024][32] f32 tile, 128
-//   KiB of dynamic shared memory (a warp's 32 lanes on 32 columns hit 32
-//   banks), 16 CTAs for 512 columns. The 16 warps of a CTA split each
-//   stage's 512 pairs, with a barrier between stages; the two rows of a
-//   pair take the same value, so a stage updates in place (probes.cuh
-//   probe_pair).
+// * k_big (replaces k_big, :275-298; make_bigsweep with and without its
+//   loop): a scratch of 1,024 rows a column, 8 stages a sweep, 4 sweeps or
+//   1. Stage s pairs row r with r ^ 2^s, so each 256-row quarter of the
+//   scratch is swept alone, and stages 0..4 stay within 32 rows. So one
+//   warp takes a (column, quarter) and holds it in registers, 8 rows a
+//   lane: stages 0..2 pair a lane's registers, stages 3..7 lanes by
+//   __shfl_xor_sync, each lane computing its own rows' values (probes.cuh
+//   probe_big_*). CTAs of 16 warps (4 columns, 128 CTAs at [64, 512]).
+//   No shared memory and no barrier inside the sweep; the sweep count is a
+//   template argument and every loop unrolls. The fill reads x straight
+//   (64 values a column, 8 loads a lane). The quarters that never reach o
+//   stay live by the fold: each output row is that row of the four
+//   quarters folded by probe_min, which returns the bits of four equal
+//   values, through a 4 KiB shared tile and the CTA's one barrier after
+//   the sweeps; chip_smoke.py phase 15 counts each instance's shuffles in
+//   its SASS (5 stages x 8 rows a sweep: 40 and 160). The TPU kernel's
+//   whole sweep stays: every row of every quarter through every stage of
+//   every sweep.
 // * k_gather (replaces k_gather, :337; bytes-bound, 16 KiB at [8, 256]):
 //   all of a slab's loads in one round, then one barrier, then the
-//   stores. CTAs of 256 threads on slabs of up to 256 columns and all rows
+//   stores, every NaN written as XLA's gather writes it (probes.cuh
+//   probe_bf16_canon; two values a word at once, probe_bf16x2_canon). CTAs of 256 threads on slabs of up to 256 columns and all rows
 //   (one CTA at [8, 256]): each thread stages 8 neighbouring columns of x
 //   in a shared tile with one 16-byte load and reads their 8 pointers as
 //   two 16-byte loads, then gathers its 8 outputs from the tile and
@@ -80,8 +93,8 @@
 
 namespace polar_torch {
 
-constexpr int kProbeBigCols = 32;      // k_big's columns a CTA
-constexpr int kProbeBigThreads = 512;  // 16 warps
+constexpr int kProbeBigCtaCols = 4;   // k_big's columns a CTA
+constexpr int kProbeBigThreads = 32 * kProbeBigQuarters * kProbeBigCtaCols;
 constexpr int kProbeSmallThreads = 256;
 constexpr int kGatherDirectGrid = 132 * 8;  // grid-stride CTAs, 8 an SM
 
@@ -107,24 +120,48 @@ __global__ void __launch_bounds__(kReduceThreads)
                            probe_reduce_combine(&part[0][q], kReduceQuads));
 }
 
+// k_big: one warp a (column, quarter), kProbeBigCtaCols columns a CTA;
+// lane l holds its quarter's rows 8 l .. 8 l + 7 (probes.cuh). No shared
+// memory and no barrier until the sweeps end; then each warp's lanes 0..7
+// leave their rows 0..63 in a shared tile, and the CTA folds the four
+// quarters of each row and writes it.
+template <int kSweeps>
 __global__ void __launch_bounds__(kProbeBigThreads)
-    probe_big_kernel(const float* x, float* o, int cols, int sweeps) {
-  extern __shared__ float tile[];  // [kProbeBigRows][kProbeBigCols]
-  constexpr int kWarps = kProbeBigThreads / 32;
-  const int c = threadIdx.x % 32, w = threadIdx.x / 32;
-  const int col = blockIdx.x * kProbeBigCols + c;
-  for (int r = w; r < kProbeBigRows; r += kWarps)
-    tile[r * kProbeBigCols + c] = probe_big_fill(x + col, cols, r);
-  __syncthreads();
-  for (int i = 0; i < sweeps; ++i) {
-    for (int s = 0; s < kProbeBigStages; ++s) {
-      for (int p = w; p < kProbeBigRows / 2; p += kWarps)
-        probe_pair(tile + c, kProbeBigCols, s, p);
-      __syncthreads();
+    probe_big_kernel(const float* __restrict__ x, float* __restrict__ o,
+                     int cols) {
+  __shared__ uint32_t rows[kProbeBigCtaCols][kProbeBigQuarters][kProbeRows];
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  const int q = w % kProbeBigQuarters, c = w / kProbeBigQuarters;
+  const int col0 = blockIdx.x * kProbeBigCtaCols;
+  uint32_t v[kProbeBigLaneRows];
+  probe_big_fill(x + col0 + c, cols, lane, v);
+#pragma unroll
+  for (int i = 0; i < kSweeps; ++i) {
+#pragma unroll
+    for (int s = 0; s < kProbeBigInLane; ++s) probe_big_lane_stage(v, s);
+#pragma unroll
+    for (int s = kProbeBigInLane; s < kProbeBigStages; ++s) {
+      uint32_t part[kProbeBigLaneRows];
+#pragma unroll
+      for (int k = 0; k < kProbeBigLaneRows; ++k)
+        part[k] = __shfl_xor_sync(0xffffffffu, v[k],
+                                  1 << (s - kProbeBigInLane));
+      probe_big_cross_stage(v, part);
     }
   }
-  for (int r = w; r < kProbeRows; r += kWarps)
-    o[r * cols + col] = tile[r * kProbeBigCols + c];
+  if (lane < kProbeRows / kProbeBigLaneRows) {
+#pragma unroll
+    for (int k = 0; k < kProbeBigLaneRows; ++k)
+      rows[c][q][kProbeBigLaneRows * lane + k] = v[k];
+  }
+  __syncthreads();
+  // thread t writes row t / kProbeBigCtaCols of column t % kProbeBigCtaCols:
+  // each row's columns side by side
+  for (int t = threadIdx.x; t < kProbeRows * kProbeBigCtaCols;
+       t += kProbeBigThreads) {
+    const int r = t / kProbeBigCtaCols, cc = t % kProbeBigCtaCols;
+    o[r * cols + col0 + cc] = probe_big_fold(&rows[cc][0][r], kProbeRows);
+  }
 }
 
 template <bool kVec>
@@ -206,14 +243,11 @@ int launch_f32(const float* x, float* o, int cols, void* st) {
   return (int)cudaGetLastError();
 }
 
-int launch_big(const float* x, float* o, int cols, int sweeps, void* st) {
-  constexpr int kSmem = kProbeBigRows * kProbeBigCols * sizeof(float);
+template <int kSweeps>
+int launch_big(const float* x, float* o, int cols, void* st) {
   if (!f32_shape_ok(cols)) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = cudaFuncSetAttribute(
-      probe_big_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (err != cudaSuccess) return (int)err;
-  probe_big_kernel<<<cols / kProbeBigCols, kProbeBigThreads, kSmem,
-                     static_cast<cudaStream_t>(st)>>>(x, o, cols, sweeps);
+  probe_big_kernel<kSweeps><<<cols / kProbeBigCtaCols, kProbeBigThreads, 0,
+                              static_cast<cudaStream_t>(st)>>>(x, o, cols);
   return (int)cudaGetLastError();
 }
 
@@ -249,13 +283,13 @@ PROBE_F32_ENTRY(sweepcombo, kProbeSweepCombo)
 #undef PROBE_F32_ENTRY
 
 int probe_bigsweep(const float* x, float* out, int cols, void* stream) {
-  return polar_torch::launch_big(x, out, cols, polar_torch::kProbeLoopSweeps,
-                                 stream);
+  return polar_torch::launch_big<polar_torch::kProbeLoopSweeps>(x, out, cols,
+                                                                stream);
 }
 
 int probe_bigsweep_noloop(const float* x, float* out, int cols,
                           void* stream) {
-  return polar_torch::launch_big(x, out, cols, 1, stream);
+  return polar_torch::launch_big<1>(x, out, cols, stream);
 }
 
 int probe_reduce(const float* x, float* out, int cols, void* stream) {

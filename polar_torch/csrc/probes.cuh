@@ -66,27 +66,86 @@ PT_HD PT_INLINE float probe_min(float x, float y) {
   return swap ? probe_min_pos(y, x) : probe_min_pos(x, y);
 }
 
-// min(|a|, |p|) sign(a) sign(p), multiplied in the probes' order. Both
-// factors are +-1 or +-0, so the products are exact and the value is
-// symmetric in a and p, sign bits included (a product's sign is the XOR of
-// its factors').
-PT_HD PT_INLINE float probe_minsum(float a, float p) {
-  return probe_min_pos(fabsf(a), fabsf(p)) * probe_sign(a) * probe_sign(p);
+// One row's stage update min(|xx|, |part|) sign(xx) sign(part) of the
+// stage sweeps, on the bits of the row's own value x and its partner's p,
+// with the bits XLA gives on the CPU (the script's kernels in interpret
+// mode, probed with every ordered pair of four NaNs of both signs and
+// payloads, +-1 and +-0; tests/test_torch_probes.py). Off NaN the value is
+// min(|x|, |p|) with the sign bit sign(x) XOR sign(p): both sign factors
+// are +-1 or +-0, so the products are exact. With a NaN, XLA's code
+// multiplies the three factors with the first NaN operand kept (x86's
+// rule) in an order that depends on the stage: stage 0 of a sweep takes
+// sign(xx), then the minimum, then sign(part); every later stage
+// sign(part), then the minimum, then sign(xx). Since jnp.sign passes a NaN
+// on and the minimum of the magnitudes is the NaN one's magnitude, the
+// result is the first operand (x at stage 0, own_first; p after) if that
+// is a NaN, else the other one's magnitude, quieted either way. So the two
+// rows of a pair may end with other NaN bits, and each computes its own
+// value from the pair's old values. (XLA also computes some rows again in
+// the fusions that feed them to later stages as partners, a few of them
+// in another order; where NaNs meet in k_big, its NaN bits follow those
+// copies, which no kernel computing each row once can give. The values
+// and where the NaNs are agree.) The routines take NaNs already quiet
+// (probe_quiet, once at the load), so the quieting costs nothing a stage.
+// Selects and sign-bit operations only reach the result: the one f32
+// operation, the minimum of the magnitudes, is kept only off NaN, since
+// the card's float unit would not keep a NaN's payload. (Subnormal inputs
+// XLA's CPU code flushes to zero; here they stay.)
+constexpr uint32_t kF32Abs = 0x7fffffffu, kF32Sign = 0x80000000u;
+constexpr uint32_t kF32Inf = 0x7f800000u, kF32Quiet = 0x00400000u;
+
+// a NaN with its quiet bit set, anything else as it is
+PT_HD PT_INLINE uint32_t probe_quiet(uint32_t u) {
+  return (u & kF32Abs) > kF32Inf ? u | kF32Quiet : u;
+}
+
+PT_HD PT_INLINE bool probe_is_nan(uint32_t u) {
+  const float f = f32_of(u);
+  return f != f;
+}
+
+// the update off NaN (with a NaN operand: a value never kept)
+PT_HD PT_INLINE uint32_t probe_minsum_num(uint32_t x, uint32_t p) {
+  return f32_bits(fminf(fabsf(f32_of(x)), fabsf(f32_of(p))))
+         | ((x ^ p) & kF32Sign);
+}
+
+// row x's update from its partner p (NaNs quiet)
+PT_HD PT_INLINE uint32_t probe_minsum(uint32_t x, uint32_t p,
+                                      bool own_first) {
+  const uint32_t num = probe_minsum_num(x, p);
+  const bool nx = probe_is_nan(x), np = probe_is_nan(p);
+  return own_first ? (nx ? x : (np ? p & kF32Abs : num))
+                   : (np ? p : (nx ? x & kF32Abs : num));
+}
+
+// Both rows of a pair, each from the pair's old values (a's partner is b,
+// b's is a; NaNs quiet); the off-NaN value and the NaN tests are shared.
+PT_HD PT_INLINE void probe_minsum_pair(uint32_t& a, uint32_t& b,
+                                       bool own_first) {
+  const uint32_t num = probe_minsum_num(a, b);
+  const bool na = probe_is_nan(a), nb = probe_is_nan(b);
+  const uint32_t a_abs = a & kF32Abs, b_abs = b & kF32Abs;
+  const uint32_t a_new = own_first ? (na ? a : (nb ? b_abs : num))
+                                   : (nb ? b : (na ? a_abs : num));
+  b = own_first ? (nb ? b : (na ? a_abs : num))
+                : (na ? a : (nb ? b_abs : num));
+  a = a_new;
 }
 
 // One stage-s update of pair p (0 <= p < rows / 2) of a column: row r, the
 // p-th row whose bit s is 0, and its partner r + 2^s, which therefore never
-// wraps. The probes give row r the partner r + 2^s and row r + 2^s the
-// partner r, and both the same value, so the pair is updated in place with
-// no copy of the scratch.
+// wraps. Both rows update from the pair's old values in place, with no
+// copy of the scratch.
 PT_HD PT_INLINE void probe_pair(float* col, int ld, int s, int p) {
   const int d = 1 << s;
   const int r = ((p >> s) << (s + 1)) | (p & (d - 1));
   float* a = col + r * ld;
   float* q = a + d * ld;
-  const float m = probe_minsum(*a, *q);
-  *a = m;
-  *q = m;
+  uint32_t va = f32_bits(*a), vq = f32_bits(*q);
+  probe_minsum_pair(va, vq, s == 0);
+  *a = f32_of(va);
+  *q = f32_of(vq);
 }
 
 // One f32 probe over a column: x and o point at its row 0, rows ld apart.
@@ -129,6 +188,9 @@ PT_HD PT_INLINE void probe_column(const float* x, float* o, int ld) {
       o[r * ld] = acc;
     }
   } else if constexpr (P == kProbeSweepCombo) {
+#pragma unroll
+    for (int r = 0; r < kProbeRows; ++r)
+      v[r] = f32_of(probe_quiet(f32_bits(v[r])));
     for (int i = 0; i < kProbeComboSweeps; ++i) {
 #pragma unroll
       for (int s = 0; s < kProbeComboStages; ++s) {
@@ -141,21 +203,59 @@ PT_HD PT_INLINE void probe_column(const float* x, float* o, int ld) {
   }
 }
 
-// k_big's scratch row r: row r mod 64 of the block (the block tiled 16
-// times)
-PT_HD PT_INLINE float probe_big_fill(const float* x, int ld, int r) {
-  return x[(r % kProbeRows) * ld];
+// ----------------------------------------------------------------------
+// k_big: 1,024 scratch rows a column, row r = x[r mod 64] (the 64-row
+// block tiled 16 times), swept `sweeps` times over stages 0..7; out rows
+// 0..63. Stage s pairs row r with r ^ 2^s, so each 256-row quarter of the
+// scratch evolves alone, and the four start equal. The card's layout: one
+// warp a (column, quarter), lane l holding the quarter's rows 8 l .. 8 l
+// + 7 in registers (row 8 l + k in register k). Stages 0..2 pair registers
+// k ^ 2^s of a lane, stages 3..7 lanes l ^ 2^(s-3) (the card: a shuffle).
+// Lanes 0..7 hold rows 0..63; each output row is that row of the four
+// quarters folded by probe_min, which returns its bits (the quarters are
+// equal: the same values through the same steps), so every quarter's
+// sweep reaches the output.
+// ----------------------------------------------------------------------
+constexpr int kProbeBigQuarters = 4;  // 256-row quarters of the scratch
+constexpr int kProbeBigLaneRows = 8;  // rows of a quarter a lane holds
+constexpr int kProbeBigInLane = 3;    // stages 0..2 pair a lane's rows
+static_assert(kProbeBigQuarters * 32 * kProbeBigLaneRows == kProbeBigRows
+                  && 1 << kProbeBigInLane == kProbeBigLaneRows
+                  && kProbeBigStages - kProbeBigInLane == 5,
+              "four quarters of 32 lanes of 8 rows; lanes pair by 5 bits");
+
+// lane's registers of one column at its fill (x and its row 0, rows ld
+// apart), NaNs quieted; every quarter's are rows (8 lane + k) mod 64 of
+// the block
+PT_HD PT_INLINE void probe_big_fill(const float* x, int ld, int lane,
+                                    uint32_t* v) {
+#pragma unroll
+  for (int k = 0; k < kProbeBigLaneRows; ++k)
+    v[k] = probe_quiet(
+        f32_bits(x[((kProbeBigLaneRows * lane + k) % kProbeRows) * ld]));
 }
 
-// k_big over one column on the host: fill the 1,024-row scratch col,
-// sweep it `sweeps` times over stages 0..7, write its rows 0..63 to o
-inline void probe_big_column(const float* x, float* o, int ld, float* col,
-                             int sweeps) {
-  for (int r = 0; r < kProbeBigRows; ++r) col[r] = probe_big_fill(x, ld, r);
-  for (int i = 0; i < sweeps; ++i)
-    for (int s = 0; s < kProbeBigStages; ++s)
-      for (int p = 0; p < kProbeBigRows / 2; ++p) probe_pair(col, 1, s, p);
-  for (int r = 0; r < kProbeRows; ++r) o[r * ld] = col[r];
+// stage s < 3 over a lane's registers: pairs k, k ^ 2^s
+PT_HD PT_INLINE void probe_big_lane_stage(uint32_t* v, int s) {
+#pragma unroll
+  for (int k = 0; k < kProbeBigLaneRows; ++k)
+    if (!(k >> s & 1)) probe_minsum_pair(v[k], v[k | 1 << s], s == 0);
+}
+
+// stage s >= 3 over a lane's registers, given the partner lane's (p)
+PT_HD PT_INLINE void probe_big_cross_stage(uint32_t* v, const uint32_t* p) {
+#pragma unroll
+  for (int k = 0; k < kProbeBigLaneRows; ++k)
+    v[k] = probe_minsum(v[k], p[k], false);
+}
+
+// an output row from its four quarters' bits, folded in quarter order
+PT_HD PT_INLINE float probe_big_fold(const uint32_t* q, int stride) {
+  float m = f32_of(q[0]);
+#pragma unroll
+  for (int i = 1; i < kProbeBigQuarters; ++i)
+    m = probe_min(m, f32_of(q[i * stride]));
+  return m;
 }
 
 PT_HD PT_INLINE float bf16_to_f32(uint16_t h) {
@@ -300,8 +400,9 @@ PT_HD PT_INLINE void probe_reduce_store(float* __restrict__ o, int ld, int g,
 
 // ----------------------------------------------------------------------
 // k_gather: o[r, c] = x[p[r, c], c] for bf16 x and int32 p of one shape
-// [rows, cols] (take_along_axis on axis 0); the pointers must lie in
-// [0, rows), which is not checked. Up to kGatherTileRows rows, a CTA
+// [rows, cols] (take_along_axis on axis 0), a NaN written as XLA's gather
+// writes it (probe_bf16_canon); the pointers must lie in [0, rows), which
+// is not checked. Up to kGatherTileRows rows, a CTA
 // takes a slab of 8 n8 columns (n8 = probe_gather_n8(rows)) and all rows,
 // in units of 8 neighbouring columns of one row: unit u is row u / n8,
 // slab columns 8 (u % n8) .. + 7. In the first round each unit's x goes to
@@ -370,7 +471,25 @@ PT_HD PT_INLINE void probe_gather_ptrs(const int32_t* __restrict__ p,
   }
 }
 
-// Round 2 of unit u of slab s: its outputs from the tile.
+// A gathered bf16 value as XLA's gather gives it on the CPU: a NaN as its
+// sign and the canonical quiet NaN 0x7fc0, anything else as it is (one
+// integer select).
+PT_HD PT_INLINE uint16_t probe_bf16_canon(uint16_t h) {
+  return (h & 0x7fffu) > 0x7f80u ? (uint16_t)((h & 0x8000u) | 0x7fc0u) : h;
+}
+
+// probe_bf16_canon on the two bf16 values of a word at once: a half's
+// magnitude plus 0x7f carries into its bit 15 exactly when it is a NaN
+// (above 0x7f80), with no carry between the halves; its bits 0..14 then
+// become those of 0x7fc0, and its sign stays.
+PT_HD PT_INLINE uint32_t probe_bf16x2_canon(uint32_t w) {
+  const uint32_t nan = ((w & 0x7fff7fffu) + 0x007f007fu) & 0x80008000u;
+  const uint32_t mask = nan - (nan >> 15);  // bits 0..14 of each NaN half
+  return (w & ~mask) | (mask & 0x7fc07fc0u);
+}
+
+// Round 2 of unit u of slab s: its outputs from the tile, NaNs
+// canonicalised (probe_bf16_canon).
 template <bool kVec>
 PT_HD PT_INLINE void probe_gather_store(const uint16_t* __restrict__ tile,
                                         const int32_t* ptr,
@@ -383,21 +502,22 @@ PT_HD PT_INLINE void probe_gather_store(const uint16_t* __restrict__ tile,
   if constexpr (kVec) {
     ProbeVec v;
     for (int k = 0; k < 4; ++k)
-      v.w[k] = (uint32_t)tile[ptr[2 * k] * ld + j + 2 * k]
-               | (uint32_t)tile[ptr[2 * k + 1] * ld + j + 2 * k + 1] << 16;
+      v.w[k] = probe_bf16x2_canon(
+          (uint32_t)tile[ptr[2 * k] * ld + j + 2 * k]
+          | (uint32_t)tile[ptr[2 * k + 1] * ld + j + 2 * k + 1] << 16);
     probe_store16(o + at, v);
   } else {
     for (int k = 0; k < 8 && c + k < cols; ++k)
-      o[at + k] = tile[ptr[k] * ld + j + k];
+      o[at + k] = probe_bf16_canon(tile[ptr[k] * ld + j + k]);
   }
 }
 
 // Output element i (row-major) gathered straight from x, for more rows
-// than the tile holds.
+// than the tile holds (canonicalised as probe_gather_store does).
 PT_HD PT_INLINE uint16_t probe_gather_direct(const uint16_t* __restrict__ x,
                                              const int32_t* __restrict__ p,
                                              int cols, size_t i) {
-  return x[(size_t)p[i] * cols + i % cols];
+  return probe_bf16_canon(x[(size_t)p[i] * cols + i % cols]);
 }
 
 }  // namespace polar_torch

@@ -1,8 +1,8 @@
 // Host build of the probe routines (probes.cuh), compiled with g++ and no
 // CUDA or torch headers: one thread runs every column in turn, with the
-// card's column mapping (k_bcast reads block 0's column; k_big a 1,024-row
-// scratch a column), and k_reduce's and k_gather's slabs in the card's
-// order (every thread's first round, then every thread's second). The
+// card's column mapping (k_bcast reads block 0's column), k_big's warps and
+// lanes (run_big), and k_reduce's and k_gather's slabs in the card's order
+// (every thread's first round, then every thread's second). The
 // CPU tests hold it bit-equal to the plain PyTorch versions, which checks
 // the CUDA kernels' arithmetic where no card exists. The main path never
 // uses it.
@@ -65,6 +65,33 @@ void run_gather(const uint16_t* x, const int32_t* p, uint16_t* o, int rows,
   }
 }
 
+// The card's k_big (probe_big_kernel) over column c: a warp a quarter, its
+// 32 lanes run in turn at each step, the cross-lane stages reading the
+// partner lane's registers from before the stage as a shuffle does; the
+// four quarters' rows 0..63 folded into the output.
+void run_big(const float* x, float* o, int cols, int c, int sweeps) {
+  using namespace polar_torch;
+  uint32_t v[kProbeBigQuarters][32][kProbeBigLaneRows];
+  uint32_t part[32][kProbeBigLaneRows];
+  for (int q = 0; q < kProbeBigQuarters; ++q) {
+    for (int l = 0; l < 32; ++l) probe_big_fill(x + c, cols, l, v[q][l]);
+    for (int i = 0; i < sweeps; ++i) {
+      for (int s = 0; s < kProbeBigInLane; ++s)
+        for (int l = 0; l < 32; ++l) probe_big_lane_stage(v[q][l], s);
+      for (int s = kProbeBigInLane; s < kProbeBigStages; ++s) {
+        for (int l = 0; l < 32; ++l)
+          for (int k = 0; k < kProbeBigLaneRows; ++k)
+            part[l][k] = v[q][l ^ 1 << (s - kProbeBigInLane)][k];
+        for (int l = 0; l < 32; ++l) probe_big_cross_stage(v[q][l], part[l]);
+      }
+    }
+  }
+  for (int r = 0; r < kProbeRows; ++r)
+    o[r * cols + c] = probe_big_fold(
+        &v[0][r / kProbeBigLaneRows][r % kProbeBigLaneRows],
+        32 * kProbeBigLaneRows);
+}
+
 bool aligned16(const void* a, const void* b, const void* c = nullptr) {
   return (((uintptr_t)a | (uintptr_t)b | (uintptr_t)c) & 15) == 0;
 }
@@ -101,10 +128,8 @@ extern "C" int probes_host(int probe, const void* x, const int32_t* p,
     case kProbeSweepCombo: run_f32<kProbeSweepCombo>(xf, of, cols); break;
     case kProbeBigSweep:
     case kProbeBigSweepNoLoop: {
-      std::vector<float> col(kProbeBigRows);
       const int sweeps = probe == kProbeBigSweep ? kProbeLoopSweeps : 1;
-      for (int c = 0; c < cols; ++c)
-        probe_big_column(xf + c, of + c, cols, col.data(), sweeps);
+      for (int c = 0; c < cols; ++c) run_big(xf, of, cols, c, sweeps);
       break;
     }
     case kProbeArith:

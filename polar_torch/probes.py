@@ -98,10 +98,30 @@ def _sign(x):
     return torch.where(x > 0, 1.0, torch.where(x < 0, -1.0, x))
 
 
+F32_ABS, F32_SIGN = 0x7FFFFFFF, -2 ** 31   # masks of int32 views
+F32_INF, F32_QUIET = 0x7F800000, 0x00400000
+
+
+def _minsum(x, p, own_first):
+    """One stage's update min(|x|, |p|) sign(x) sign(p) of every row (``x``
+    its own value, ``p`` its partner's; int32 views of f32) with the bits
+    XLA gives on the CPU: off NaN min(|x|, |p|) with the sign bit sign(x)
+    XOR sign(p); with a NaN, the first operand (``x`` at stage 0 of a
+    sweep, ``own_first``; ``p`` at later stages) if it is a NaN, else the
+    other one's magnitude, quieted (``csrc/probes.cuh`` ``probe_minsum``,
+    which says why). Integer operations and selects only, so no NaN
+    payload depends on the float unit."""
+    ax, ap = x & F32_ABS, p & F32_ABS
+    num = torch.minimum(ax, ap) | ((x ^ p) & F32_SIGN)
+    first, other = (x, ap) if own_first else (p, ax)
+    nan = torch.where((first & F32_ABS) > F32_INF, first, other) | F32_QUIET
+    return torch.where((ax > F32_INF) | (ap > F32_INF), nan, num)
+
+
 def _sweep(scr, stages, sweeps):
     """``sweeps`` sweeps over stages 0..stages-1 of ``scr`` [rows, cols]:
     row r meets r + 2^s where bit s of r is 0, else r - 2^s, and takes
-    min(|a|, |p|) sign(a) sign(p)."""
+    ``_minsum`` of its own value and its partner's."""
     rows = torch.arange(scr.shape[0])
     partners = []
     for s in range(stages):
@@ -110,12 +130,11 @@ def _sweep(scr, stages, sweeps):
         # the scripts' rolls wrap, but no partner reaches them
         assert bool(((p >= 0) & (p < len(rows))).all())
         partners.append(p.to(scr.device))
+    bits = scr.contiguous().view(torch.int32)
     for _ in range(sweeps):
-        for p in partners:
-            part = scr[p]
-            scr = torch.minimum(scr.abs(), part.abs()) * _sign(scr) \
-                * _sign(part)
-    return scr
+        for s, p in enumerate(partners):
+            bits = _minsum(bits, bits[p], s == 0)
+    return bits.view(torch.float32)
 
 
 def fori_plain(x):
@@ -188,7 +207,12 @@ def arith_plain(x):
 
 
 def gather_plain(x, ptr):
-    return x[ptr.long(), torch.arange(x.shape[1], device=x.device)]
+    """``take_along_axis(x, ptr, axis=0)`` as XLA's gather gives it on the
+    CPU: every bf16 NaN written as its sign and ``0x7fc0``."""
+    h = x[ptr.long(), torch.arange(x.shape[1], device=x.device)].view(
+        torch.int16)
+    nan = (h & 0x7FFF) > 0x7F80
+    return torch.where(nan, (h & -2 ** 15) | 0x7FC0, h).view(torch.bfloat16)
 
 
 def int8_plain(x):
@@ -359,6 +383,46 @@ def mini_input(seed=0):
     ``default_rng(seed).normal(0, 2)``, as the script makes it."""
     x = np.random.default_rng(seed).normal(0, 2, (ROWS, 4 * TB))
     return torch.from_numpy(x.astype(np.float32))
+
+
+# NaNs of two payloads and both signs, +-1 and +-0 (f32 bits)
+SPECIAL_F32 = (0x7FC00001, 0xFFC00002, 0x7FC00004, 0xFFC00008, 0x3F800000,
+               0xBF800000, 0x00000000, 0x80000000)
+
+
+def _f32(bits):
+    """f32 tensor of the given bits (uint32 values in a numpy array)."""
+    return torch.from_numpy(np.asarray(bits, np.uint32).view(np.float32))
+
+
+def pair_input(seed=0):
+    """An f32 [64, 512] input of the stage sweeps that meets every ordered
+    pair (a, p) of ``SPECIAL_F32`` at each of ``k_sweepcombo``'s stages
+    0..2: column 3 i + s (i < 64, s < 3) holds a = ``SPECIAL_F32[i // 8]``
+    at row r = 8 (i % 8) and p = ``SPECIAL_F32[i % 8]`` at its stage-s
+    partner r + 2^s; its other rows, and columns 192..511, are
+    ``mini_input(seed)``'s magnitudes plus 1."""
+    x = mini_input(seed).abs() + 1.0
+    bits = x.numpy().view(np.uint32).copy()
+    for i in range(64):
+        for s in range(3):
+            r = 8 * (i % 8)
+            bits[r, 3 * i + s] = SPECIAL_F32[i // 8]
+            bits[r + (1 << s), 3 * i + s] = SPECIAL_F32[i % 8]
+    return _f32(bits)
+
+
+def bits_input(seed=0, cols=4 * TB):
+    """f32 [64, cols] of random bits: NaNs of many payloads (quiet and
+    signalling) and both signs, infinities; subnormals written as zeros of
+    their sign (XLA's CPU code flushes them to zero, the card and torch do
+    not), so about 1 in 256 elements is a NaN and as many are zeros."""
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 2 ** 32, (ROWS, cols), dtype=np.uint64).astype(
+        np.uint32)
+    sub = (bits & np.uint32(0x7F800000)) == 0
+    bits[sub] &= np.uint32(0x80000000)
+    return _f32(bits)
 
 
 def bf16_inputs(seed=0):

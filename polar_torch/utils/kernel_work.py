@@ -128,15 +128,16 @@ def probe_work(name, x, ptr=None):
     once; the f32 (or, for ``int8``, integer) operations of ``PROBE_OPS``
     over the output.
 
-    The stage sweeps need far less than their kernels do. The two rows of
-    a pair take one value, so once the stages that pair rows inside a
-    group of ``PROBE_GROUP_ROWS`` rows have run, every row of the group
-    holds the same value (in ``k_big``'s scratch, so does that row in
-    each of the 16 tiles). The next stage pairs two equal values, which
+    The stage sweeps need far less than their kernels do. Off NaN inputs
+    the two rows of a pair take one value (with a NaN they may differ in
+    its bits: ``probes._minsum``), so once the stages that pair rows
+    inside a group of ``PROBE_GROUP_ROWS`` rows have run, every row of the
+    group holds the same value (in ``k_big``'s scratch, so does that row
+    in each of the 16 tiles). The next stage pairs two equal values, which
     gives their |.|, and nothing later changes it. So each group's result
     is its least |x|, whatever the sweeps (``test_torch_probes`` holds the
     plain versions to that): g - 1 min-sum updates and one |.| a group of
-    ``x``."""
+    ``x``. The count stands for NaN inputs too."""
     n_out = x.numel() * x.element_size()
     n_in = n_out
     if name == "bcast":

@@ -674,7 +674,10 @@ def test_bench_on_card(cuda):
 def test_probe_kernel_equals_plain_on_card(cuda, name):
     """Each probe kernel against its plain version on the card, bit for
     bit, at the script's inputs, another draw and (f32 probes) a wider
-    input than the script's four blocks; ``reduce`` also on signed zeros
+    input than the script's four blocks ([64, 768]); the stage sweeps also
+    on signed zeros and NaNs (``reduce_zero_nan_input``, f32 of random
+    bits at [64, 512] and [64, 768], every ordered pair of NaNs, +-1 and
+    +-0 at each stage of ``k_sweepcombo``); ``reduce`` also on signed zeros
     and NaNs of two payloads each side of its row split, on [64, 1536]
     and on a tensor not 16-byte aligned; ``gather`` on random bf16 bits
     (NaNs, signed zeros) and on [16, 1024], [8, 250] (element by element
@@ -687,6 +690,10 @@ def test_probe_kernel_equals_plain_on_card(cuda, name):
     if name in probes.MINI:
         cases.append((torch.from_numpy(np.random.default_rng(3).normal(
             0, 2, (64, 6 * 128)).astype(np.float32)),))
+    if name in ("sweepcombo", "bigsweep", "bigsweep_noloop"):
+        cases += [(reduce_zero_nan_input(probes.mini_input(4)),),
+                  (probes.bits_input(0),), (probes.bits_input(9, 768),),
+                  (probes.pair_input(0),)]
     if name == "reduce":
         cases += [(reduce_zero_nan_input(probes.mini_input(4)),),
                   (reduce_zero_nan_input(torch.from_numpy(

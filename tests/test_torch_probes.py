@@ -43,6 +43,10 @@ SEEDS = (0, 1, 2)        # the script's draw and two more
 @pytest.fixture(scope="module")
 def script():
     """The script's kernel functions, executed from its source."""
+    return _script_kernels()
+
+
+def _script_kernels():
     with open(SCRIPT) as fh:
         tree = ast.parse(fh.read(), SCRIPT)
     nodes = [node for node in ast.walk(tree)
@@ -157,6 +161,64 @@ def test_reduce_combine_order_keeps_jax_bits(script):
         REDUCE_ZERO_NAN_MINIMA
 
 
+def _sweep_input(kind):
+    """The stage sweeps' NaN inputs: ``reduce_zero_nan_input`` (zeros of
+    both signs, NaNs of two payloads and both signs in one column), f32 of
+    random bits (``probes.bits_input``) and every ordered pair of NaNs,
+    +-1 and +-0 at each of ``k_sweepcombo``'s stages
+    (``probes.pair_input``)."""
+    return {"zero_nan": lambda: reduce_zero_nan_input(probes.mini_input(4)),
+            "bits": lambda: probes.bits_input(0),
+            "pairs": lambda: probes.pair_input(0)}[kind]()
+
+
+@pytest.mark.parametrize("name,kind", [
+    ("sweepcombo", "zero_nan"), ("sweepcombo", "bits"),
+    ("sweepcombo", "pairs"), ("bigsweep_noloop", "zero_nan"),
+    ("bigsweep_noloop", "bits")])
+def test_sweeps_keep_jax_nan_bits(script, name, kind):
+    """The stage update's NaN bits (``probes._minsum``, ``probes.cuh``
+    ``probe_minsum``: at stage 0 of a sweep the row's own NaN first, at
+    later stages its partner's, else the other NaN's magnitude) against
+    the script's kernel, bit for bit, in the plain version and in the host
+    build of the card's routine (``k_big``: warps, lanes and the fold of
+    the four quarters). The pairs input holds every ordered pair of four
+    NaNs, +-1 and +-0 at every stage of ``k_sweepcombo``."""
+    x = _sweep_input(kind)
+    want = _bits(_jax_mini(script, name, jnp.asarray(x.numpy())))
+    np.testing.assert_array_equal(_bits(probes.PLAIN[name](x)), want)
+    np.testing.assert_array_equal(_bits(probes.probe_host(name, x)), want)
+
+
+def _nan_or_bits(a):
+    """Each element's bits, every NaN as one value."""
+    b = _bits(a)
+    return np.where((b & 0x7FFFFFFF) > 0x7F800000, 0x7FC00000, b)
+
+
+@pytest.mark.parametrize("name,kind", [
+    ("bigsweep", "zero_nan"), ("bigsweep", "bits"), ("bigsweep", "pairs"),
+    ("bigsweep_noloop", "pairs")])
+def test_big_sweeps_keep_jax_values_and_nans(script, name, kind):
+    """``k_big`` under XLA on the CPU: every element that is not a NaN bit
+    for bit, and NaNs in the same places; a NaN's own bits may differ.
+    XLA computes a stage's rows again in each fusion that needs them as
+    partners, and some of those fusions multiply in another order than
+    the stage's own (seen in its LLVM IR and fitted to these outputs), so
+    where NaNs meet (in the loop's later sweeps, or two NaNs at stage 0)
+    the bits a row takes depend on which fusion computed its partner, not
+    on the pair. No kernel that computes each row once can give them; the
+    port keeps the stage's own order (``test_sweeps_keep_jax_nan_bits``).
+    The plain version and the host build of the card's routine agree bit
+    for bit."""
+    x = _sweep_input(kind)
+    want = _jax_mini(script, name, jnp.asarray(x.numpy()))
+    got = probes.PLAIN[name](x)
+    np.testing.assert_array_equal(_nan_or_bits(got), _nan_or_bits(want))
+    np.testing.assert_array_equal(_bits(probes.probe_host(name, x)),
+                                  _bits(got))
+
+
 @pytest.mark.parametrize("shape", [(8, 250), (8, 3), (13, 1001), (16, 1024),
                                    (300, 40), (1024, 9), (1025, 8),
                                    (3072, 16), (3073, 9)])
@@ -166,24 +228,26 @@ def test_gather_host_build_tiles_and_masks(script, shape):
     masked past the last column; more units a slab than a CTA holds
     pointers for past 1,024 rows; element by element from ``x`` past the
     3,072 rows a tile holds) against the plain version and the script's
-    kernel, bit for bit (against the plain version on random bf16 bits:
-    NaNs of many payloads, signed zeros)."""
+    kernel, bit for bit, on finite values and on random bf16 bits (NaNs of
+    many payloads, written as XLA's gather writes them: sign and
+    ``0x7fc0``; signed zeros)."""
     rows, cols = shape
     x, ptr = gather_zero_nan_input(rows, cols, rows * cols)
     assert probes.differing(probes.gather(x, ptr),
                             probes.probe_host("gather", x, ptr)) == 0
     if rows * cols <= 8192:
-        # finite values: XLA's gather on the CPU rewrites a bf16 NaN's
-        # payload (ROADMAP Queue 3), the card's and the plain version copy
-        # its bits
         xf = probes._to_bf16(np.random.default_rng(cols).normal(0, 2, shape))
-        want = pl.pallas_call(
-            script["k_gather"], interpret=True,
-            out_shape=jax.ShapeDtypeStruct(shape, jnp.bfloat16))(
-                jnp.asarray(xf.float().numpy(), jnp.bfloat16),
-                jnp.asarray(ptr.numpy()))
-        got = probes.probe_host("gather", xf, ptr)
-        np.testing.assert_array_equal(_bits(got), _bits(np.asarray(want)))
+        for xs in (xf, x):
+            want = pl.pallas_call(
+                script["k_gather"], interpret=True,
+                out_shape=jax.ShapeDtypeStruct(shape, jnp.bfloat16))(
+                    jnp.asarray(xs.view(torch.int16).numpy()).view(
+                        jnp.bfloat16), jnp.asarray(ptr.numpy()))
+            want = _bits(np.asarray(want))
+            np.testing.assert_array_equal(
+                _bits(probes.probe_host("gather", xs, ptr)), want)
+            np.testing.assert_array_equal(_bits(probes.gather(xs, ptr)),
+                                          want)
 
 
 @pytest.mark.parametrize("name", ["reduce", "gather"])
@@ -250,6 +314,17 @@ def test_entry_point_defaults_to_the_card(monkeypatch):
         probes.run_step("bf16")
     with pytest.raises(ValueError, match="unknown step"):
         probes.run_step("mini:nope", "cpu")
+
+
+def test_probe_times_needs_the_card(monkeypatch):
+    """The tool that times two checkouts' probes refuses to run without a
+    card, as the entry point does."""
+    import sys
+    from polar_torch.utils import probe_times
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        probe_times.main([REPO, "roll"])
 
 
 def test_main_fails_on_a_mismatch(monkeypatch, capsys):
@@ -359,3 +434,25 @@ def test_launch_counts_read_and_reset_every_probe():
     assert set(probes.launch_counts().values()) == {0}
     # the decoder kernels' counts leave the probes out
     assert not set(kernel_work.launch_counts()) & set(probes.PROBES)
+
+
+def nan_bit_report():
+    """Each stage sweep's elements whose bits differ from the script's
+    kernel on each NaN input, and those that differ beyond a NaN's sign
+    bit: one JSON line each (ROADMAP Queue 3)."""
+    ns = _script_kernels()
+    for kind in ("zero_nan", "bits", "pairs"):
+        x = _sweep_input(kind)
+        for name in ("sweepcombo", "bigsweep_noloop", "bigsweep"):
+            want = _bits(_jax_mini(ns, name, jnp.asarray(x.numpy())))
+            got = _bits(probes.PLAIN[name](x))
+            print(json.dumps({
+                "probe": name, "input": kind,
+                "differ": int((got != want).sum()),
+                "beyond_sign": int(((got ^ want) & 0x7FFFFFFF != 0).sum()),
+                "elements": int(got.size)}))
+
+
+if __name__ == "__main__":
+    # JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_probes.py
+    nan_bit_report()
