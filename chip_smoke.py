@@ -164,7 +164,9 @@ Phases (any failure exits non-zero and prints no result):
     at another draw, 0 elements differing (the stage sweeps also on f32 of
     random bits at [64, 512] and [64, 768], on every ordered pair of NaNs,
     +-1 and +-0 at each stage of ``k_sweepcombo`` and on normal values at
-    [64, 768]); the kernel's own device time
+    [64, 768]; ``int8`` also on every int8 value at ``INT8_SHAPES``, each
+    as it is and one byte past a 16-byte boundary); the kernel's own
+    device time
     (torch.profiler, 20 launches) beside its plain version's, the library
     call's (``torch.gather`` for ``gather``, ``torch.amin`` for
     ``reduce``) and its bound. For those two also the library kernel's
@@ -174,7 +176,8 @@ Phases (any failure exits non-zero and prints no result):
     ``k_big``'s two instances in the SASS (``cuobjdump -sass``): 40
     shuffles a sweep each (every cross-lane stage of every sweep kept),
     with their counts of min, select, logic and barrier instructions
-    logged. Then ``python -m polar_torch.probes`` in its own process,
+    logged; ``int8``'s vector instance: its 16-byte loads and stores, and
+    no loop (no branch back). Then ``python -m polar_torch.probes`` in its own process,
     which must exit 0 and print one line a step.
 
 The line before the card's line is one JSON object ``{"kernels": [...]}``
@@ -198,6 +201,7 @@ and differing over both draws, times at the script's shapes; for
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -354,6 +358,11 @@ PROBE_TURN_ROUNDS = 5
 PROBE_SWEEPS = ("sweepcombo", "bigsweep", "bigsweep_noloop")
 PROBE_WIDE_COLS = 768
 BIG_SHFL_A_SWEEP = 40
+# int8's other inputs: ragged shapes (a partial 16-byte unit, a width not
+# a multiple of 16; many CTAs), each also as a view one byte past a
+# 16-byte boundary; its kernel's 16-byte loads a thread
+INT8_SHAPES = ((3, 17), (32, 250), (32, 256), (1000, 1000))
+INT8_VEC_LOADS = 2
 SMEM_OPT_IN = 232448                # shared memory a block may opt in to
 
 
@@ -1104,29 +1113,75 @@ def probe_library(name, args):
     return None
 
 
-def sass_counts(lib, match, opcodes):
-    """{kernel: {opcode: count}} of the kernels in library ``lib`` whose
-    mangled name holds ``match``, counting the SASS instructions
-    (``cuobjdump -sass``) whose opcode starts with each of ``opcodes``."""
+def sass_functions(lib, match):
+    """{kernel: its SASS lines} of the kernels in library ``lib`` whose
+    mangled name holds ``match`` (``cuobjdump -sass``)."""
     from polar_torch import _build
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     out = subprocess.run([tool, "-sass", lib], capture_output=True,
                          text=True, timeout=120, check=True).stdout
-    counts, name = {}, None
+    funcs, name = {}, None
     for line in out.splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
-            if match in name:
-                counts[name] = dict.fromkeys(opcodes, 0)
-            else:
-                name = None
-        elif name and line.strip().startswith("/*") and "*/" in line:
+            name = name if match in name else None
+            if name:
+                funcs[name] = []
+        elif name:
+            funcs[name].append(line)
+    return funcs
+
+
+def sass_counts(lib, match, opcodes):
+    """{kernel: {opcode: count}} of the kernels in library ``lib`` whose
+    mangled name holds ``match``, counting the SASS instructions whose
+    opcode starts with each of ``opcodes``."""
+    counts = {}
+    for name, lines in sass_functions(lib, match).items():
+        counts[name] = dict.fromkeys(opcodes, 0)
+        for line in lines:
+            if not (line.strip().startswith("/*") and "*/" in line):
+                continue
             words = line.split("*/", 1)[1].replace("{", " ").split()
             words = [w for w in words if not w.startswith("@")]
             for op in opcodes:
                 if words and words[0].startswith(op):
                     counts[name][op] += 1
     return counts
+
+
+def sass_backward_branches(lib, match):
+    """{kernel: branches to an earlier address} of the kernels in library
+    ``lib`` whose mangled name holds ``match``: its loops; the branch to
+    itself that ends a kernel's code is not one."""
+    counts = {}
+    for name, lines in sass_functions(lib, match).items():
+        counts[name] = 0
+        for line in lines:
+            m = re.search(r"/\*([0-9a-f]+)\*/.*\bBRA\b.*?0x([0-9a-f]+)",
+                          line)
+            if m and int(m.group(2), 16) < int(m.group(1), 16):
+                counts[name] += 1
+    return counts
+
+
+def int8_inputs(dev):
+    """``int8``'s other inputs on card ``dev``: each of ``INT8_SHAPES``
+    from a seed, with every int8 value, as it is and as a view one byte
+    past a 16-byte boundary."""
+    import numpy as np
+    import torch
+    out = []
+    for rows, cols in INT8_SHAPES:
+        x = torch.from_numpy(np.random.default_rng(cols).integers(
+            -128, 128, (rows, cols)).astype(np.int8))
+        x.view(-1)[:256] = torch.arange(-128, 128, dtype=torch.int8)[
+            :x.numel()]
+        x = x.to(dev)
+        flat = x.new_empty(x.numel() + 1)
+        flat[1:] = x.flatten()
+        out += [x, flat[1:].view(x.shape)]
+    return out
 
 
 def in_turns(kernel, library, reps, rounds=PROBE_TURN_ROUNDS):
@@ -1207,6 +1262,17 @@ def probes_phase(dev, card):
                         f"on {n_x} elements of a NaN, zero or wide input "
                         f"{list(x.shape)}")
                 checked += got_x.numel()
+        if name == "int8":
+            for x in int8_inputs(dev):
+                got_x = wrapper(x)
+                torch.cuda.synchronize()
+                n_x = probes.differing(plain(x), got_x)
+                if n_x:
+                    raise AssertionError(
+                        f"phase 15: int8 differs from its plain version on "
+                        f"{n_x} elements of {list(x.shape)} (offset "
+                        f"{x.data_ptr() % 16} from 16 bytes)")
+                checked += got_x.numel()
         max_abs = max(on_path[name]["max_abs_err"],
                       (want.double() - got.double()).abs().max().item())
         args = tuple(a.to(dev) for a in probes.step_inputs(step)[name])
@@ -1267,6 +1333,22 @@ def probes_phase(dev, card):
     if len(sass) != 2:
         raise AssertionError(f"phase 15: k_big's two instances not found "
                              f"in the SASS: {sorted(sass)}")
+    # int8's vector form: its 16-byte loads and stores, no loop
+    i8 = {fn: ops for fn, ops in sass_counts(
+        lib, "probe_int8_kernel", ("LDG.E.128", "STG.E.128", "LDG",
+                                   "STG")).items() if "ILb1E" in fn}
+    loops = sass_backward_branches(lib, "probe_int8_kernel")
+    for fn, ops in i8.items():
+        if ops["LDG.E.128"] < INT8_VEC_LOADS or ops["STG.E.128"] < 1 \
+                or loops[fn]:
+            raise AssertionError(f"phase 15: {fn} has {ops} and "
+                                 f"{loops[fn]} backward branches, not "
+                                 f"{INT8_VEC_LOADS} 16-byte loads or more "
+                                 f"and no loop")
+        log(f"phase 15: SASS of {fn}: {ops}, {loops[fn]} backward branches")
+    if len(i8) != 1:
+        raise AssertionError(f"phase 15: int8's vector instance not found "
+                             f"in the SASS: {sorted(i8)}")
 
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-m", "polar_torch.probes"],

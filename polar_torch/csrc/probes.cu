@@ -24,16 +24,25 @@
 // |x|, whatever the sweeps. These kernels do the work op by op as the TPU
 // kernels do, k_big over all 16 tiles (about 1.7e7 row updates in four
 // sweeps), so they run far above that bound. Every stage update takes the
-// NaN bits XLA gives on the CPU (probes.cuh probe_minsum: with a NaN the
-// two rows of a pair may differ), in integer operations and selects.
+// NaN bits XLA gives on the CPU (probes.cuh probe_minsum_rule: with a NaN
+// the two rows of a pair may differ; k_big's partners send XLA's copies,
+// probe_big_copy), in integer operations and selects.
 //
 // Design. Every probe mixes rows of one column only (the roll, the
 // reduction, the row-bit selects, the gather and the stage partners).
-// * The f32 probes but k_reduce and k_big: 4 CTAs of 128 threads, one CTA
-//   per TPU grid block, thread c on column c of its block; the column's 64
-//   values in registers; no barrier. k_bcast reads block 0's column in
-//   every CTA, as its constant index map does. Aimed only at being plainly
-//   right.
+// * k_fori, k_bcast, k_roll, k_shift and k_scratchfori: 4 CTAs of 128
+//   threads, one CTA per TPU grid block, thread c on column c of its
+//   block; the column's 64 values in registers; no barrier. k_bcast reads
+//   block 0's column in every CTA, as its constant index map does. Aimed
+//   only at being plainly right.
+// * k_sweepcombo (replaces k_sweepcombo, :256): stages 0..2 pair rows
+//   within aligned groups of 8, so each (column, group) evolves alone:
+//   4,096 of them at [64, 512]. One thread a (column, group), its 8 values
+//   in registers, read in one round of 8 loads and written by 8 stores; a
+//   CTA of 128 threads takes 128 neighbouring columns of one group, so a
+//   warp's access to a row is one 128-byte segment: 32 CTAs, 128 warps at
+//   [64, 512]. Each stage's 4 pair updates are independent chains
+//   (probes.cuh probe_combo_group).
 // * k_reduce (replaces k_reduce, :227; bytes-bound, 256 KiB): CTAs of 64
 //   threads on slabs of 32 columns (16 CTAs at [64, 512]). A thread owns
 //   4 neighbouring columns of 8 consecutive rows and reads them in one
@@ -50,7 +59,11 @@
 //   warp takes a (column, quarter) and holds it in registers, 8 rows a
 //   lane: stages 0..2 pair a lane's registers, stages 3..7 lanes by
 //   __shfl_xor_sync, each lane computing its own rows' values (probes.cuh
-//   probe_big_*). CTAs of 16 warps (4 columns, 128 CTAs at [64, 512]).
+//   probe_big_*). A row's partner gets the copy XLA's fusion would give
+//   it (probe_big_copy): each lane carries its rows' main and alternative
+//   chains and computes, from the pair it updates, the value it sends at
+//   the next stage, so one value a row is shuffled a stage. CTAs of 16
+//   warps (4 columns, 128 CTAs at [64, 512]).
 //   No shared memory and no barrier inside the sweep; the sweep count is a
 //   template argument and every loop unrolls. The fill reads x straight
 //   (64 values a column, 8 loads a lane). The quarters that never reach o
@@ -78,8 +91,19 @@
 //   columns fill the 48 KiB tile) with their pointers read after the
 //   barrier. More rows than the tile holds gather each element straight
 //   from x (probe_gather_direct_kernel).
-// * k_arith and k_i8: CTAs of 256 threads, one thread a column (one CTA at
-//   the probes' 256 columns), looping over the rows.
+// * k_i8 (replaces k_i8, :340; bytes-bound, 16 KiB at [32, 256]): an
+//   elementwise map, so the tensor is taken as n bytes in 16-byte units.
+//   CTAs of 256 threads, two units a thread: both 16-byte loads issued
+//   before either store, through __restrict__ pointers, so a launch makes
+//   one round trip to memory (a thread that walked its column's 32 rows,
+//   a load and a store a row through pointers that may alias, made 32).
+//   The bytes map four a word in integer operations (probes.cuh
+//   probe_int8x4, the wrap of int8 by construction). One CTA at [32, 256],
+//   512 units: a second would only add a block to schedule. Unaligned
+//   tensors take the same kernel byte by byte, and the last, partial unit
+//   of a size not a multiple of 16 is masked byte by byte.
+// * k_arith: CTAs of 256 threads, one thread a column (one CTA at the
+//   probe's 256 columns), looping over the rows.
 //
 // The C ABI is one entry point a probe (probe_<name>), each launching its
 // kernel on the given stream and returning a cudaError_t, so a wrapper
@@ -96,6 +120,7 @@ namespace polar_torch {
 constexpr int kProbeBigCtaCols = 4;   // k_big's columns a CTA
 constexpr int kProbeBigThreads = 32 * kProbeBigQuarters * kProbeBigCtaCols;
 constexpr int kProbeSmallThreads = 256;
+constexpr int kInt8Units = 2;         // k_i8's 16-byte units a thread
 constexpr int kGatherDirectGrid = 132 * 8;  // grid-stride CTAs, 8 an SM
 
 template <int P>
@@ -104,6 +129,17 @@ __global__ void __launch_bounds__(kProbeBlockCols)
   const int c = threadIdx.x;
   const int col = blockIdx.x * kProbeBlockCols + c;
   probe_column<P>(x + (P == kProbeBcast ? c : col), o + col, cols);
+}
+
+// k_sweepcombo: thread c of CTA (b, g) runs row group g (rows 8 g .. 8 g
+// + 7) of column 128 b + c, so a warp's loads and stores of a row are 32
+// neighbouring columns.
+__global__ void __launch_bounds__(kProbeBlockCols)
+    probe_combo_kernel(const float* __restrict__ x, float* __restrict__ o,
+                       int cols) {
+  const size_t at = (size_t)blockIdx.y * kProbeComboRows * cols
+                    + blockIdx.x * kProbeBlockCols + threadIdx.x;
+  probe_combo_group(x + at, o + at, cols);
 }
 
 template <bool kVec>
@@ -130,23 +166,25 @@ __global__ void __launch_bounds__(kProbeBigThreads)
     probe_big_kernel(const float* __restrict__ x, float* __restrict__ o,
                      int cols) {
   __shared__ uint32_t rows[kProbeBigCtaCols][kProbeBigQuarters][kProbeRows];
-  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
-  const int q = w % kProbeBigQuarters, c = w / kProbeBigQuarters;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int q = warp % kProbeBigQuarters, c = warp / kProbeBigQuarters;
   const int col0 = blockIdx.x * kProbeBigCtaCols;
-  uint32_t v[kProbeBigLaneRows];
+  uint32_t v[kProbeBigLaneRows], w[kProbeBigLaneRows], t[kProbeBigLaneRows];
   probe_big_fill(x + col0 + c, cols, lane, v);
 #pragma unroll
   for (int i = 0; i < kSweeps; ++i) {
+    probe_big_start(v, w, t);
 #pragma unroll
-    for (int s = 0; s < kProbeBigInLane; ++s) probe_big_lane_stage(v, s);
+    for (int s = 0; s < kProbeBigInLane; ++s)
+      probe_big_lane_stage<kSweeps>(v, w, t, s);
 #pragma unroll
     for (int s = kProbeBigInLane; s < kProbeBigStages; ++s) {
       uint32_t part[kProbeBigLaneRows];
 #pragma unroll
       for (int k = 0; k < kProbeBigLaneRows; ++k)
-        part[k] = __shfl_xor_sync(0xffffffffu, v[k],
+        part[k] = __shfl_xor_sync(0xffffffffu, t[k],
                                   1 << (s - kProbeBigInLane));
-      probe_big_cross_stage(v, part);
+      probe_big_cross_stage<kSweeps>(v, w, t, part, s);
     }
   }
   if (lane < kProbeRows / kProbeBigLaneRows) {
@@ -218,12 +256,31 @@ __global__ void __launch_bounds__(kProbeSmallThreads)
     probe_small_kernel(const void* x, void* o, int rows, int cols) {
   const int c = blockIdx.x * kProbeSmallThreads + threadIdx.x;
   if (c >= cols) return;
-  if constexpr (P == kProbeArith) {
-    probe_arith_column(static_cast<const uint16_t*>(x) + c,
-                       static_cast<uint16_t*>(o) + c, rows, cols);
-  } else {
-    probe_int8_column(static_cast<const int8_t*>(x) + c,
-                      static_cast<int8_t*>(o) + c, rows, cols);
+  static_assert(P == kProbeArith, "k_arith's kernel");
+  probe_arith_column(static_cast<const uint16_t*>(x) + c,
+                     static_cast<uint16_t*>(o) + c, rows, cols);
+}
+
+// k_i8: thread i of CTA b maps units b kInt8Units kProbeSmallThreads + k
+// kProbeSmallThreads + i, k < kInt8Units: every load of the thread, then
+// every store.
+template <bool kVec>
+__global__ void __launch_bounds__(kProbeSmallThreads)
+    probe_int8_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ o,
+                      size_t n) {
+  const size_t units = (n + kInt8Unit - 1) / kInt8Unit;
+  const size_t u0 = (size_t)blockIdx.x * kInt8Units * kProbeSmallThreads
+                    + threadIdx.x;
+  ProbeVec v[kInt8Units];
+#pragma unroll
+  for (int k = 0; k < kInt8Units; ++k) {
+    const size_t u = u0 + k * kProbeSmallThreads;
+    if (u < units) v[k] = probe_int8_load<kVec>(x, n, u);
+  }
+#pragma unroll
+  for (int k = 0; k < kInt8Units; ++k) {
+    const size_t u = u0 + k * kProbeSmallThreads;
+    if (u < units) probe_int8_store<kVec>(o, n, u, v[k]);
   }
 }
 
@@ -279,8 +336,16 @@ PROBE_F32_ENTRY(bcast, kProbeBcast)
 PROBE_F32_ENTRY(roll, kProbeRoll)
 PROBE_F32_ENTRY(shift, kProbeShift)
 PROBE_F32_ENTRY(scratchfori, kProbeScratchFori)
-PROBE_F32_ENTRY(sweepcombo, kProbeSweepCombo)
 #undef PROBE_F32_ENTRY
+
+int probe_sweepcombo(const float* x, float* out, int cols, void* stream) {
+  using namespace polar_torch;
+  if (!f32_shape_ok(cols)) return (int)cudaErrorInvalidValue;
+  const dim3 grid(cols / kProbeBlockCols, kProbeRows / kProbeComboRows);
+  probe_combo_kernel<<<grid, kProbeBlockCols, 0,
+                       static_cast<cudaStream_t>(stream)>>>(x, out, cols);
+  return (int)cudaGetLastError();
+}
 
 int probe_bigsweep(const float* x, float* out, int cols, void* stream) {
   return polar_torch::launch_big<polar_torch::kProbeLoopSweeps>(x, out, cols,
@@ -310,8 +375,19 @@ int probe_arith(const void* x, void* out, int rows, int cols, void* stream) {
 }
 
 int probe_int8(const void* x, void* out, int rows, int cols, void* stream) {
-  return polar_torch::launch_small<polar_torch::kProbeInt8>(x, out, rows,
-                                                            cols, stream);
+  using namespace polar_torch;
+  if (rows < 1 || cols < 1) return (int)cudaErrorInvalidValue;
+  const size_t n = (size_t)rows * cols;
+  const size_t per_cta = (size_t)kInt8Units * kProbeSmallThreads * kInt8Unit;
+  const unsigned grid = (unsigned)((n + per_cta - 1) / per_cta);
+  const auto* xb = static_cast<const int8_t*>(x);
+  auto* ob = static_cast<int8_t*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (aligned16(x, out))
+    probe_int8_kernel<true><<<grid, kProbeSmallThreads, 0, st>>>(xb, ob, n);
+  else
+    probe_int8_kernel<false><<<grid, kProbeSmallThreads, 0, st>>>(xb, ob, n);
+  return (int)cudaGetLastError();
 }
 
 int probe_gather(const uint16_t* x, const int32_t* p, uint16_t* out,

@@ -1,5 +1,6 @@
 // The probe kernels' arithmetic, one routine per probe over one column
-// (k_reduce and k_gather: over a thread's share of a CTA's slab, below),
+// (k_sweepcombo: over an 8-row group of one; k_reduce and k_gather: over a
+// thread's share of a CTA's slab; k_i8: over 16 bytes; below),
 // shared by the card's kernels (probes.cu) and the host build that the CPU
 // tests run (probes_host.cpp), which runs the card's order. Each routine
 // is __host__ __device__ code: nvcc builds it for the card, g++ for the
@@ -7,8 +8,8 @@
 // the JAX package's Pallas probes (benchmarks/probe_r4.py) do on the CPU.
 //
 // A column of an f32 probe is 64 rows (k_big's scratch 1,024), strided by
-// the row length ld; a bf16 or int8 column is the tensor's rows. bf16
-// values travel as their 16 bits (uint16_t).
+// the row length ld; a bf16 column is the tensor's rows. bf16 values
+// travel as their 16 bits (uint16_t).
 #pragma once
 
 #include "fg.cuh"
@@ -72,20 +73,21 @@ PT_HD PT_INLINE float probe_min(float x, float y) {
 // mode, probed with every ordered pair of four NaNs of both signs and
 // payloads, +-1 and +-0; tests/test_torch_probes.py). Off NaN the value is
 // min(|x|, |p|) with the sign bit sign(x) XOR sign(p): both sign factors
-// are +-1 or +-0, so the products are exact. With a NaN, XLA's code
-// multiplies the three factors with the first NaN operand kept (x86's
-// rule) in an order that depends on the stage: stage 0 of a sweep takes
-// sign(xx), then the minimum, then sign(part); every later stage
-// sign(part), then the minimum, then sign(xx). Since jnp.sign passes a NaN
-// on and the minimum of the magnitudes is the NaN one's magnitude, the
-// result is the first operand (x at stage 0, own_first; p after) if that
-// is a NaN, else the other one's magnitude, quieted either way. So the two
-// rows of a pair may end with other NaN bits, and each computes its own
-// value from the pair's old values. (XLA also computes some rows again in
-// the fusions that feed them to later stages as partners, a few of them
-// in another order; where NaNs meet in k_big, its NaN bits follow those
-// copies, which no kernel computing each row once can give. The values
-// and where the NaNs are agree.) The routines take NaNs already quiet
+// are +-1 or +-0, so the products are exact. With a NaN, XLA's x86 code
+// keeps the first source's NaN in each of its two products: the first
+// multiplies sign(xx) and the minimum of the magnitudes, the second that
+// product and sign(part), each with its sources in an order fixed where
+// the code was compiled. jnp.sign passes a NaN on and the minimum is the
+// NaN one's magnitude, so two flags give the result (probe_minsum_rule):
+// sign_first (the first product starts with sign(xx): an own NaN keeps
+// its sign, else its magnitude) and part_first (the second starts with
+// sign(part): a partner's NaN wins, else the product's). Stage 0 of a
+// sweep runs (sign_first, not part_first): x if it is a NaN, else p's
+// magnitude. Every later stage runs (not sign_first, part_first): p if it
+// is a NaN, else x's magnitude. The result is quieted either way. So the
+// two rows of a pair may end with other NaN bits, and each computes its
+// own value from the pair's old values. k_big's partners are copies of
+// their own (probe_big_copy, below). The routines take NaNs already quiet
 // (probe_quiet, once at the load), so the quieting costs nothing a stage.
 // Selects and sign-bit operations only reach the result: the one f32
 // operation, the minimum of the magnitudes, is kept only off NaN, since
@@ -110,42 +112,30 @@ PT_HD PT_INLINE uint32_t probe_minsum_num(uint32_t x, uint32_t p) {
          | ((x ^ p) & kF32Sign);
 }
 
-// row x's update from its partner p (NaNs quiet)
-PT_HD PT_INLINE uint32_t probe_minsum(uint32_t x, uint32_t p,
-                                      bool own_first) {
-  const uint32_t num = probe_minsum_num(x, p);
-  const bool nx = probe_is_nan(x), np = probe_is_nan(p);
-  return own_first ? (nx ? x : (np ? p & kF32Abs : num))
-                   : (np ? p : (nx ? x & kF32Abs : num));
+// row x's update from its partner p (NaNs quiet) under the order flags,
+// given num = probe_minsum_num(x, p) and whether x and p are NaNs
+PT_HD PT_INLINE uint32_t probe_minsum_rule(uint32_t x, uint32_t p,
+                                           uint32_t num, bool nx, bool np,
+                                           bool sign_first,
+                                           bool part_first) {
+  return np && part_first
+             ? p
+             : (nx ? (sign_first ? x : x & kF32Abs)
+                   : (np ? p & kF32Abs : num));
 }
 
-// Both rows of a pair, each from the pair's old values (a's partner is b,
-// b's is a; NaNs quiet); the off-NaN value and the NaN tests are shared.
+// Both rows of a pair at a stage of a sweep, each from the pair's old
+// values (a's partner is b, b's is a; NaNs quiet): stage 0's order when
+// own_first, else the later stages'. The off-NaN value (symmetric) and
+// the NaN tests are shared.
 PT_HD PT_INLINE void probe_minsum_pair(uint32_t& a, uint32_t& b,
                                        bool own_first) {
   const uint32_t num = probe_minsum_num(a, b);
   const bool na = probe_is_nan(a), nb = probe_is_nan(b);
-  const uint32_t a_abs = a & kF32Abs, b_abs = b & kF32Abs;
-  const uint32_t a_new = own_first ? (na ? a : (nb ? b_abs : num))
-                                   : (nb ? b : (na ? a_abs : num));
-  b = own_first ? (nb ? b : (na ? a_abs : num))
-                : (na ? a : (nb ? b_abs : num));
+  const uint32_t a_new =
+      probe_minsum_rule(a, b, num, na, nb, own_first, !own_first);
+  b = probe_minsum_rule(b, a, num, nb, na, own_first, !own_first);
   a = a_new;
-}
-
-// One stage-s update of pair p (0 <= p < rows / 2) of a column: row r, the
-// p-th row whose bit s is 0, and its partner r + 2^s, which therefore never
-// wraps. Both rows update from the pair's old values in place, with no
-// copy of the scratch.
-PT_HD PT_INLINE void probe_pair(float* col, int ld, int s, int p) {
-  const int d = 1 << s;
-  const int r = ((p >> s) << (s + 1)) | (p & (d - 1));
-  float* a = col + r * ld;
-  float* q = a + d * ld;
-  uint32_t va = f32_bits(*a), vq = f32_bits(*q);
-  probe_minsum_pair(va, vq, s == 0);
-  *a = f32_of(va);
-  *q = f32_of(vq);
 }
 
 // One f32 probe over a column: x and o point at its row 0, rows ld apart.
@@ -187,20 +177,36 @@ PT_HD PT_INLINE void probe_column(const float* x, float* o, int ld) {
       for (int i = 0; i < kProbeFoldCount; ++i) acc = fmaf(acc, 1.5f, v[r]);
       o[r * ld] = acc;
     }
-  } else if constexpr (P == kProbeSweepCombo) {
-#pragma unroll
-    for (int r = 0; r < kProbeRows; ++r)
-      v[r] = f32_of(probe_quiet(f32_bits(v[r])));
-    for (int i = 0; i < kProbeComboSweeps; ++i) {
-#pragma unroll
-      for (int s = 0; s < kProbeComboStages; ++s) {
-#pragma unroll
-        for (int p = 0; p < kProbeRows / 2; ++p) probe_pair(v, 1, s, p);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kProbeRows; ++r) o[r * ld] = v[r];
   }
+}
+
+// ----------------------------------------------------------------------
+// k_sweepcombo: stages 0..2 pair row r with r ^ 1, r ^ 2 and r ^ 4 (the
+// script's rolls wrap, but no partner reaches them), so each aligned group
+// of 8 rows of a column evolves alone, 4 sweeps of 3 stages. One call
+// runs a group: x and o point at its row 0, rows ld apart. Its 8 values sit
+// in registers (every index a constant once the loops unroll), read in one
+// round, NaNs quieted; each stage updates 4 independent pairs.
+// ----------------------------------------------------------------------
+constexpr int kProbeComboRows = 1 << kProbeComboStages;  // rows of a group
+
+PT_HD PT_INLINE void probe_combo_group(const float* __restrict__ x,
+                                       float* __restrict__ o, int ld) {
+  uint32_t v[kProbeComboRows];
+#pragma unroll
+  for (int k = 0; k < kProbeComboRows; ++k)
+    v[k] = probe_quiet(f32_bits(x[k * ld]));
+#pragma unroll
+  for (int i = 0; i < kProbeComboSweeps; ++i) {
+#pragma unroll
+    for (int s = 0; s < kProbeComboStages; ++s) {
+#pragma unroll
+      for (int k = 0; k < kProbeComboRows; ++k)
+        if (!(k >> s & 1)) probe_minsum_pair(v[k], v[k | 1 << s], s == 0);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kProbeComboRows; ++k) o[k * ld] = f32_of(v[k]);
 }
 
 // ----------------------------------------------------------------------
@@ -215,6 +221,30 @@ PT_HD PT_INLINE void probe_column(const float* x, float* o, int ld) {
 // quarters folded by probe_min, which returns its bits (the quarters are
 // equal: the same values through the same steps), so every quarter's
 // sweep reaches the output.
+//
+// The partners' copies. XLA on the CPU keeps only the scratch of a sweep
+// in memory and each stage's two rolled partner arrays: each of those
+// fusions computes its rows' values again from the scratch through the
+// earlier stages (reading the earlier partner arrays), and its own
+// compiled code multiplies in its own orders (tests/xla_copy_orders.py
+// reads them off XLA's object code). So the value a row sends its stage-s
+// partner is one of three chains of the row (probe_big_copy): the main
+// chain (the stage orders above, which the row's own value follows), the
+// alternative chain (stage 0 in the copy order (sign_first, part_first),
+// every later stage as the main chain: they differ only in NaN bits) or,
+// in the looped kernel from stage 4 on, the alternative chain with its
+// last stage, s - 1, in the copy order. Each lane carries both chains of
+// its rows and, from the pair it updates at stage s - 1, computes what it
+// sends at stage s, so each row still sends one value a stage. The table
+// is fixed where XLA compiles the kernel, the same for every row and
+// sweep (the loop body compiles once); stage 0 reads the scratch, where
+// the chains start equal. The stage-7 copy of the looped kernel (inside
+// XLA's final fusion) cannot show in any output: at stages 6 and 7 a row
+// and its partner are one row of two equal tiles, both NaN or neither,
+// and with both NaN every order keeps the partner's NaN, whose bits are
+// the stage-6 partner's, whichever of the two chains the copy follows (at
+// stage 6 both update in an order that keeps the partner's NaN); so the
+// table takes the main chain there.
 // ----------------------------------------------------------------------
 constexpr int kProbeBigQuarters = 4;  // 256-row quarters of the scratch
 constexpr int kProbeBigLaneRows = 8;  // rows of a quarter a lane holds
@@ -235,18 +265,80 @@ PT_HD PT_INLINE void probe_big_fill(const float* x, int ld, int lane,
         f32_bits(x[((kProbeBigLaneRows * lane + k) % kProbeRows) * ld]));
 }
 
-// stage s < 3 over a lane's registers: pairs k, k ^ 2^s
-PT_HD PT_INLINE void probe_big_lane_stage(uint32_t* v, int s) {
-#pragma unroll
-  for (int k = 0; k < kProbeBigLaneRows; ++k)
-    if (!(k >> s & 1)) probe_minsum_pair(v[k], v[k | 1 << s], s == 0);
+// The chain of a row whose value it sends its stage-s partner (0 <= s <=
+// kProbeBigStages; s = 8 is the next sweep's scratch), for k_big with
+// `sweeps` sweeps: its main chain, its alternative chain, or the
+// alternative with its last stage in the copy order. At stage 0 all three
+// are the scratch.
+enum ProbeBigCopy { kProbeCopyMain = 0, kProbeCopyAlt, kProbeCopyAltLast };
+
+PT_HD constexpr int probe_big_copy(int s, int sweeps) {
+  return s == 2 || s == 3 ? kProbeCopyAlt
+         : sweeps > 1 && s >= 4 && s <= 6 ? kProbeCopyAltLast
+                                          : kProbeCopyMain;
 }
 
-// stage s >= 3 over a lane's registers, given the partner lane's (p)
-PT_HD PT_INLINE void probe_big_cross_stage(uint32_t* v, const uint32_t* p) {
+// One row's stage-s update from the value q its partner sent: the main
+// chain v (stage 0: own NaN first; later: the partner's), the alternative
+// chain w (stage 0: the copy order (sign_first, part_first); later as v)
+// and t, what the row sends at stage s + 1. v and w are NaN together and
+// equal off NaN, so the off-NaN value and the NaN tests are shared, and
+// so are the selects the orders have in common (probe_minsum_rule with
+// its flags spelled out): at stage 0, where w is v, both orders keep an
+// own NaN; at later stages every order keeps a partner's NaN, and an own
+// NaN alone keeps its magnitude (v, w) or, in the copy order, its bits.
+// The card's compiler drops w where no later stage reads it.
+template <int kSweeps>
+PT_HD PT_INLINE void probe_big_row(uint32_t& v, uint32_t& w, uint32_t& t,
+                                   uint32_t q, int s) {
+  const uint32_t num = probe_minsum_num(v, q);
+  const bool nv = probe_is_nan(v), nq = probe_is_nan(q);
+  const int copy = probe_big_copy(s + 1, kSweeps);
+  uint32_t last = 0;
+  if (s == 0) {
+    const uint32_t base = nv ? v : num;
+    w = nq ? q : base;
+    v = nq && !nv ? q & kF32Abs : base;
+  } else {
+    const uint32_t m = nq ? q : num;
+    const bool own = nv && !nq;
+    last = own ? w : m;  // kProbeCopyAltLast
+    v = own ? v & kF32Abs : m;
+    w = own ? w & kF32Abs : m;
+  }
+  t = copy == kProbeCopyMain ? v : copy == kProbeCopyAlt ? w : last;
+}
+
+// a sweep's start: both chains and the value sent at stage 0 are the
+// scratch v
+PT_HD PT_INLINE void probe_big_start(const uint32_t* v, uint32_t* w,
+                                     uint32_t* t) {
+#pragma unroll
+  for (int k = 0; k < kProbeBigLaneRows; ++k) w[k] = t[k] = v[k];
+}
+
+// stage s < 3 over a lane's registers: row k's partner is row k ^ 2^s of
+// the lane, which sent its t from before the stage
+template <int kSweeps>
+PT_HD PT_INLINE void probe_big_lane_stage(uint32_t* v, uint32_t* w,
+                                          uint32_t* t, int s) {
+  uint32_t sent[kProbeBigLaneRows];
+#pragma unroll
+  for (int k = 0; k < kProbeBigLaneRows; ++k) sent[k] = t[k];
 #pragma unroll
   for (int k = 0; k < kProbeBigLaneRows; ++k)
-    v[k] = probe_minsum(v[k], p[k], false);
+    probe_big_row<kSweeps>(v[k], w[k], t[k], sent[k ^ 1 << s], s);
+}
+
+// stage s >= 3 over a lane's registers, given what the partner lane's rows
+// sent (p: their t from before the stage)
+template <int kSweeps>
+PT_HD PT_INLINE void probe_big_cross_stage(uint32_t* v, uint32_t* w,
+                                           uint32_t* t, const uint32_t* p,
+                                           int s) {
+#pragma unroll
+  for (int k = 0; k < kProbeBigLaneRows; ++k)
+    probe_big_row<kSweeps>(v[k], w[k], t[k], p[k], s);
 }
 
 // an output row from its four quarters' bits, folded in quarter order
@@ -279,16 +371,6 @@ PT_HD PT_INLINE void probe_arith_column(const uint16_t* x, uint16_t* o,
   }
 }
 
-// k_i8 over a column: where(x > 0, x, -x) + 1, wrapping as int8 does
-PT_HD PT_INLINE void probe_int8_column(const int8_t* x, int8_t* o, int rows,
-                                       int ld) {
-  for (int r = 0; r < rows; ++r) {
-    const int8_t v = x[r * ld];
-    const int8_t a = v > 0 ? v : (int8_t)(-v);
-    o[r * ld] = (int8_t)(a + 1);
-  }
-}
-
 // ----------------------------------------------------------------------
 // The 16-byte accesses of k_reduce's and k_gather's kernels: one 128-bit
 // load or store on the card, a copy of 16 bytes on the host.
@@ -314,6 +396,70 @@ PT_HD PT_INLINE void probe_store16(void* p, const ProbeVec& v) {
 #else
   memcpy(p, &v, sizeof v);
 #endif
+}
+
+// ----------------------------------------------------------------------
+// k_i8: where(x > 0, x, -x) + 1 on int8, wrapping as int8 does (-128 ->
+// -127, 127 -> -128). An elementwise map, so the kernel takes the
+// contiguous tensor's n bytes as units of 16 (unit u: bytes 16 u .. 16 u +
+// 15, those below n). The vector form (kVec: both tensors 16-byte aligned)
+// moves a whole unit as one 16-byte access and the last, partial one
+// byte by byte; the other form moves every unit byte by byte.
+// ----------------------------------------------------------------------
+
+// The map on one byte.
+PT_HD PT_INLINE int8_t probe_int8_one(int8_t v) {
+  const int8_t a = v > 0 ? v : (int8_t)(-v);
+  return (int8_t)(a + 1);
+}
+
+// The map on the four bytes of a word at once, in 32-bit integer
+// operations (the same bits from g++ and nvcc). A negative byte b becomes
+// ~b + 2 (its negation, wrapped, plus one), any other b + 1; the bytes'
+// sums are taken without carries between them: the low 7 bits of each
+// add (at most 0x7f + 2, so their carry stops at the byte's bit 7), and
+// bit 7 is the XOR of the addends' bits 7 and that carry.
+PT_HD PT_INLINE uint32_t probe_int8x4(uint32_t x) {
+  const uint32_t neg = (x & 0x80808080u) >> 7;    // 1 in each negative byte
+  const uint32_t t = x ^ (neg * 0xffu);           // ~b there, b elsewhere
+  const uint32_t c = 0x01010101u + neg;           // 2 there, 1 elsewhere
+  return ((t & 0x7f7f7f7fu) + c) ^ (t & 0x80808080u);
+}
+
+constexpr int kInt8Unit = sizeof(ProbeVec);  // bytes of a unit
+
+// Unit u of x (n bytes), mapped.
+template <bool kVec>
+PT_HD PT_INLINE ProbeVec probe_int8_load(const int8_t* __restrict__ x,
+                                         size_t n, size_t u) {
+  const size_t at = u * kInt8Unit;
+  ProbeVec v;
+  if (kVec && at + kInt8Unit <= n) {
+    v = probe_load16(x + at);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v.w[i] = probe_int8x4(v.w[i]);
+    return v;
+  }
+  int8_t* b = reinterpret_cast<int8_t*>(v.w);
+#pragma unroll
+  for (int i = 0; i < kInt8Unit; ++i)
+    if (at + i < n) b[i] = probe_int8_one(x[at + i]);
+  return v;
+}
+
+// Unit u of o (n bytes) from its mapped values.
+template <bool kVec>
+PT_HD PT_INLINE void probe_int8_store(int8_t* __restrict__ o, size_t n,
+                                      size_t u, const ProbeVec& v) {
+  const size_t at = u * kInt8Unit;
+  if (kVec && at + kInt8Unit <= n) {
+    probe_store16(o + at, v);
+    return;
+  }
+  const int8_t* b = reinterpret_cast<const int8_t*>(v.w);
+#pragma unroll
+  for (int i = 0; i < kInt8Unit; ++i)
+    if (at + i < n) o[at + i] = b[i];
 }
 
 // ----------------------------------------------------------------------

@@ -70,6 +70,8 @@ from polar_torch.utils.profiling import cuda_ms
 TB = 128        # columns of a TPU grid step's block
 ROWS = 64       # rows of an f32 probe
 BIG_ROWS = 1024  # k_big's scratch rows
+BIG_STAGES = 8   # k_big's stages a sweep
+COMBO_STAGES, COMBO_SWEEPS = 3, 4  # k_sweepcombo's stages and sweeps
 
 # the probes in the order of csrc/probes.cuh ProbeId
 PROBES = ("fori", "bcast", "roll", "reduce", "shift", "scratchfori",
@@ -102,39 +104,56 @@ F32_ABS, F32_SIGN = 0x7FFFFFFF, -2 ** 31   # masks of int32 views
 F32_INF, F32_QUIET = 0x7F800000, 0x00400000
 
 
-def _minsum(x, p, own_first):
+def _minsum(x, p, sign_first, part_first):
     """One stage's update min(|x|, |p|) sign(x) sign(p) of every row (``x``
     its own value, ``p`` its partner's; int32 views of f32) with the bits
     XLA gives on the CPU: off NaN min(|x|, |p|) with the sign bit sign(x)
-    XOR sign(p); with a NaN, the first operand (``x`` at stage 0 of a
-    sweep, ``own_first``; ``p`` at later stages) if it is a NaN, else the
-    other one's magnitude, quieted (``csrc/probes.cuh`` ``probe_minsum``,
-    which says why). Integer operations and selects only, so no NaN
-    payload depends on the float unit."""
+    XOR sign(p); with a NaN, ``p`` if it is a NaN and ``part_first``, else
+    ``x`` if it is a NaN (its magnitude unless ``sign_first``), else ``p``'s
+    magnitude, quieted. The order flags are those of XLA's two products
+    (``csrc/probes.cuh`` ``probe_minsum_rule``, which says why): stage 0
+    of a sweep runs (True, False), every later stage (False, True), and
+    ``k_big``'s copies their own (``BIG_COPIES``). Integer operations and
+    selects only, so no NaN payload depends on the float unit."""
     ax, ap = x & F32_ABS, p & F32_ABS
     num = torch.minimum(ax, ap) | ((x ^ p) & F32_SIGN)
-    first, other = (x, ap) if own_first else (p, ax)
-    nan = torch.where((first & F32_ABS) > F32_INF, first, other) | F32_QUIET
-    return torch.where((ax > F32_INF) | (ap > F32_INF), nan, num)
+    nx, np_ = ax > F32_INF, ap > F32_INF
+    out = torch.where(nx, x if sign_first else ax, torch.where(np_, ap, num))
+    if part_first:
+        out = torch.where(np_, p, out)
+    return torch.where(nx | np_, out | F32_QUIET, out)
 
 
-def _sweep(scr, stages, sweeps):
-    """``sweeps`` sweeps over stages 0..stages-1 of ``scr`` [rows, cols]:
-    row r meets r + 2^s where bit s of r is 0, else r - 2^s, and takes
-    ``_minsum`` of its own value and its partner's."""
-    rows = torch.arange(scr.shape[0])
-    partners = []
-    for s in range(stages):
-        p = torch.where(((rows >> s) & 1) == 0, rows + (1 << s),
-                        rows - (1 << s))
-        # the scripts' rolls wrap, but no partner reaches them
-        assert bool(((p >= 0) & (p < len(rows))).all())
-        partners.append(p.to(scr.device))
-    bits = scr.contiguous().view(torch.int32)
+# k_big's copies (csrc/probes.cuh probe_big_copy): the chain of a row whose
+# value it sends its stage-s partner, s = 0..7, with 4 sweeps and with 1.
+# MAIN: the row's own (the stage orders of ``_minsum``); ALT: stage 0 in
+# the order (True, True), every later stage as MAIN; ALT_LAST: ALT with
+# its last stage, s - 1, in the order (True, True). XLA computes each
+# partner array again from the sweep's scratch in a fusion of its own, in
+# that fusion's orders (tests/xla_copy_orders.py reads them off its code).
+MAIN, ALT, ALT_LAST = 0, 1, 2
+BIG_COPIES = {4: (MAIN, MAIN, ALT, ALT, ALT_LAST, ALT_LAST, ALT_LAST, MAIN),
+              1: (MAIN, MAIN, ALT, ALT, MAIN, MAIN, MAIN, MAIN)}
+
+
+def _big_sweep(x, sweeps):
+    """``k_big``'s scratch (``x`` [64, cols] tiled to 1,024 rows) after
+    ``sweeps`` sweeps of 8 stages, row r meeting r ^ 2^s at stage s: each
+    row's main chain takes ``_minsum`` of its value and what its partner
+    sent, the copy of the partner's value that ``BIG_COPIES`` names."""
+    rows = torch.arange(BIG_ROWS, device=x.device)
+    copies = BIG_COPIES[sweeps]
+    v = x.repeat(BIG_ROWS // ROWS, 1).view(torch.int32)
     for _ in range(sweeps):
-        for s, p in enumerate(partners):
-            bits = _minsum(bits, bits[p], s == 0)
-    return bits.view(torch.float32)
+        w = sent = v
+        for s in range(BIG_STAGES):
+            q = sent[rows ^ (1 << s)]
+            nxt = copies[s + 1] if s + 1 < BIG_STAGES else MAIN
+            last = _minsum(w, q, True, True) if nxt == ALT_LAST else None
+            v = _minsum(v, q, s == 0, s != 0)
+            w = _minsum(w, q, s == 0, True)
+            sent = (v, w, last)[nxt]
+    return v.view(torch.float32)
 
 
 def fori_plain(x):
@@ -190,15 +209,23 @@ def scratchfori_plain(x):
 
 
 def sweepcombo_plain(x):
-    return _sweep(x, 3, 4)
+    """4 sweeps of stages 0..2: row r meets r ^ 2^s (the script's rolls
+    wrap, but no partner reaches them) and takes ``_minsum`` of its own
+    value and its partner's in its stage's order."""
+    rows = torch.arange(x.shape[0], device=x.device)
+    bits = x.contiguous().view(torch.int32)
+    for _ in range(COMBO_SWEEPS):
+        for s in range(COMBO_STAGES):
+            bits = _minsum(bits, bits[rows ^ (1 << s)], s == 0, s != 0)
+    return bits.view(torch.float32)
 
 
 def bigsweep_plain(x):
-    return _sweep(x.repeat(BIG_ROWS // ROWS, 1), 8, 4)[:ROWS]
+    return _big_sweep(x, 4)[:ROWS]
 
 
 def bigsweep_noloop_plain(x):
-    return _sweep(x.repeat(BIG_ROWS // ROWS, 1), 8, 1)[:ROWS]
+    return _big_sweep(x, 1)[:ROWS]
 
 
 def arith_plain(x):

@@ -683,7 +683,9 @@ def test_probe_kernel_equals_plain_on_card(cuda, name):
     (NaNs, signed zeros) and on [16, 1024], [8, 250] (element by element
     past the last 8 columns), [3072, 16] (12 units a thread, the 48 KiB
     tile), [3073, 24] (straight from ``x``) and a tensor not 16-byte
-    aligned."""
+    aligned; ``int8`` on every int8 value at [3, 17], [32, 250] (a partial
+    16-byte unit, masked byte by byte) and [1000, 1000] (many CTAs), and
+    a tensor not 16-byte aligned (byte by byte)."""
     from polar_torch import probes
     step = "bf16" if name in probes.BF16 else f"mini:{name}"
     cases = [probes.step_inputs(step, seed)[name] for seed in (0, 7)]
@@ -700,6 +702,14 @@ def test_probe_kernel_equals_plain_on_card(cuda, name):
                       np.random.default_rng(5).normal(
                           0, 2, (64, 1536)).astype(np.float32))),),
                   "unaligned"]
+    if name == "int8":
+        for shape in ((3, 17), (32, 250), (1000, 1000)):
+            x = torch.from_numpy(np.random.default_rng(shape[1]).integers(
+                -128, 128, shape).astype(np.int8))
+            x.view(-1)[:256] = torch.arange(-128, 128, dtype=torch.int8)[
+                :x.numel()]
+            cases.append((x,))
+        cases += ["unaligned"]
     if name == "gather":
         cases += [gather_zero_nan_input(8, 256, 8),
                   gather_zero_nan_input(16, 1024, 16),
@@ -708,7 +718,7 @@ def test_probe_kernel_equals_plain_on_card(cuda, name):
                   gather_zero_nan_input(3073, 24, 13), "unaligned"]
     for args in cases:
         if args == "unaligned":
-            args = (cases[-2] if name == "reduce"
+            args = (cases[-2] if name in ("reduce", "int8")
                     else gather_zero_nan_input(8, 256, 11))
             x = args[0].to(cuda)
             flat = x.new_empty(x.numel() + 1)

@@ -175,48 +175,47 @@ def _sweep_input(kind):
 @pytest.mark.parametrize("name,kind", [
     ("sweepcombo", "zero_nan"), ("sweepcombo", "bits"),
     ("sweepcombo", "pairs"), ("bigsweep_noloop", "zero_nan"),
-    ("bigsweep_noloop", "bits")])
+    ("bigsweep_noloop", "bits"), ("bigsweep", "zero_nan"),
+    ("bigsweep", "bits"), ("bigsweep", "pairs"),
+    ("bigsweep_noloop", "pairs")])
 def test_sweeps_keep_jax_nan_bits(script, name, kind):
     """The stage update's NaN bits (``probes._minsum``, ``probes.cuh``
-    ``probe_minsum``: at stage 0 of a sweep the row's own NaN first, at
-    later stages its partner's, else the other NaN's magnitude) against
+    ``probe_minsum_rule``: at stage 0 of a sweep the row's own NaN first,
+    at later stages its partner's, else the other NaN's magnitude) against
     the script's kernel, bit for bit, in the plain version and in the host
     build of the card's routine (``k_big``: warps, lanes and the fold of
-    the four quarters). The pairs input holds every ordered pair of four
-    NaNs, +-1 and +-0 at every stage of ``k_sweepcombo``."""
+    the four quarters). ``k_big``'s partners are XLA's copies, each from a
+    fusion with its own orders (``probes.BIG_COPIES``), so where NaNs meet
+    a row takes the bits of the copy its partner sent. The pairs input
+    holds every ordered pair of four NaNs, +-1 and +-0 at every stage of
+    ``k_sweepcombo``."""
     x = _sweep_input(kind)
     want = _bits(_jax_mini(script, name, jnp.asarray(x.numpy())))
     np.testing.assert_array_equal(_bits(probes.PLAIN[name](x)), want)
     np.testing.assert_array_equal(_bits(probes.probe_host(name, x)), want)
 
 
-def _nan_or_bits(a):
-    """Each element's bits, every NaN as one value."""
-    b = _bits(a)
-    return np.where((b & 0x7FFFFFFF) > 0x7F800000, 0x7FC00000, b)
+def test_big_copy_table_equals_host_build():
+    """``probes.BIG_COPIES``, the chain whose value a row of ``k_big``
+    sends its stage-s partner, is ``probes.cuh``'s ``probe_big_copy`` as
+    the host build reads it, for both sweep counts (stage 8: the next
+    sweep's scratch, the main chain)."""
+    from polar_torch import _build
+    fn = _build.load("probes", "host").probes_host_big_copy
+    for sweeps, copies in probes.BIG_COPIES.items():
+        assert [fn(s, sweeps) for s in range(9)] == \
+            list(copies) + [probes.MAIN], sweeps
 
 
-@pytest.mark.parametrize("name,kind", [
-    ("bigsweep", "zero_nan"), ("bigsweep", "bits"), ("bigsweep", "pairs"),
-    ("bigsweep_noloop", "pairs")])
-def test_big_sweeps_keep_jax_values_and_nans(script, name, kind):
-    """``k_big`` under XLA on the CPU: every element that is not a NaN bit
-    for bit, and NaNs in the same places; a NaN's own bits may differ.
-    XLA computes a stage's rows again in each fusion that needs them as
-    partners, and some of those fusions multiply in another order than
-    the stage's own (seen in its LLVM IR and fitted to these outputs), so
-    where NaNs meet (in the loop's later sweeps, or two NaNs at stage 0)
-    the bits a row takes depend on which fusion computed its partner, not
-    on the pair. No kernel that computes each row once can give them; the
-    port keeps the stage's own order (``test_sweeps_keep_jax_nan_bits``).
-    The plain version and the host build of the card's routine agree bit
-    for bit."""
-    x = _sweep_input(kind)
-    want = _jax_mini(script, name, jnp.asarray(x.numpy()))
-    got = probes.PLAIN[name](x)
-    np.testing.assert_array_equal(_nan_or_bits(got), _nan_or_bits(want))
-    np.testing.assert_array_equal(_bits(probes.probe_host(name, x)),
-                                  _bits(got))
+@pytest.mark.parametrize("name", ["sweepcombo", "bigsweep",
+                                  "bigsweep_noloop"])
+def test_sweeps_host_build_on_wide_nan_input(name):
+    """The host build of the card's routine (``k_sweepcombo``: one thread
+    a column and 8-row group) against the plain version on f32 of random
+    bits at [64, 768], six 128-column blocks."""
+    x = probes.bits_input(9, 6 * TBm)
+    assert probes.differing(probes.PLAIN[name](x),
+                            probes.probe_host(name, x)) == 0
 
 
 @pytest.mark.parametrize("shape", [(8, 250), (8, 3), (13, 1001), (16, 1024),
@@ -250,7 +249,7 @@ def test_gather_host_build_tiles_and_masks(script, shape):
                                           want)
 
 
-@pytest.mark.parametrize("name", ["reduce", "gather"])
+@pytest.mark.parametrize("name", ["reduce", "gather", "int8"])
 def test_host_build_takes_unaligned_tensors(name):
     """A contiguous view one element past a 16-byte boundary takes the
     card's element-by-element form, bit-equal to the plain version."""
@@ -281,6 +280,20 @@ def test_host_build_equals_plain(name):
             0, 2, (64, 6 * TBm)).astype(np.float32))
         assert probes.differing(probes.PLAIN[name](x),
                                 probes.probe_host(name, x)) == 0
+
+
+@pytest.mark.parametrize("shape", [(3, 17), (32, 250)])
+def test_int8_host_build_takes_ragged_widths(shape):
+    """Widths that are not a multiple of 16 and sizes that leave a partial
+    16-byte unit: the host build of the card's kernel (whole units as
+    16-byte words, the last one byte by byte) against the plain version,
+    on every int8 value."""
+    x = torch.from_numpy(np.random.default_rng(shape[1]).integers(
+        -128, 128, shape).astype(np.int8))
+    x.view(-1)[:256] = torch.arange(-128, 128, dtype=torch.int8)[
+        :x.numel()]
+    assert probes.differing(probes.PLAIN["int8"](x),
+                            probes.probe_host("int8", x)) == 0
 
 
 def test_int8_wraps_as_int8():
@@ -439,7 +452,8 @@ def test_launch_counts_read_and_reset_every_probe():
 def nan_bit_report():
     """Each stage sweep's elements whose bits differ from the script's
     kernel on each NaN input, and those that differ beyond a NaN's sign
-    bit: one JSON line each (ROADMAP Queue 3)."""
+    bit: one JSON line each, all 0 where the plain versions give JAX's
+    bits."""
     ns = _script_kernels()
     for kind in ("zero_nan", "bits", "pairs"):
         x = _sweep_input(kind)
