@@ -1,0 +1,29 @@
+"""The SCL kernels' share of their roofline, in %: the least time of one
+whole list decode of a batch (the n LLRs read and the decisions written
+once, the node schedule's operations at L paths, as the configuration's
+reference counts them, on ``portbench.work``'s data-sheet rates) over the
+profiled device time a batch of the kernels whose names hold one of
+``KERNELS``."""
+
+import sys
+
+from portbench import reference, work
+
+KERNELS = ("scl_subtree_kernel", "scl_cw_kernel")
+
+
+def read(ctx):
+    sl = ctx.slice
+    if sl is None or not sl.batches:
+        return None
+    busy = sl.op_seconds(lambda name: any(k in name for k in KERNELS))
+    if busy <= 0:
+        return None
+    n_bytes, n_ops = reference.link(ctx.cfg, "cpu").decode_work(
+        int(ctx.traffic["batch_size"]))
+    bound, kind = work.bound_ms(n_bytes, n_ops)
+    per_batch_ms = 1e3 * busy / sl.batches
+    print(f"kernel.scl.roofline_pct: bound {bound:.6f} ms ({kind}) over "
+          f"{per_batch_ms:.6f} ms a batch; card {ctx.power_limit}",
+          file=sys.stderr)
+    return 100.0 * bound / per_batch_ms
