@@ -23,7 +23,7 @@ carry a ``+llr_max`` prior on the info side.
 
 Inputs are logits (``llr > 0`` means bit 1). On the card the whole decode
 is one launch of ``csrc/bp.cu`` per call; on the CPU it runs the plain
-version.
+version. A decode runs in the spans ``bp.sweep`` and ``bp.select``.
 """
 
 import numpy as np
@@ -34,6 +34,7 @@ from polar_torch.models.polar.construction import (as_host_positions,
                                                     info_positions)
 from polar_torch.models.polar.cuda_bp import bp_decode, msg_is_bf16
 from polar_torch.ops.fg import F_FUNCTIONS
+from polar_torch.utils import tracing
 
 
 class PolarBPDecoder:
@@ -86,15 +87,17 @@ class PolarBPDecoder:
         """Decode [bs, n] logits at a given sweep budget: ``(out [bs, k],
         done [bs] bool)``, ``done`` None unless ``want_done`` (which needs
         early_stop)."""
-        res = bp_decode(llr_logits.to(torch.float32).t(), self._prior,
-                        num_iter=num_iter, check_every=self.check_every,
-                        early_stop=self.early_stop, mode=self.mode,
-                        msf=self.msf, llr_max=self.llr_max,
-                        return_done=want_done, negate=True,
-                        msg_dtype=self.msg_dtype)
-        if want_done:
-            return self._finish(res[0]), res[1] > 0
-        return self._finish(res), None
+        with tracing.span("bp.sweep"):
+            res = bp_decode(llr_logits.to(torch.float32).t(), self._prior,
+                            num_iter=num_iter, check_every=self.check_every,
+                            early_stop=self.early_stop, mode=self.mode,
+                            msf=self.msf, llr_max=self.llr_max,
+                            return_done=want_done, negate=True,
+                            msg_dtype=self.msg_dtype)
+        with tracing.span("bp.select"):
+            if want_done:
+                return self._finish(res[0]), res[1] > 0
+            return self._finish(res), None
 
     def _finish(self, u_llr):
         """Info-side total LLR [n, bs] -> decoder output [bs, k]."""
@@ -161,6 +164,7 @@ class PolarBPDecoder:
         u_all = torch.cat([u for u, _ in p1])
         done = torch.cat([d for _, d in p1])
         fail = np.flatnonzero(~done.cpu().numpy())    # the one host sync
+        tracing.count("sync")
         if fail.size:
             llr_all = torch.cat(llr_batches)
             for lo in range(0, int(fail.size), scl_batch):
@@ -169,6 +173,7 @@ class PolarBPDecoder:
                 idx = np.full(cap, chunk[0], dtype=np.int64)
                 idx[:chunk.size] = chunk
                 idx = torch.from_numpy(idx).to(self.device)
+                tracing.count("h2d")
                 u2, _ = self._run(llr_all[idx], self.num_iter)
                 u_all[idx[:chunk.size]] = u2[:chunk.size]
         return list(u_all.split(sizes))

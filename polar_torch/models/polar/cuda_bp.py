@@ -13,10 +13,10 @@ first of its checks (every ``check_every`` sweeps) that passes.
 
 * ``bp_decode`` is the wrapper the decoder calls. A CUDA tensor goes
   through the kernel (``csrc/bp.cu``), a CPU tensor through the plain
-  version; nothing falls back from one to the other. It counts its
-  launches in ``launches`` (the bf16 instance's also in
-  ``launches_bf16``) and reports each launch's work to a running
-  ``profiling.flop_estimate``.
+  version; nothing falls back from one to the other. It runs in the span
+  ``kernel.bp``, counts its launches in the tracing counter ``launch.bp``
+  (the bf16 instance's also in ``form.bp.bf16``) and reports each launch's
+  work to a running ``profiling.flop_estimate``.
 * ``bp_decode_plain`` mirrors the JAX package's XLA engine
   (``PolarBPDecoder._run``): whole-batch tensor ops, a converged lane frozen
   by a select, the loop left when every lane has converged.
@@ -54,7 +54,7 @@ from polar_torch import _build
 from polar_torch.ops.fg import (F_FUNCTIONS, f_exact, f_exact_per_op,
                                 make_scaled_minsum, scaled_minsum_add,
                                 scaled_minsum_per_op)
-from polar_torch.utils import kernel_work
+from polar_torch.utils import kernel_work, tracing
 
 MAX_S = 16
 MAX_SHARED_S = 11           # kBpMaxSharedS in csrc/bp.cuh
@@ -88,30 +88,28 @@ def bp_decode(llr, prior, *, num_iter: int, check_every: int,
     kw = dict(num_iter=num_iter, check_every=check_every,
               early_stop=early_stop, mode=mode, msf=msf, llr_max=llr_max,
               return_done=return_done, negate=negate, msg_dtype=msg_dtype)
-    if llr.device.type == "cpu":
-        resolve_lattice(llr.shape[0], lattice)
-        return bp_decode_plain(llr, prior, **kw)
-    if llr.device.type != "cuda":
-        raise ValueError(f"bp_decode: unsupported device {llr.device}")
-    lib = _build.load("bp", "cuda")
-    with torch.cuda.device(llr.device):
-        stream = torch.cuda.current_stream(llr.device).cuda_stream
-        res = _native_call(lib.bp_launch, llr, prior, lattice,
-                           (ctypes.c_void_p, stream), **kw)
-        launched = llr.shape[1] > 0                 # an empty batch: none
-        bp_decode.launches += launched
-        bp_decode.launches_bf16 += launched and msg_dtype == torch.bfloat16
-    # an estimate counts every sweep and check: early stop is data that it
-    # cannot read without a sync; the bf16 lattice does the same work
-    n, bs = llr.shape
-    kernel_work.report(kernel_work.bp_work, n, bs, num_iter * bs,
-                       (num_iter // check_every) * bs if early_stop else 0,
-                       mode, msf)
-    return res
-
-
-bp_decode.launches = 0
-bp_decode.launches_bf16 = 0
+    with tracing.span("kernel.bp"):
+        if llr.device.type == "cpu":
+            resolve_lattice(llr.shape[0], lattice)
+            return bp_decode_plain(llr, prior, **kw)
+        if llr.device.type != "cuda":
+            raise ValueError(f"bp_decode: unsupported device {llr.device}")
+        lib = _build.load("bp", "cuda")
+        with torch.cuda.device(llr.device):
+            stream = torch.cuda.current_stream(llr.device).cuda_stream
+            res = _native_call(lib.bp_launch, llr, prior, lattice,
+                               (ctypes.c_void_p, stream), **kw)
+            launched = int(llr.shape[1] > 0)        # an empty batch: none
+            tracing.count("launch.bp", launched, ops=1)
+            tracing.count("form.bp.bf16",
+                          launched * (msg_dtype == torch.bfloat16))
+        # an estimate counts every sweep and check: early stop is data that
+        # it cannot read without a sync; the bf16 lattice does the same work
+        n, bs = llr.shape
+        kernel_work.report(kernel_work.bp_work, n, bs, num_iter * bs,
+                           (num_iter // check_every) * bs if early_stop
+                           else 0, mode, msf)
+        return res
 
 
 def bp_decode_host(llr, prior, *, lattice: str = "auto",

@@ -20,8 +20,9 @@ sums are zero whatever its LLRs.
 
 * ``sc_subtree`` is the wrapper the sweep calls. A CUDA tensor goes through
   the kernel (``csrc/sc_subtree.cu``), a CPU tensor through the plain
-  version; nothing falls back from one to the other. It counts its
-  launches in ``launches`` and reports each launch's work to a running
+  version; nothing falls back from one to the other. It runs in the span
+  ``kernel.sc_subtree``, counts its launches in the tracing counter
+  ``launch.sc_subtree`` and reports each launch's work to a running
   ``profiling.flop_estimate``.
 * ``sc_subtree_plain`` repeats the computation with tensor ops.
 * ``sc_subtree_host`` runs the kernel's per-codeword routine built for the
@@ -52,7 +53,7 @@ from polar_torch import _build
 from polar_torch.models.polar.cuda_scl import (
     MAX_B, PC_REGISTER, SubtreeSchedule, _ctz, _cto, traced_schedule)
 from polar_torch.ops.fg import F_FUNCTIONS, f_exact, g as g_op
-from polar_torch.utils import kernel_work
+from polar_torch.utils import kernel_work, tracing
 
 # op codes of csrc/sc_subtree.cuh (z/f/i as in the SCL kernel's table)
 SC_KIND_CODES = {"z": 0, "f": 4, "i": 5, "t": 6, "p": 7}
@@ -105,23 +106,21 @@ def sc_subtree(a, frz, sched: SubtreeSchedule, *, b: int, llr_max: float,
     unless the schedule has ``'t'`` ops. CUDA tensors launch the kernel
     (``lanes`` and ``n_shared`` override its group size and its shared
     workspace stages), CPU tensors run ``sc_subtree_plain``."""
-    if a.device.type == "cpu":
-        return sc_subtree_plain(a, frz, sched.ops, b=b, llr_max=llr_max,
-                                mode=mode)
-    if a.device.type != "cuda":
-        raise ValueError(f"sc_subtree: unsupported device {a.device}")
-    lib = _build.load("sc_subtree", "cuda")
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        out = _native_call(lib.sc_subtree_launch, a, frz, sched, b, llr_max,
-                           mode, lanes, n_shared, "cuda", stream)
-        sc_subtree.launches += 1
-    kernel_work.report(kernel_work.sc_subtree_work, sched.ops, b, a.shape[1],
-                       mode)
-    return out
-
-
-sc_subtree.launches = 0
+    with tracing.span("kernel.sc_subtree"):
+        if a.device.type == "cpu":
+            return sc_subtree_plain(a, frz, sched.ops, b=b, llr_max=llr_max,
+                                    mode=mode)
+        if a.device.type != "cuda":
+            raise ValueError(f"sc_subtree: unsupported device {a.device}")
+        lib = _build.load("sc_subtree", "cuda")
+        with torch.cuda.device(a.device):
+            stream = torch.cuda.current_stream(a.device).cuda_stream
+            out = _native_call(lib.sc_subtree_launch, a, frz, sched, b,
+                               llr_max, mode, lanes, n_shared, "cuda", stream)
+            tracing.count("launch.sc_subtree", ops=1)
+        kernel_work.report(kernel_work.sc_subtree_work, sched.ops, b,
+                           a.shape[1], mode)
+        return out
 
 
 def sc_subtree_host(a, frz, sched: SubtreeSchedule, *, b: int,

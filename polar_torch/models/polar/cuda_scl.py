@@ -22,10 +22,13 @@ The schedule comes in two forms:
 
 * ``scl_subtree`` is the wrapper the sweep calls. A CUDA tensor goes through
   the kernel (``csrc/scl_subtree.cu``), a CPU tensor through the plain
-  version; nothing falls back from one to the other. It counts its
-  launches in ``launches``, and of those the traced ones in
-  ``launches_traced`` and those at L > 8 in ``launches_wide``, and reports
-  each launch's work to a running ``profiling.flop_estimate``.
+  version; nothing falls back from one to the other. It runs in the span
+  ``kernel.scl_subtree``, counts its launches in the tracing counter
+  ``launch.scl_subtree`` (two device operations each: the decode and the
+  codeword transpose), and of those the traced ones in
+  ``form.scl_subtree.traced`` and those at L > 8 in
+  ``form.scl_subtree.wide``, and reports each launch's work to a running
+  ``profiling.flop_estimate``.
 * The kernel gives each codeword a group of L threads of one warp, one
   thread per path, and a block of ``THREADS`` threads holds THREADS / L
   codewords. A thread keeps its path's metric and its slot of every
@@ -70,7 +73,7 @@ import torch
 from polar_torch import _build
 from polar_torch.ops.fg import (F_FUNCTIONS, _clip, f_exact, g as g_op,
                                 softplus)
-from polar_torch.utils import kernel_work
+from polar_torch.utils import kernel_work, tracing
 
 KIND_CODES = {"z": 0, "r": 1, "o": 2, "s": 3, "f": 4, "i": 5, "t": 6,
               "p": 7}
@@ -140,28 +143,25 @@ def scl_subtree(a, pm, sched: SubtreeSchedule, *, b: int, llr_max: float,
     CPU tensors run ``scl_subtree_plain``. ``n_shared`` is the number of
     workspace stages the kernel keeps in shared memory (by default
     ``shared_stages(b, L)``); the plain version has no such split."""
-    if a.device.type == "cpu":
-        return scl_subtree_plain(a, pm, sched.ops, b=b, llr_max=llr_max,
-                                 mode=mode, frz=frz)
-    if a.device.type != "cuda":
-        raise ValueError(f"scl_subtree: unsupported device {a.device}")
-    lib = _build.load("scl_subtree", "cuda")
-    if n_shared is None:
-        n_shared = shared_stages(b, a.shape[1])
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        out = _native_call(lib.scl_subtree_launch, a, pm, frz, sched, b,
-                           llr_max, mode, n_shared, stream)
-        scl_subtree.launches += 1
-        scl_subtree.launches_traced += sched.traced
-        scl_subtree.launches_wide += a.shape[1] > 8
-    kernel_work.report(kernel_work.subtree_work, sched.ops, b, mode, a, frz)
-    return out
-
-
-scl_subtree.launches = 0
-scl_subtree.launches_traced = 0
-scl_subtree.launches_wide = 0
+    with tracing.span("kernel.scl_subtree"):
+        if a.device.type == "cpu":
+            return scl_subtree_plain(a, pm, sched.ops, b=b, llr_max=llr_max,
+                                     mode=mode, frz=frz)
+        if a.device.type != "cuda":
+            raise ValueError(f"scl_subtree: unsupported device {a.device}")
+        lib = _build.load("scl_subtree", "cuda")
+        if n_shared is None:
+            n_shared = shared_stages(b, a.shape[1])
+        with torch.cuda.device(a.device):
+            stream = torch.cuda.current_stream(a.device).cuda_stream
+            out = _native_call(lib.scl_subtree_launch, a, pm, frz, sched, b,
+                               llr_max, mode, n_shared, stream)
+            tracing.count("launch.scl_subtree", ops=2)
+            tracing.count("form.scl_subtree.traced", int(sched.traced))
+            tracing.count("form.scl_subtree.wide", int(a.shape[1] > 8))
+        kernel_work.report(kernel_work.subtree_work, sched.ops, b, mode, a,
+                           frz)
+        return out
 
 THREADS = 128                 # a block: THREADS // L codewords (kThreads)
 SMEM_BUDGET = 48 * 1024       # dynamic shared memory a block may take

@@ -6,7 +6,8 @@ the channel de-interleave (uplink), then repetition folded back onto the
 head, punctured positions at LLR 0, or shortened positions at the known
 value (logit ``-llr_max`` = -100), then the sub-block de-interleave. After
 the decoder, ``_post`` undoes the downlink input interleave and checks and
-strips the CRC.
+strips the CRC. ``decode`` runs the three in the spans
+``decode.rate_recover``, ``decode.polar`` and ``decode.crc``.
 """
 
 import numpy as np
@@ -18,6 +19,7 @@ from polar_torch.models.polar.hybrid import HybridSCLDecoder
 from polar_torch.models.polar.sc import PolarSCDecoder
 from polar_torch.models.polar.scl import PolarSCLDecoder
 from polar_torch.ops.crc import CRCDecoder
+from polar_torch.utils import tracing
 
 DEC_TYPES = ("SC", "SCL", "hybSCL")
 
@@ -112,8 +114,12 @@ class Polar5GDecoder:
     def decode(self, llr_logits):
         """[bs, n] logits -> [bs, k] (and the [bs] CRC status with
         ``return_crc_status``)."""
-        u_hat_crc = self._polar_dec.decode(self.rate_recover(llr_logits))
-        u_hat, crc_status = self._post(u_hat_crc)
+        with tracing.span("decode.rate_recover"):
+            llr = self.rate_recover(llr_logits)
+        with tracing.span("decode.polar"):
+            u_hat_crc = self._polar_dec.decode(llr)
+        with tracing.span("decode.crc"):
+            u_hat, crc_status = self._post(u_hat_crc)
         return (u_hat, crc_status) if self.return_crc_status else u_hat
 
     def __call__(self, inputs):

@@ -10,6 +10,7 @@ from polar_torch.models.polar.construction import (as_host_positions,
                                                     info_positions)
 from polar_torch.ops.butterfly import polar_transform
 from polar_torch.ops.crc import CRCEncoder
+from polar_torch.utils import tracing
 
 
 class PolarEncoder:
@@ -62,7 +63,9 @@ class Polar5GEncoder(PolarEncoder):
     matching (repetition, puncturing or shortening) and (uplink) channel
     interleave. All index math runs on the host when the code is built, as
     in the JAX package; ``n_polar``, ``k_polar``, ``frozen_pos``,
-    ``pc_pos`` and the gather indices equal its own."""
+    ``pc_pos`` and the gather indices equal its own. The call runs in the
+    spans ``encode.crc``, ``encode.polar`` (PC bits included) and
+    ``encode.rate_match``."""
 
     def __init__(self, k: int, n: int, channel_type: str = "uplink",
                  verbose: bool = False, enable_pc: bool = True,
@@ -211,14 +214,18 @@ class Polar5GEncoder(PolarEncoder):
     def __call__(self, u):
         if u.shape[-1] != self.k_target:
             raise ValueError(f"last dim must be of length k={self.k_target}")
-        u_crc = self.enc_crc(u)
-        if self._iil_idx is not None:
-            u_crc = u_crc[..., self._iil_idx]
-        if self.pc_pos is not None:
-            u_pad = torch.cat([u_crc, u_crc.new_zeros(u_crc.shape[:-1]
-                                                      + (1,))], dim=-1)
-            u_full = pc.fill_pc(u_pad[..., self._pc_scatter_idx],
-                                self._pc_mat, self._pc_idx)
-        else:
-            u_full = self.scatter_info(u_crc)
-        return polar_transform(u_full).to(self.dtype)[..., self._rm_idx]
+        with tracing.span("encode.crc"):
+            u_crc = self.enc_crc(u)
+        with tracing.span("encode.polar"):
+            if self._iil_idx is not None:
+                u_crc = u_crc[..., self._iil_idx]
+            if self.pc_pos is not None:
+                u_pad = torch.cat([u_crc, u_crc.new_zeros(u_crc.shape[:-1]
+                                                          + (1,))], dim=-1)
+                u_full = pc.fill_pc(u_pad[..., self._pc_scatter_idx],
+                                    self._pc_mat, self._pc_idx)
+            else:
+                u_full = self.scatter_info(u_crc)
+            c = polar_transform(u_full).to(self.dtype)
+        with tracing.span("encode.rate_match"):
+            return c[..., self._rm_idx]

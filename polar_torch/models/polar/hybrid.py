@@ -24,6 +24,7 @@ from polar_torch.models.polar.construction import as_host_positions
 from polar_torch.models.polar.sc import PolarSCDecoder
 from polar_torch.models.polar.scl import PolarSCLDecoder
 from polar_torch.ops.crc import CRCDecoder, CRCEncoder, crc_polynomial
+from polar_torch.utils import tracing
 
 
 class HybridSCLDecoder:
@@ -105,6 +106,7 @@ class HybridSCLDecoder:
         cap = self._capacity(int(fail.size), bs)
         idx = np.full(cap, fail[0], dtype=np.int64)
         idx[:fail.size] = fail
+        tracing.count("h2d")
         return torch.from_numpy(idx).to(self.device)
 
     def decode(self, llr2d):
@@ -112,6 +114,7 @@ class HybridSCLDecoder:
         with ``return_crc_status``)."""
         u_sc, ok = self._sc_crc(llr2d)
         fail = np.flatnonzero(~ok.cpu().numpy())   # the one host sync
+        tracing.count("sync")
         out, status = u_sc, ok
         if fail.size:
             idx = self._rows(fail, llr2d.shape[0])
@@ -156,6 +159,7 @@ class HybridSCLDecoder:
         u_all = torch.cat([u for u, _ in scs])
         status = torch.cat([ok for _, ok in scs])
         fail = np.flatnonzero(~status.cpu().numpy())   # the one host sync
+        tracing.count("sync")
         if fail.size:
             llr_all = torch.cat(llr_batches)
             for lo in range(0, int(fail.size), scl_batch):

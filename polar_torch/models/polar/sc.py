@@ -12,6 +12,9 @@ With ``pc_pos`` (5G's parity-check bits, TS 38.212 5.3.1.2) a PC position
 decodes as the bit of a 5-bit shift register that the info bits before it
 fill, as the JAX package's unrolled tree does. The register lives in the
 kernel's call, so a PC decode is always the whole tree in one call.
+
+``decode`` runs in the spans ``sc.prep``, ``sc.sweep`` and ``sc.select``,
+as the SCL decoder's.
 """
 
 import numpy as np
@@ -25,6 +28,7 @@ from polar_torch.models.polar.scan_core import (
     DEFAULT_SC_LOWER_STAGES, plan_sc_sweep, resolve_lower_stages,
     sc_sweep_hybrid)
 from polar_torch.ops.fg import F_FUNCTIONS
+from polar_torch.utils import tracing
 
 SCHEDULES = ("auto", "unrolled", "scan")
 
@@ -102,11 +106,15 @@ class PolarSCDecoder:
 
     def decode(self, llr_logits):
         """[bs, n] logits -> [bs, k] hard decisions."""
-        llr_ch = (-llr_logits.to(torch.float32)).t().contiguous()  # [n, bs]
-        u = sc_sweep_hybrid(llr_ch, self._frozen_mask, mode=self.mode,
-                            llr_max=self.llr_max,
-                            lower_stages=self.lower_stages, plan=self._plan)
-        return u[self._info_idx].t().to(self.output_dtype)
+        with tracing.span("sc.prep"):
+            llr_ch = (-llr_logits.to(torch.float32)).t().contiguous()
+        with tracing.span("sc.sweep"):
+            u = sc_sweep_hybrid(llr_ch, self._frozen_mask, mode=self.mode,
+                                llr_max=self.llr_max,
+                                lower_stages=self.lower_stages,
+                                plan=self._plan)
+        with tracing.span("sc.select"):
+            return u[self._info_idx].t().to(self.output_dtype)
 
     def __call__(self, inputs):
         if inputs.shape[-1] != self.n or inputs.dim() < 2:

@@ -29,6 +29,13 @@ PC-aided decoding (the parity-check bits of 5G's small uplink codes) adds
 a ``'p'`` leaf to the plain SCL schedule and to the SC schedule. It runs
 with b = log2(n), the whole tree in one kernel call, so each path's PC
 register lives and dies inside the call.
+
+Both sweeps mark their pieces as spans (``utils.tracing``):
+``sweep.descend`` (the outer f/g), ``sweep.node`` (an upper node),
+``sweep.cast`` (a subtree's outputs to int8 and the parent map to int64),
+``sweep.rise`` (the pointer updates and partial-sum combines after a
+subtree, and the combines after a node), ``sweep.backtrack`` (the survivor
+labels) and ``sweep.transform`` (the codewords stacked and transformed).
 """
 
 import numpy as np
@@ -40,6 +47,7 @@ from polar_torch.models.polar.cuda_scl import (
     _rep_fork, _take_paths, _uptr_live, scl_subtree, traced_schedule)
 from polar_torch.ops.butterfly import polar_transform
 from polar_torch.ops.fg import F_FUNCTIONS, _clip, g as g_op, softplus
+from polar_torch.utils import tracing
 
 # SPC ('s') nodes are off unless a threshold stage is given
 SPC_MIN_STAGE_OFF = 99
@@ -334,58 +342,68 @@ def scl_sweep_hybrid_fast(llr_ch, frozen_mask, list_size: int,
     for unit in plan:
         if unit[0] == "sub":
             _, j, sched, frz = unit
-            a = descend(j, 0)
+            with tracing.span("sweep.descend"):
+                a = descend(j, 0)
             cw32, Pj, pm = subtree(a, pm, sched, b=b, llr_max=llr_max,
                                    mode=mode, frz=frz)
-            Pj = Pj.to(torch.int64)
-            compose_live(Pj, j, 0)
-            cws[j] = cw32.to(torch.int8)
-            ps[j] = Pj
-            rise(cws[j], j, 0)
+            with tracing.span("sweep.cast"):
+                Pj = Pj.to(torch.int64)
+                cws[j] = cw32.to(torch.int8)
+            with tracing.span("sweep.rise"):
+                compose_live(Pj, j, 0)
+                ps[j] = Pj
+                rise(cws[j], j, 0)
             continue
         kind, s_real, j0, q = unit
         sg_nd = s_real - b
         j_end = j0 + q - 1
-        cur = descend(j0, sg_nd)                  # [2^s_real, L, bs]
+        with tracing.span("sweep.descend"):
+            cur = descend(j0, sg_nd)              # [2^s_real, L, bs]
         fork = lambda parent: compose_live(parent, j_end, sg_nd)
-        if kind == "z":
-            # rate-0 spanning q subtrees: bulk path-metric update
-            pm = pm + sum_rows(softplus(-_clip(cur, llr_max)))
-            node_sums = torch.zeros((1 << s_real, L, bs), dtype=torch.int8,
-                                    device=dev)
-            for jj in range(j0, j_end + 1):
-                cws[jj] = node_sums[:w_sub]
-                ps[jj] = None
-        elif kind in ("o", "s"):
-            pm, node_sums, qn = _flip_forks(pm, cur, llr_max, kind == "s",
-                                            fork, sum_rows)
-            # emissions are stage-b codewords: undo the node's combine
-            # levels along the chunk axis; the composed parent map rides
-            # the first covered subtree
-            em = polar_transform(node_sums.reshape(q, w_sub, L, bs), axis=0)
-            for jj in range(j0, j_end + 1):
-                cws[jj] = em[jj - j0]
-                ps[jj] = qn if jj == j0 else None
-        else:
-            # repetition spanning q subtrees: one fork
-            pm, parent, bit = _rep_fork(pm, cur, llr_max, sum_rows)
-            fork(parent)
-            node_sums = bit[None].expand(1 << s_real, L, bs)
-            for jj in range(j0, j_end + 1):
-                cws[jj] = node_sums[:w_sub]
-                # the fork's parent map rides the first covered subtree
-                ps[jj] = parent if jj == j0 else None
-        rise(node_sums, j_end, sg_nd)
+        with tracing.span("sweep.node"):
+            if kind == "z":
+                # rate-0 spanning q subtrees: bulk path-metric update
+                pm = pm + sum_rows(softplus(-_clip(cur, llr_max)))
+                node_sums = torch.zeros((1 << s_real, L, bs),
+                                        dtype=torch.int8, device=dev)
+                for jj in range(j0, j_end + 1):
+                    cws[jj] = node_sums[:w_sub]
+                    ps[jj] = None
+            elif kind in ("o", "s"):
+                pm, node_sums, qn = _flip_forks(pm, cur, llr_max,
+                                                kind == "s", fork, sum_rows)
+                # emissions are stage-b codewords: undo the node's combine
+                # levels along the chunk axis; the composed parent map
+                # rides the first covered subtree
+                em = polar_transform(node_sums.reshape(q, w_sub, L, bs),
+                                     axis=0)
+                for jj in range(j0, j_end + 1):
+                    cws[jj] = em[jj - j0]
+                    ps[jj] = qn if jj == j0 else None
+            else:
+                # repetition spanning q subtrees: one fork
+                pm, parent, bit = _rep_fork(pm, cur, llr_max, sum_rows)
+                fork(parent)
+                node_sums = bit[None].expand(1 << s_real, L, bs)
+                for jj in range(j0, j_end + 1):
+                    cws[jj] = node_sums[:w_sub]
+                    # the fork's parent map rides the first covered subtree
+                    ps[jj] = parent if jj == j0 else None
+        with tracing.span("sweep.rise"):
+            rise(node_sums, j_end, sg_nd)
 
     # ---- survivor backtracking (label None is the identity) ----
-    label = None
-    for j in range(m - 1, -1, -1):
-        if label is not None:
-            cws[j] = _take_paths(cws[j], label)
-        if ps[j] is not None:
-            label = ps[j] if label is None else _take_paths(ps[j], label)
-    cw = torch.stack(cws, dim=0)                  # [m, 2^b, L, bs]
-    u = polar_transform(cw, axis=1)
+    with tracing.span("sweep.backtrack"):
+        label = None
+        for j in range(m - 1, -1, -1):
+            if label is not None:
+                cws[j] = _take_paths(cws[j], label)
+            if ps[j] is not None:
+                label = ps[j] if label is None else _take_paths(ps[j],
+                                                                label)
+    with tracing.span("sweep.transform"):
+        cw = torch.stack(cws, dim=0)              # [m, 2^b, L, bs]
+        u = polar_transform(cw, axis=1)
     return u.reshape(n, L, bs), pm
 
 
@@ -468,25 +486,31 @@ def sc_sweep_hybrid(llr_ch, frozen_mask, mode: str = "minsum",
     for unit in plan:
         if unit[0] == "sub":
             _, j, sched, _ = unit
-            a = descend(j, 0, 0)
-            node = cws[j] = subtree(a, None, sched, b=b, llr_max=llr_max,
-                                    mode=mode).to(torch.int8)
+            with tracing.span("sweep.descend"):
+                a = descend(j, 0, 0)
+            cw32 = subtree(a, None, sched, b=b, llr_max=llr_max, mode=mode)
+            with tracing.span("sweep.cast"):
+                node = cws[j] = cw32.to(torch.int8)
             j_end, sg_nd = j, 0
         else:
             # rate-0 node spanning q subtrees: zero partial sums whatever
             # its LLRs; the descent only stores what later g-reads need
             _, s_real, j0, q = unit
             sg_nd, j_end = s_real - b, j0 + q - 1
-            descend(j0, sg_nd, sg_nd + 1)
-            node = torch.zeros((1 << s_real, bs), dtype=torch.int8,
-                               device=dev)
-            for jj in range(j0, j_end + 1):
-                cws[jj] = node[:w_sub]
+            with tracing.span("sweep.descend"):
+                descend(j0, sg_nd, sg_nd + 1)
+            with tracing.span("sweep.node"):
+                node = torch.zeros((1 << s_real, bs), dtype=torch.int8,
+                                   device=dev)
+                for jj in range(j0, j_end + 1):
+                    cws[jj] = node[:w_sub]
         # rise: combine partial sums upward through cto(j_end) stages
-        r = _cto(j_end)
-        for sg in range(sg_nd, min(r, top)):
-            node = torch.cat([u0s[sg] ^ node, node], dim=0)
-        if r < top:
-            u0s[r] = node
-    cw = torch.stack(cws, dim=0)                  # [m, 2^b, bs]
-    return polar_transform(cw, axis=1).reshape(n, bs)
+        with tracing.span("sweep.rise"):
+            r = _cto(j_end)
+            for sg in range(sg_nd, min(r, top)):
+                node = torch.cat([u0s[sg] ^ node, node], dim=0)
+            if r < top:
+                u0s[r] = node
+    with tracing.span("sweep.transform"):
+        cw = torch.stack(cws, dim=0)              # [m, 2^b, bs]
+        return polar_transform(cw, axis=1).reshape(n, bs)

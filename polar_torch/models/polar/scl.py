@@ -31,6 +31,10 @@ goes through the CRC check, a failing path's metric pays
 ``llr_max * k``, and the best metric wins. ``use_hybrid_sc`` hands the
 decode to ``hybrid.HybridSCLDecoder`` (SC first, CA-SCL on the blocks
 whose CRC fails).
+
+``decode`` runs in the spans ``scl.prep`` (sign and transpose),
+``scl.sweep`` and ``scl.select`` (the info gather, the CRC over the L
+paths, the best path and the output cast).
 """
 
 import numpy as np
@@ -46,6 +50,7 @@ from polar_torch.models.polar.scan_core import (
 from polar_torch.models.polar.sc import SCHEDULES, pc_setup
 from polar_torch.ops.crc import CRCDecoder, CRCEncoder, crc_polynomial
 from polar_torch.ops.fg import F_FUNCTIONS
+from polar_torch.utils import tracing
 
 # from this blocklength up, use_fast_scl=None means the plain sweep (the
 # JAX package's scan engine); below it, the fast sweep
@@ -166,35 +171,38 @@ class PolarSCLDecoder:
         [bs] CRC status of that path with ``return_crc_status``)."""
         if self._hybrid is not None:
             return self._hybrid.decode(llr_logits)
-        llr_ch = (-llr_logits.to(torch.float32)).t().contiguous()  # [n, bs]
-        if self.use_fast_scl:
-            u_all, pm = scl_sweep_hybrid_fast(
-                llr_ch, self._frozen_mask, self.list_size, mode=self.mode,
-                llr_max=self.llr_max, lower_stages=self.lower_stages,
-                rate1=self.fast_rate1, spc_min_stage=self.spc_min_stage,
-                plan=self._plan)
-        else:
-            u_all, pm = scl_sweep_hybrid(
-                llr_ch, self._frozen_mask, self.list_size, mode=self.mode,
-                llr_max=self.llr_max, lower_stages=self.lower_stages,
-                plan=self._plan)
-        u_info = u_all[self._info_idx]                      # [k, L, bs]
-        crc_valid = None
-        if self._crc_decoder is not None:
-            w = u_info.permute(1, 2, 0)                     # [L, bs, k]
-            if self._iil_inv is not None:
-                w = w[..., self._iil_inv]
-            _, crc_valid = self._crc_decoder(w)             # [L, bs, 1]
-            crc_valid = crc_valid[..., 0]
-            pm = pm + (1.0 - crc_valid.to(torch.float32)) * self.llr_max \
-                * self.k
-        sel = torch.argmin(pm, dim=0)                       # [bs]
-        u_sel = torch.gather(u_info, 1, sel[None, None, :].expand(
-            u_info.shape[0], 1, -1))[:, 0]
-        out = u_sel.t().to(self.output_dtype)
-        if self.return_crc_status:
-            return out, torch.gather(crc_valid, 0, sel[None])[0]
-        return out
+        with tracing.span("scl.prep"):
+            llr_ch = (-llr_logits.to(torch.float32)).t().contiguous()
+        with tracing.span("scl.sweep"):
+            if self.use_fast_scl:
+                u_all, pm = scl_sweep_hybrid_fast(
+                    llr_ch, self._frozen_mask, self.list_size,
+                    mode=self.mode, llr_max=self.llr_max,
+                    lower_stages=self.lower_stages, rate1=self.fast_rate1,
+                    spc_min_stage=self.spc_min_stage, plan=self._plan)
+            else:
+                u_all, pm = scl_sweep_hybrid(
+                    llr_ch, self._frozen_mask, self.list_size,
+                    mode=self.mode, llr_max=self.llr_max,
+                    lower_stages=self.lower_stages, plan=self._plan)
+        with tracing.span("scl.select"):
+            u_info = u_all[self._info_idx]                  # [k, L, bs]
+            crc_valid = None
+            if self._crc_decoder is not None:
+                w = u_info.permute(1, 2, 0)                 # [L, bs, k]
+                if self._iil_inv is not None:
+                    w = w[..., self._iil_inv]
+                _, crc_valid = self._crc_decoder(w)         # [L, bs, 1]
+                crc_valid = crc_valid[..., 0]
+                pm = pm + (1.0 - crc_valid.to(torch.float32)) \
+                    * self.llr_max * self.k
+            sel = torch.argmin(pm, dim=0)                   # [bs]
+            u_sel = torch.gather(u_info, 1, sel[None, None, :].expand(
+                u_info.shape[0], 1, -1))[:, 0]
+            out = u_sel.t().to(self.output_dtype)
+            if self.return_crc_status:
+                return out, torch.gather(crc_valid, 0, sel[None])[0]
+            return out
 
     def __call__(self, inputs):
         if inputs.shape[-1] != self.n or inputs.dim() < 2:

@@ -4,7 +4,11 @@
 Each model's ``requires_host`` is its decoder's (False where the decoder
 has none), as in the JAX package, whose models and ``sim_ber`` keep such a
 decoder out of one jitted program. The port runs eagerly and does not read
-it; it is informational."""
+it; it is informational.
+
+``step`` runs the front end in the span ``chain.front`` and the decoder in
+``chain.decode`` (``utils.tracing``); ``front`` marks ``front.source``,
+``front.encode``, ``front.map``, ``front.channel`` and ``front.demap``."""
 
 import torch
 
@@ -12,6 +16,7 @@ from polar_torch.ops.channels import AWGN, BinaryErasureChannel
 from polar_torch.ops.ebno import ebnodb2no
 from polar_torch.ops.mapping import Constellation, Demapper, Mapper
 from polar_torch.ops.source import binary_source
+from polar_torch.utils import tracing
 
 
 class SystemAWGNModel:
@@ -40,18 +45,25 @@ class SystemAWGNModel:
         """Source -> encode -> map -> AWGN -> demap. Returns
         ``(bits, codewords, llr)``."""
         no = ebnodb2no(ebno_db, self.n_bits_per_sym, self.coderate)
-        bits = binary_source(generator, (batch_size, self.k))
-        codewords = self.encoder(bits)
-        x = self.mapper(codewords)
-        y = self.awgn_channel(generator, (x, no))
-        llr = self.demapper((y, no))
+        with tracing.span("front.source"):
+            bits = binary_source(generator, (batch_size, self.k))
+        with tracing.span("front.encode"):
+            codewords = self.encoder(bits)
+        with tracing.span("front.map"):
+            x = self.mapper(codewords)
+        with tracing.span("front.channel"):
+            y = self.awgn_channel(generator, (x, no))
+        with tracing.span("front.demap"):
+            llr = self.demapper((y, no))
         return bits, codewords, llr
 
     def step(self, generator: torch.Generator, batch_size: int, ebno_db):
         """One batch: ``(bits, bits_hat)``, or ``(codewords, bits_hat)``
         with ``cw_estimates``."""
-        bits, codewords, llr = self.front(generator, batch_size, ebno_db)
-        bits_hat = self.decoder(llr)
+        with tracing.span("chain.front"):
+            bits, codewords, llr = self.front(generator, batch_size, ebno_db)
+        with tracing.span("chain.decode"):
+            bits_hat = self.decoder(llr)
         return (codewords if self.cw_estimates else bits), bits_hat
 
     __call__ = step
@@ -79,16 +91,21 @@ class SystemBECModel:
 
     def front(self, generator: torch.Generator, batch_size: int, pe):
         """Source -> encode -> BEC. Returns ``(bits, codewords, llr)``."""
-        bits = binary_source(generator, (batch_size, self.k))
-        codewords = self.encoder(bits)
-        llr = self.channel(generator, (codewords, pe))
+        with tracing.span("front.source"):
+            bits = binary_source(generator, (batch_size, self.k))
+        with tracing.span("front.encode"):
+            codewords = self.encoder(bits)
+        with tracing.span("front.channel"):
+            llr = self.channel(generator, (codewords, pe))
         return bits, codewords, llr
 
     def step(self, generator: torch.Generator, batch_size: int, pe):
         """One batch: ``(bits, bits_hat)``, or ``(codewords, bits_hat)``
         with ``cw_estimates``."""
-        bits, codewords, llr = self.front(generator, batch_size, pe)
-        bits_hat = self.decoder(llr)
+        with tracing.span("chain.front"):
+            bits, codewords, llr = self.front(generator, batch_size, pe)
+        with tracing.span("chain.decode"):
+            bits_hat = self.decoder(llr)
         return (codewords if self.cw_estimates else bits), bits_hat
 
     __call__ = step

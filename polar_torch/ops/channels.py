@@ -10,6 +10,7 @@ it, so the gradient reaches it.
 
 import torch
 
+from polar_torch.utils import tracing
 from polar_torch.utils.numerics import expand_to_rank
 
 
@@ -31,6 +32,7 @@ class AWGN:
         x, no = inputs
         noise = complex_normal(generator, x.shape)
         no = torch.as_tensor(no, dtype=torch.float32, device=x.device)
+        tracing.count("h2d")
         no = no.reshape(no.shape + (1,) * (x.dim() - no.dim()))
         return x + noise * no.sqrt()
 
@@ -60,6 +62,7 @@ class BinaryMemorylessChannel:
     def _probability(self, p, x):
         """``p`` as an f32 tensor on ``x``'s device, clipped to [0, 1]
         (a tensor keeps its graph)."""
+        tracing.count("h2d")
         return torch.as_tensor(p, dtype=torch.float32,
                                device=x.device).clamp(0.0, 1.0)
 

@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from polar_torch._device import resolve_device
+from polar_torch.utils import tracing
 
 
 def pam_gray(b: np.ndarray):
@@ -145,6 +146,7 @@ class Demapper:
     def __call__(self, inputs):
         y, no = inputs
         no = torch.as_tensor(no, dtype=torch.float32, device=y.device)
+        tracing.count("h2d")
         if self.constell.n_bits_per_sym == 2 and self.constell.normalize:
             # Gray QPSK factorises per axis: points (+-a) + j(+-a) with
             # a = 1/sqrt(2), bit 0 on the real axis (label 1 -> -a), so the
@@ -152,6 +154,7 @@ class Demapper:
             # max-log gives the same value
             scale = torch.tensor(-4.0 * float(np.sqrt(0.5)),
                                  dtype=torch.float32, device=y.device) / no
+            tracing.count("h2d")
             llr = torch.stack([scale * y.real, scale * y.imag], dim=-1)
             return llr.reshape(y.shape[:-1] + (2 * y.shape[-1],))
         points = self.constell.points.reshape((1,) * y.dim() + (-1,))

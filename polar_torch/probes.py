@@ -29,9 +29,10 @@ piece by piece (``launch_split``).
 * Each probe's wrapper (``fori``, ``bcast``, ..., ``int8``, also in
   ``WRAPPERS``) launches the kernel (``csrc/probes.cu``) on a CUDA tensor
   and runs the plain version on a CPU one; nothing falls back from one to
-  the other. It counts its launches in ``launches`` (``launch_counts``,
-  ``reset_launch_counts``) and reports each launch's work to a running
-  ``profiling.flop_estimate``.
+  the other. It runs in the span ``kernel.probe.<name>``, counts its
+  launches in the tracing counter ``launch.probe.<name>``
+  (``launch_counts``, ``reset_launch_counts``) and reports each launch's
+  work to a running ``profiling.flop_estimate``.
 * ``<name>_plain`` is the plain PyTorch version, on any device. It rounds
   as the JAX package's kernel does on the CPU (in interpret mode): the
   five adds of ``k_fori`` in order (``6 x`` rounds differently),
@@ -48,8 +49,8 @@ the card), ``int8`` int8, each 2-D.
 
 A wrapper's call on the card is its launch and little else: a cheap check
 of its arguments (``_check``), no device switch when the tensor lies on
-the current card, the current stream's raw handle, and one ``ctypes`` call
-of the probe's own entry point.
+the current card, the current stream's raw handle, one ``ctypes`` call
+of the probe's own entry point, and its span and counter.
 """
 
 import argparse
@@ -64,7 +65,7 @@ import torch
 from polar_torch import _build
 from polar_torch._device import card_info, resolve_device
 from polar_torch.ops.fg import fma_f32
-from polar_torch.utils import kernel_work
+from polar_torch.utils import kernel_work, tracing
 from polar_torch.utils.profiling import cuda_ms
 
 TB = 128        # columns of a TPU grid step's block
@@ -341,29 +342,30 @@ def _launcher(name):
 
 def _wrapper(name):
     check, plain, launch = _CHECKS[name], PLAIN[name], _launcher(name)
+    span_name, counter_name = f"kernel.probe.{name}", f"launch.probe.{name}"
 
     def probe(*args):
-        check(args)
-        x = args[0]
-        if x.is_cuda:
-            idx = x.get_device()
-            if idx == torch.cuda.current_device():
-                out = launch(x, args, idx)
-            else:
-                with torch.cuda.device(idx):
+        with tracing.span(span_name):
+            check(args)
+            x = args[0]
+            if x.is_cuda:
+                idx = x.get_device()
+                if idx == torch.cuda.current_device():
                     out = launch(x, args, idx)
-            probe.launches += 1
-            kernel_work.report(kernel_work.probe_work, name, *args)
-            return out
-        if x.device.type == "cpu":
-            return plain(*args)
-        raise ValueError(f"{name}: unsupported device {x.device}")
+                else:
+                    with torch.cuda.device(idx):
+                        out = launch(x, args, idx)
+                tracing.count(counter_name, ops=1)
+                kernel_work.report(kernel_work.probe_work, name, *args)
+                return out
+            if x.device.type == "cpu":
+                return plain(*args)
+            raise ValueError(f"{name}: unsupported device {x.device}")
 
     probe.__name__ = probe.__qualname__ = name
     probe.__doc__ = (f"The ``{name}`` probe (``benchmarks/probe_r4.py:"
                      f"{REPLACES[name]}``): its kernel on a CUDA tensor, "
                      f"``{name}_plain`` on a CPU one.")
-    probe.launches = 0
     return probe
 
 
@@ -373,14 +375,13 @@ WRAPPERS = {name: _wrapper(name) for name in PROBES}
 
 
 def launch_counts():
-    """Each probe kernel's launch count, as its wrapper keeps it."""
-    return {name: WRAPPERS[name].launches for name in PROBES}
+    """Each probe kernel's launch count (``launch.probe.<name>``)."""
+    return {name: tracing.counter(f"launch.probe.{name}") for name in PROBES}
 
 
 def reset_launch_counts():
-    """Every probe wrapper's launch count to 0."""
-    for wrapper in WRAPPERS.values():
-        wrapper.launches = 0
+    """Every probe's launch count to 0."""
+    tracing.reset_counters([f"launch.probe.{name}" for name in PROBES])
 
 
 def probe_host(name, *args):
@@ -564,6 +565,8 @@ def launch_split(device=None, calls=SPLIT_CALLS):
         ptrs = [a.data_ptr() for a in args] + [out.data_ptr()]
         shape = [x.shape[1]] if name in MINI else list(x.shape)
         stream = _stream(idx)
+        span_name, counter_name = (f"kernel.probe.{name}",
+                                   f"launch.probe.{name}")
 
         def device_context():
             with torch.cuda.device(x.device):
@@ -587,6 +590,8 @@ def launch_split(device=None, calls=SPLIT_CALLS):
             "ctypes call and launch": lambda: fn(*ptrs, *shape, stream),
             "kernel_work.report": lambda: kernel_work.report(
                 kernel_work.probe_work, name, *args),
+            "tracing.span, off": lambda: tracing.span(span_name),
+            "tracing.count": lambda: tracing.count(counter_name, 0),
             "not on the path: torch.cuda.device context": device_context,
             "not on the path: current_stream().cuda_stream":
                 lambda: torch.cuda.current_stream(x.device).cuda_stream,

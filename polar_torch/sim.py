@@ -12,7 +12,10 @@ checkpoint/resume (``state_path``). The chain runs on the model's device:
   batch, where the sweep accumulates in int64;
 * a model with its own ``counted_step`` (``parallel.ShardedSystem``)
   returns counters already reduced across its ranks, which the sweep takes
-  as they are, so every rank takes the same early-stop branch.
+  as they are, so every rank takes the same early-stop branch;
+* each batch is one ``tracing.batch()`` (``sim.step``) with its spans
+  ``sim.seed`` (the generator), ``sim.count`` (the counting ops) and
+  ``sim.sync`` (the wait for the two scalars, a counted ``sync``).
 """
 
 import json
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 from polar_torch._device import resolve_device
+from polar_torch.utils import tracing
 
 STATUS_LEVELS = [
     "not simulated",
@@ -100,10 +104,14 @@ def _counted_step(mc_fun, batch_size, soft_estimates):
 
     def counted(generator, ebno_db):
         b, b_hat = run(generator, batch_size, ebno_db)
-        if soft_estimates:
-            b_hat = hard_decisions(b_hat)
-        errs, blk = torch.stack([count_errors(b, b_hat),
-                                 count_block_errors(b, b_hat)]).tolist()
+        with tracing.span("sim.count"):
+            if soft_estimates:
+                b_hat = hard_decisions(b_hat)
+            counts = torch.stack([count_errors(b, b_hat),
+                                  count_block_errors(b, b_hat)])
+        with tracing.span("sim.sync"):
+            errs, blk = counts.tolist()
+            tracing.count("sync")
         return errs, blk, b.numel(), b.numel() // b.shape[-1]
     return counted
 
@@ -164,13 +172,15 @@ def sim_ber(mc_fun, ebno_dbs, batch_size, max_mc_iter, soft_estimates=False,
             status[i] = 0
             for ii in range(max_mc_iter):
                 iter_count += 1
-                bit_e, block_e, bit_n, block_n = counted_step(
-                    iteration_generator(seed, i, ii, device),
-                    float(ebno_dbs[i]))
-                bit_errors[i] += bit_e
-                block_errors[i] += block_e
-                nb_bits[i] += bit_n
-                nb_blocks[i] += block_n
+                with tracing.batch():
+                    with tracing.span("sim.seed"):
+                        gen = iteration_generator(seed, i, ii, device)
+                    bit_e, block_e, bit_n, block_n = counted_step(
+                        gen, float(ebno_dbs[i]))
+                    bit_errors[i] += bit_e
+                    block_errors[i] += block_e
+                    nb_bits[i] += bit_n
+                    nb_blocks[i] += block_n
                 if verbose:
                     if i == start_point and iter_count == 0:
                         _print_progress(True, 0, 0, 0, max_mc_iter, 0, 0, 0,

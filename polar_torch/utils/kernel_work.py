@@ -7,9 +7,12 @@ runs while it counts, since a kernel called through ``ctypes`` is no
 dispatcher op that it could see. Each wrapper reports its launches through
 ``report``, which costs nothing while no estimate runs. ``launch_counts``
 and ``reset_launch_counts`` read and clear the decoder kernels' launch
-counts (the probes keep theirs in ``polar_torch.probes``); ``bound_ms``
-turns a count into the least time on the card.
+counts, which the wrappers keep in ``utils.tracing``'s registry (the
+probes' are read in ``polar_torch.probes``); ``bound_ms`` turns a count
+into the least time on the card.
 """
+
+from polar_torch.utils import tracing
 
 # f32 operations per element, as the kernels' routines spend them
 OPS_F = {"minsum": 8, "exact": 20}   # clip x2, |.|, min, sign product
@@ -160,24 +163,23 @@ def bound_ms(n_bytes, n_ops):
                                    else "operations")
 
 
+# each kernel form's key in ``launch_counts`` and its tracing counter
+LAUNCH_COUNTERS = {"scl_subtree": "launch.scl_subtree",
+                   "scl_subtree traced": "form.scl_subtree.traced",
+                   "scl_subtree wide": "form.scl_subtree.wide",
+                   "sc_subtree": "launch.sc_subtree",
+                   "bp": "launch.bp",
+                   "bp bf16": "form.bp.bf16"}
+
+
 def launch_counts():
-    """Each kernel form's launch count, as its wrapper keeps it. The
+    """Each kernel form's launch count, as its wrapper counts it. The
     ``scl_subtree`` forms overlap: a traced launch at L=32 counts as
     traced and as wide."""
-    from polar_torch.models.polar import cuda_bp, cuda_sc, cuda_scl
-    return {"scl_subtree": cuda_scl.scl_subtree.launches,
-            "scl_subtree traced": cuda_scl.scl_subtree.launches_traced,
-            "scl_subtree wide": cuda_scl.scl_subtree.launches_wide,
-            "sc_subtree": cuda_sc.sc_subtree.launches,
-            "bp": cuda_bp.bp_decode.launches,
-            "bp bf16": cuda_bp.bp_decode.launches_bf16}
+    return {key: tracing.counter(name)
+            for key, name in LAUNCH_COUNTERS.items()}
 
 
 def reset_launch_counts():
     """Every kernel wrapper's launch counts to 0."""
-    from polar_torch.models.polar import cuda_bp, cuda_sc, cuda_scl
-    for name in ("launches", "launches_traced", "launches_wide"):
-        setattr(cuda_scl.scl_subtree, name, 0)
-    cuda_sc.sc_subtree.launches = 0
-    cuda_bp.bp_decode.launches = 0
-    cuda_bp.bp_decode.launches_bf16 = 0
+    tracing.reset_counters(LAUNCH_COUNTERS.values())

@@ -128,7 +128,11 @@ def trace(log_dir: str):
     """``with trace("/tmp/trace"): run()`` writes a ``torch.profiler`` trace
     of the block into ``log_dir`` (TensorBoard's profiler plugin and
     ``chrome://tracing`` read it): host activity, and the card's kernels
-    and copies when a card is present. Yields the profiler."""
+    and copies when a card is present. The program's spans
+    (``utils.tracing``: ``sim.step``, ``chain.front``, ``scl.sweep``,
+    ``kernel.scl_subtree`` and the rest) appear in it beside the kernels
+    they launched, on the profiler's clock, and ``tracing.summary()``
+    reads the same block's spans afterwards. Yields the profiler."""
     from torch.profiler import (ProfilerActivity, profile,
                                 tensorboard_trace_handler)
     cuda = torch.cuda.is_available()

@@ -1,0 +1,21 @@
+"""Device operations a batch inside the program's ``chain.front`` span
+(source, encoder, mapper, AWGN, demapper): the aten ops that launch device
+work plus the hand-written kernels' launches, counted in the first batch
+of the tracing session that the profiled slice leaves
+(``polar_torch.utils.tracing.summary``). Also prints the session's whole
+span table to standard error. None where the program has no spans or the
+session recorded no CUDA event."""
+
+import sys
+
+
+def read(ctx):
+    try:
+        from polar_torch.utils import tracing
+    except ImportError:         # a program without spans
+        return None
+    s = tracing.summary()
+    if s is None or not s["events"]:
+        return None
+    print(tracing.format_table(s), file=sys.stderr)
+    return s["front_ops"]

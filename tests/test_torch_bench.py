@@ -143,19 +143,19 @@ def test_no_card_raises_without_cpu_flag():
 
 
 def test_launch_counts_read_and_reset_every_wrapper():
-    from polar_torch.models.polar import cuda_bp, cuda_sc, cuda_scl
+    from polar_torch.utils import tracing
     from polar_torch.utils.kernel_work import (launch_counts,
                                                reset_launch_counts)
-    wrappers = [(cuda_scl.scl_subtree, "launches", "scl_subtree"),
-                (cuda_scl.scl_subtree, "launches_traced",
-                 "scl_subtree traced"),
-                (cuda_scl.scl_subtree, "launches_wide", "scl_subtree wide"),
-                (cuda_sc.sc_subtree, "launches", "sc_subtree"),
-                (cuda_bp.bp_decode, "launches", "bp"),
-                (cuda_bp.bp_decode, "launches_bf16", "bp bf16")]
-    for i, (fn, attr, _) in enumerate(wrappers):
-        setattr(fn, attr, i + 1)
+    counters = [("launch.scl_subtree", "scl_subtree"),
+                ("form.scl_subtree.traced", "scl_subtree traced"),
+                ("form.scl_subtree.wide", "scl_subtree wide"),
+                ("launch.sc_subtree", "sc_subtree"),
+                ("launch.bp", "bp"),
+                ("form.bp.bf16", "bp bf16")]
+    reset_launch_counts()
+    for i, (name, _) in enumerate(counters):
+        tracing.count(name, i + 1)
     assert launch_counts() == {key: i + 1
-                               for i, (_, _, key) in enumerate(wrappers)}
+                               for i, (_, key) in enumerate(counters)}
     reset_launch_counts()
     assert set(launch_counts().values()) == {0}

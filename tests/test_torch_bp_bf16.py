@@ -25,6 +25,7 @@ from polar_torch.models.polar.cuda_bp import (bf16_round_host, bp_decode,
                                               bp_decode_plain, launch_plan)
 from polar_torch.ops.fg import (f_exact_per_op, f_minsum,
                                 scaled_minsum_per_op)
+from polar_torch.utils import tracing
 from test_torch_bp import EXACT_AGREEMENT, _fixture, _noiseless, _prior
 
 LLR_MAX = 30.0
@@ -241,9 +242,9 @@ def test_wrapper_state_and_plan():
     prior = torch.from_numpy(_prior(frozen, 64))
     kw = dict(num_iter=8, check_every=2, early_stop=True, mode="minsum",
               msf=0.9375, llr_max=LLR_MAX, return_done=True, msg_dtype=BF16)
-    before = bp_decode.launches
+    before = tracing.counter("launch.bp")
     got = bp_decode(torch.from_numpy(logits).t(), prior, negate=True, **kw)
-    assert bp_decode.launches == before
+    assert tracing.counter("launch.bp") == before
     want = bp_decode_plain(torch.from_numpy(-logits.T), prior, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 

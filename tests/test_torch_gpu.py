@@ -24,6 +24,7 @@ from polar_torch.models.polar.cuda_scl import (
 from polar_torch.models.polar.scan_core import (leaf_schedule,
                                                 split_fast_schedule)
 from polar_torch.models.polar.scl import PolarSCLDecoder
+from polar_torch.utils import tracing
 
 from _torch_parity import (BLOCK_AGREEMENT, assert_blocks_agree,
                            assert_osd_agrees, gather_zero_nan_input,
@@ -69,11 +70,11 @@ def test_kernel_equals_plain_on_card(cuda, case, L):
             np.float32)).to(cuda)
         pm = torch.from_numpy(rng.exponential(2.0, (L, 1024)).astype(
             np.float32)).to(cuda)
-        before = scl_subtree.launches
+        before = tracing.counter("launch.scl_subtree")
         got = scl_subtree(a, pm, SubtreeSchedule(ops, cuda), b=b,
                           llr_max=LLR_MAX, mode="minsum")
         torch.cuda.synchronize()
-        assert scl_subtree.launches == before + 1
+        assert tracing.counter("launch.scl_subtree") == before + 1
         assert all(x.device == a.device for x in got)
         want = scl_subtree_plain(a, pm, ops, b=b, llr_max=LLR_MAX,
                                  mode="minsum")
@@ -152,10 +153,10 @@ def test_traced_kernel_equals_static_on_card(cuda, L, mode):
             np.float32)).to(cuda)
         frz = torch.from_numpy(sub.astype(np.int32)).to(cuda)
         kw = dict(b=b, llr_max=LLR_MAX, mode=mode)
-        before = scl_subtree.launches_traced
+        before = tracing.counter("form.scl_subtree.traced")
         got = scl_subtree(a, pm, SubtreeSchedule(traced_schedule(b), cuda),
                           frz=frz, **kw)
-        assert scl_subtree.launches_traced == before + 1
+        assert tracing.counter("form.scl_subtree.traced") == before + 1
         static = scl_subtree(a, pm, SubtreeSchedule(leaf_schedule(sub), cuda),
                              **kw)
         assert all(torch.equal(x, y) for x, y in zip(got, static))
@@ -179,9 +180,9 @@ def test_decoder_on_card_equals_cpu(cuda, b):
     kw = dict(list_size=8, use_fast_scl=True, fast_rate1=True,
               lower_stages=b)
     want = PolarSCLDecoder(frozen, n, device="cpu", **kw)(logits)
-    before = scl_subtree.launches
+    before = tracing.counter("launch.scl_subtree")
     got = PolarSCLDecoder(frozen, n, device=cuda, **kw)(logits.to(cuda))
-    assert scl_subtree.launches > before
+    assert tracing.counter("launch.scl_subtree") > before
     agree = (got.cpu() == want).all(dim=1).float().mean().item()
     assert agree >= BLOCK_AGREEMENT
 
@@ -206,12 +207,12 @@ def test_sc_kernel_equals_plain_on_card(cuda, b, lanes, n_shared, mode):
         np.float32)).to(cuda)
     frz = torch.from_numpy(mask.astype(np.int32)).to(cuda)
     for ops in (fast_schedule(mask, rep=False), traced_schedule(b)):
-        before = sc_subtree.launches
+        before = tracing.counter("launch.sc_subtree")
         got = sc_subtree(a, frz, sc_schedule(ops, cuda), b=b,
                          llr_max=LLR_MAX, mode=mode, lanes=lanes,
                          n_shared=n_shared)
         torch.cuda.synchronize()
-        assert sc_subtree.launches == before + 1
+        assert tracing.counter("launch.sc_subtree") == before + 1
         assert got.device == a.device and got.dtype == torch.int32
         want = sc_subtree_plain(a, frz, ops, b=b, llr_max=LLR_MAX,
                                 mode=mode)
@@ -250,16 +251,15 @@ def _logits(n, bs, seed):
 @pytest.mark.gpu
 @pytest.mark.parametrize("b", [4, 10])
 def test_sc_decoder_on_card_equals_cpu(cuda, b):
-    from polar_torch.models.polar.cuda_sc import sc_subtree
     from polar_torch.models.polar.sc import PolarSCDecoder
     n, k = 1024, 512
     frozen, _ = generate_5g_ranking(k, n)
     logits = _logits(n, 2048, b)
     want = PolarSCDecoder(frozen, n, lower_stages=b, device="cpu")(logits)
-    before = sc_subtree.launches
+    before = tracing.counter("launch.sc_subtree")
     got = PolarSCDecoder(frozen, n, lower_stages=b, device=cuda)(
         logits.to(cuda))
-    assert sc_subtree.launches > before
+    assert tracing.counter("launch.sc_subtree") > before
     assert torch.equal(got.cpu(), want)
 
 
@@ -271,10 +271,10 @@ def test_plain_scl_decoder_on_card_equals_cpu(cuda):
     dec_cpu = PolarSCLDecoder(frozen, n, list_size=8, device="cpu")
     assert not dec_cpu.use_fast_scl
     want = dec_cpu(logits)
-    before = scl_subtree.launches
+    before = tracing.counter("launch.scl_subtree")
     got = PolarSCLDecoder(frozen, n, list_size=8, device=cuda)(
         logits.to(cuda))
-    assert scl_subtree.launches > before
+    assert tracing.counter("launch.scl_subtree") > before
     agree = (got.cpu() == want).all(dim=1).float().mean().item()
     assert agree >= BLOCK_AGREEMENT
 
@@ -349,10 +349,10 @@ def test_bp_kernel_equals_plain_on_card(cuda, n, lattice, msf, early_stop,
     kw = dict(num_iter=num_iter, check_every=check_every,
               early_stop=early_stop, mode="minsum", msf=msf,
               llr_max=LLR_MAX, return_done=early_stop)
-    before = bp_decode.launches
+    before = tracing.counter("launch.bp")
     got = bp_decode(logits.t(), prior, negate=True, lattice=lattice, **kw)
     torch.cuda.synchronize()
-    assert bp_decode.launches == before + 1
+    assert tracing.counter("launch.bp") == before + 1
     want = bp_decode_plain(-logits.t(), prior, **kw)
     if early_stop:
         assert torch.equal(got[1], want[1])
@@ -395,11 +395,11 @@ def test_bp_bf16_kernel_equals_plain_on_card(cuda, n, lattice, mode):
     kw = dict(num_iter=13, check_every=2, early_stop=True, mode=mode,
               msf=0.9375, llr_max=LLR_MAX, return_done=True,
               msg_dtype=torch.bfloat16)
-    before = bp_decode.launches_bf16
+    before = tracing.counter("form.bp.bf16")
     got, got_done = bp_decode(logits.t(), prior, negate=True,
                               lattice=lattice, **kw)
     torch.cuda.synchronize()
-    assert bp_decode.launches_bf16 == before + 1
+    assert tracing.counter("form.bp.bf16") == before + 1
     want, done = bp_decode_plain(-logits.t(), prior, **kw)
     if mode == "minsum":
         assert torch.equal(got_done, done) and torch.equal(got, want)
@@ -413,7 +413,6 @@ def test_bp_bf16_kernel_equals_plain_on_card(cuda, n, lattice, mode):
 @pytest.mark.parametrize("two_pass", [False, True])
 def test_bp_decoder_on_card_equals_cpu(cuda, two_pass):
     from polar_torch.models.polar.bp import PolarBPDecoder
-    from polar_torch.models.polar.cuda_bp import bp_decode
     n, k = 1024, 512
     frozen, _ = generate_5g_ranking(k, n)
     _, logits = _bp_inputs(n, 1024, 2.0, 7)
@@ -421,9 +420,9 @@ def test_bp_decoder_on_card_equals_cpu(cuda, two_pass):
         kw = dict(num_iter=20, hard_out=False, two_pass=two_pass,
                   msg_dtype=msg)
         want = PolarBPDecoder(frozen, n, device="cpu", **kw)(logits)
-        before = bp_decode.launches
+        before = tracing.counter("launch.bp")
         got = PolarBPDecoder(frozen, n, device=cuda, **kw)(logits.to(cuda))
-        assert bp_decode.launches > before
+        assert tracing.counter("launch.bp") > before
         assert torch.equal(got.cpu(), want)
 
 
@@ -510,7 +509,6 @@ def test_bec_channel_on_card(cuda):
 def test_decoders_on_bec_logits_card_equal_cpu(cuda, pe):
     """SC bit-equal, SCL-8 under the block rule, on BEC logits (+-100,
     erasures as signed zeros) of the 5G k=512 n=1024 code."""
-    from polar_torch.models.polar.cuda_sc import sc_subtree
     from polar_torch.models.polar.encode import PolarEncoder
     from polar_torch.models.polar.sc import PolarSCDecoder
     from polar_torch.ops.channels import BinaryErasureChannel
@@ -520,14 +518,14 @@ def test_decoders_on_bec_logits_card_equal_cpu(cuda, pe):
     u = torch.randint(0, 2, (bs, k), device=cuda, generator=gen).float()
     c = PolarEncoder(frozen, n, device=cuda)(u)
     logits = BinaryErasureChannel(return_llrs=True)(gen, (c, pe))
-    before = sc_subtree.launches
+    before = tracing.counter("launch.sc_subtree")
     got = PolarSCDecoder(frozen, n, device=cuda)(logits)
-    assert sc_subtree.launches > before
+    assert tracing.counter("launch.sc_subtree") > before
     assert torch.equal(got.cpu(), PolarSCDecoder(frozen, n, device="cpu")(
         logits.cpu()))
-    before = scl_subtree.launches
+    before = tracing.counter("launch.scl_subtree")
     got = PolarSCLDecoder(frozen, n, list_size=8, device=cuda)(logits)
-    assert scl_subtree.launches > before
+    assert tracing.counter("launch.scl_subtree") > before
     want = PolarSCLDecoder(frozen, n, list_size=8, device="cpu")(
         logits.cpu())
     agree = (got.cpu() == want).all(dim=1).float().mean().item()
@@ -581,7 +579,6 @@ def test_pc_kernels_equal_plain_on_card(cuda, code, mode):
 def test_pc_5g_decoder_on_card_equals_cpu(cuda, dec_type):
     """The uplink (19, 864) code with 3 PC bits through ``Polar5GDecoder``
     on the card, against the CPU, with its kernels launched."""
-    from polar_torch.models.polar import cuda_sc
     from polar_torch.models.polar.decode5g import Polar5GDecoder
     from polar_torch.models.polar.encode import Polar5GEncoder
     rng = np.random.default_rng(19)
@@ -593,10 +590,12 @@ def test_pc_5g_decoder_on_card_equals_cpu(cuda, dec_type):
     kw = dict(dec_type=dec_type, list_size=8, mode="exact",
               return_crc_status=True)
     want, ok_want = Polar5GDecoder(enc_cpu, **kw)(logits)
-    before = (scl_subtree.launches, cuda_sc.sc_subtree.launches)
+    before = (tracing.counter("launch.scl_subtree"),
+              tracing.counter("launch.sc_subtree"))
     got, ok_got = Polar5GDecoder(Polar5GEncoder(19, 864, device=cuda),
                                  **kw)(logits.to(cuda))
-    after = (scl_subtree.launches, cuda_sc.sc_subtree.launches)
+    after = (tracing.counter("launch.scl_subtree"),
+             tracing.counter("launch.sc_subtree"))
     assert after[0] > before[0] or dec_type == "SC"
     assert after[1] > before[1] or dec_type == "SCL"
     assert 0 < int(ok_want.sum()) < 512
@@ -726,10 +725,10 @@ def test_probe_kernel_equals_plain_on_card(cuda, name):
             args = (flat[1:].view(x.shape),) + args[1:]  # one element past
             assert args[0].data_ptr() % 16 and args[0].is_contiguous()
         args = tuple(a.to(cuda) for a in args)
-        before = probes.WRAPPERS[name].launches
+        before = tracing.counter(f"launch.probe.{name}")
         got = probes.WRAPPERS[name](*args)
         torch.cuda.synchronize()
-        assert probes.WRAPPERS[name].launches == before + 1
+        assert tracing.counter(f"launch.probe.{name}") == before + 1
         assert got.device == args[0].device
         assert probes.differing(probes.PLAIN[name](*args), got) == 0
         # the host build agrees too

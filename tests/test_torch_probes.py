@@ -26,7 +26,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from polar_torch import probes
-from polar_torch.utils import kernel_work
+from polar_torch.utils import kernel_work, tracing
 
 from _torch_parity import (REDUCE_ZERO_NAN_MINIMA, gather_zero_nan_input,
                            reduce_zero_nan_input)
@@ -439,8 +439,9 @@ def test_sweeps_give_each_groups_least_magnitude(seed):
 
 
 def test_launch_counts_read_and_reset_every_probe():
+    probes.reset_launch_counts()
     for i, name in enumerate(probes.PROBES):
-        probes.WRAPPERS[name].launches = i + 1
+        tracing.count(f"launch.probe.{name}", i + 1)
     assert probes.launch_counts() == {name: i + 1 for i, name
                                       in enumerate(probes.PROBES)}
     probes.reset_launch_counts()

@@ -24,6 +24,7 @@ from polar_torch.models.polar.cuda_sc import (
 from polar_torch.models.polar.sc import PolarSCDecoder
 from polar_torch.models.polar.scan_core import fast_schedule, sc_sweep_hybrid
 from polar_torch.ops.butterfly import polar_transform
+from polar_torch.utils import tracing
 
 LLR_MAX = 30.0
 # share of blocks on which the host build must equal the plain version in
@@ -262,10 +263,10 @@ def test_wrapper_runs_plain_version_on_cpu():
     ops = fast_schedule(mask, rep=False)
     a = torch.from_numpy(np.random.default_rng(1).normal(
         0, 3, (32, 16)).astype(np.float32))
-    before = sc_subtree.launches
+    before = tracing.counter("launch.sc_subtree")
     got = sc_subtree(a, None, sc_schedule(ops, "cpu"), b=5,
                      llr_max=LLR_MAX, mode="minsum")
-    assert sc_subtree.launches == before
+    assert tracing.counter("launch.sc_subtree") == before
     np.testing.assert_array_equal(
         got.numpy(), sc_subtree_plain(a, None, ops, b=5, llr_max=LLR_MAX,
                                       mode="minsum").numpy())

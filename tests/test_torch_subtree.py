@@ -18,6 +18,7 @@ from polar_torch.models.polar.cuda_scl import (
     scl_subtree_plain, traced_schedule)
 from polar_torch.models.polar.scan_core import (leaf_schedule,
                                                 split_fast_schedule)
+from polar_torch.utils import tracing
 
 from _torch_parity import PM_RTOL, assert_blocks_agree, block_agreement
 
@@ -365,13 +366,13 @@ def test_host_build_reads_broadcast_input():
 def test_wrapper_runs_plain_version_on_cpu():
     ops = _sub_units(_mask_5g(32, 64), 3, True)[1]
     a, pm = _inputs(3, 8, 16, seed=3)
-    before = scl_subtree.launches
+    before = tracing.counter("launch.scl_subtree")
     got = scl_subtree(torch.from_numpy(a), torch.from_numpy(pm),
                       SubtreeSchedule(ops, "cpu"), b=3, llr_max=LLR_MAX,
                       mode="minsum")
     want = scl_subtree_plain(torch.from_numpy(a), torch.from_numpy(pm), ops,
                              b=3, llr_max=LLR_MAX, mode="minsum")
-    assert scl_subtree.launches == before
+    assert tracing.counter("launch.scl_subtree") == before
     for x, y in zip(got, want):
         np.testing.assert_array_equal(x.numpy(), y.numpy())
 
