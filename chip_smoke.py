@@ -9,9 +9,10 @@ BP's two-pass serving path and BP-20 with bf16 messages (phase 9), the
 (phase 10), the BEC link (phase 11), the 5G uplink UCI chain with PC bits
 (phase 12) and the data-parallel and profiling tools over it (phase 13);
 then the entry points a user runs, each in its own process: the headline
-benchmark and the four walkthroughs (phase 14); last the probe kernels of
+benchmark and the four walkthroughs (phase 14); then the probe kernels of
 ``benchmarks/probe_r4.py`` through their entry point (phase 15), which no
-path of the system runs.
+path of the system runs; last the SCL sweep's closing transform
+(``butterfly_rows``, phase 16).
 Phases (any failure exits non-zero and prints no result):
 
 1. the card: CUDA must be available; prints the card's name and power
@@ -178,7 +179,19 @@ Phases (any failure exits non-zero and prints no result):
     with their counts of min, select, logic and barrier instructions
     logged; ``int8``'s vector instance: its 16-byte loads and stores, and
     no loop (no branch back). Then ``python -m polar_torch.probes`` in its own process,
-    which must exit 0 and print one line a step.
+    which must exit 0 and print one line a step;
+16. the SCL sweep's closing transform (``butterfly_rows``,
+    ``csrc/butterfly.cu``) against its plain version, 0 elements
+    differing: at the main paths' shapes (fast SCL-8 [1, 1024, 65536] and
+    the uplink UCI chain at bs 65536 [1, 256, 524288], int32; the plain
+    sweep at b=8 [4, 256, 16384], int8) and at every width w = 2..4096 on
+    ragged column counts with bits above bit 0 set; one decode each of
+    fast SCL-8, CA-SCL-8 on the uplink (19, 864) code with PC bits and
+    plain SCL-8 at b=8 must launch it once, with the decisions the plain
+    transform gives; then its ms a launch (CUDA events over 50 launches)
+    and alone (profiler) at those shapes beside its bound, its plain
+    version's time and the parent's torch transform's (the int8 cast, the
+    stack and ``polar_transform`` on [m, w, L, bs]).
 
 The line before the card's line is one JSON object ``{"kernels": [...]}``
 with each kernel form's launches on its path (``scl_subtree`` static
@@ -195,7 +208,9 @@ plain version's time and its bound at the path's shape; then one entry a
 probe (``probe <name>``: launches on phase 15's path, elements checked
 and differing over both draws, times at the script's shapes; for
 ``gather`` and ``reduce`` also ``library_device_ms``, the in-turn medians
-``turns_ms`` and ``library_turns_ms``). The last line is
+``turns_ms`` and ``library_turns_ms``) and one for ``butterfly_rows``
+(phase 16's launches, elements checked and differing, and its times at
+each shape). The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 
@@ -1365,6 +1380,138 @@ def probes_phase(dev, card):
     return entries
 
 
+# phase 16: the closing transform's shapes on the main paths, (m, w, C,
+# dtype): the fast SCL-8 chain (bs 8192), the uplink UCI chain at bs 65536
+# (both the subtree kernel's int32 codeword), the plain sweep at b=8 (four
+# stacked int8 subtrees); the first two are timed
+BUTTERFLY_SHAPES = (("scl8", (1, 1024, 8 * 8192), "int32"),
+                    ("wide", (1, 256, 8 * 65536), "int32"),
+                    ("plain_b8", (4, 256, 8 * 2048), "int8"))
+BUTTERFLY_REPS = 50
+
+
+def butterfly_phase(dev, card, main_launches):
+    """Phase 16: ``butterfly_rows`` against its plain version on the card
+    (the main paths' shapes, every width at ragged column counts, any bits
+    above bit 0), one launch a decode on each of the three main chains
+    with the same decisions as the plain transform, and its time at the
+    main paths' shapes beside its bound, its plain version's and the
+    parent's torch transform (the int8 cast, the stack and
+    ``polar_transform`` on the [m, w, L, bs] codewords). Returns its
+    ``kernels`` entry, whose ``launches`` is ``main_launches``, the main
+    path's count from phase 4 (counts zeroed just before it), and whose
+    ``chain_launches`` sums this phase's three decodes."""
+    import numpy as np
+    import torch
+    from polar_torch import generate_5g_ranking
+    from polar_torch.models.polar import scan_core
+    from polar_torch.models.polar.cuda_butterfly import (
+        butterfly_rows, butterfly_rows_plain)
+    from polar_torch.models.polar.decode5g import Polar5GDecoder
+    from polar_torch.models.polar.encode import Polar5GEncoder
+    from polar_torch.models.polar.scl import PolarSCLDecoder
+    from polar_torch.ops.butterfly import polar_transform
+    from polar_torch.utils import tracing
+    from polar_torch.utils.kernel_work import bound_ms, butterfly_work
+    from polar_torch.utils.profiling import cuda_ms
+    gen = torch.Generator(dev).manual_seed(SEED)
+    checked = bad = 0
+
+    def check(x):
+        nonlocal checked, bad
+        want = butterfly_rows_plain(x)
+        got = butterfly_rows(x)
+        checked += x.numel()
+        bad += int((got != want).sum().item())
+
+    inputs = {}
+    for name, shape, dtype in BUTTERFLY_SHAPES:
+        x = inputs[name] = torch.randint(0, 2, shape, generator=gen,
+                                         dtype=getattr(torch, dtype),
+                                         device=dev)
+        check(x)
+    for b in range(1, 13):
+        for C in (1, 33, 4100):
+            for dtype in (torch.int32, torch.int8):
+                check(torch.randint(-100, 100, (3, 1 << b, C),
+                                    generator=gen, dtype=dtype, device=dev))
+    torch.cuda.synchronize()
+    log(f"phase 16: butterfly_rows against butterfly_rows_plain: {bad} of "
+        f"{checked} elements differ")
+    if bad:
+        raise AssertionError(f"phase 16: butterfly_rows differs from its "
+                             f"plain version in {bad} elements")
+
+    # one decode of each main chain: one launch, the plain transform's
+    # decisions
+    frozen = generate_5g_ranking(K, N)[0]
+    rng = np.random.default_rng(SEED)
+    llr = torch.from_numpy(rng.normal(2.0, 2.0, (BATCH, N)).astype(
+        np.float32)).to(dev)
+    enc = Polar5GEncoder(19, 864, device=dev)
+    uci = torch.from_numpy(rng.normal(2.0, 2.0, (BATCH, 864)).astype(
+        np.float32)).to(dev)
+    chains = (
+        ("fast SCL-8", PolarSCLDecoder(frozen, N, list_size=8, mode=MODE,
+                                       use_fast_scl=True, fast_rate1=True,
+                                       device=dev), llr),
+        ("CA-SCL-8 (19, 864) with PC", Polar5GDecoder(
+            enc, dec_type="SCL", list_size=8, mode="exact"), uci),
+        ("plain SCL-8 at b=8", PolarSCLDecoder(
+            frozen, N, list_size=8, mode=MODE, use_fast_scl=False,
+            lower_stages=8, device=dev), llr))
+    chain_launches = 0
+    for name, dec, x in chains:
+        dec(x)
+        torch.cuda.synchronize()
+        before = tracing.counter("launch.butterfly_rows")
+        got = dec(x)
+        torch.cuda.synchronize()
+        n_launch = tracing.counter("launch.butterfly_rows") - before
+        chain_launches += n_launch
+        scan_core.butterfly_rows = butterfly_rows_plain
+        try:
+            want = dec(x)
+        finally:
+            scan_core.butterfly_rows = butterfly_rows
+        same = torch.equal(got, want)
+        log(f"phase 16: {name}: {n_launch} butterfly_rows launch(es) a "
+            f"decode; decisions equal to the plain transform's: {same}")
+        if n_launch != 1 or not same:
+            raise AssertionError(f"phase 16: {name}: {n_launch} launches, "
+                                 f"same decisions: {same}")
+
+    # times at the main paths' shapes (CUDA events over back-to-back
+    # launches; the kernel alone from the profiler)
+    times = {}
+    for name, shape, dtype in BUTTERFLY_SHAPES:
+        x = inputs[name]
+        m, w, C = shape
+        xv = x.view(m, w, 8, C // 8)
+        ms = cuda_ms(lambda: butterfly_rows(x), BUTTERFLY_REPS)
+        alone = kernel_device_ms(lambda: butterfly_rows(x), 20,
+                                 "butterfly_rows_kernel")
+        plain_ms = cuda_ms(lambda: butterfly_rows_plain(x), 3)
+        parent_ms = cuda_ms(lambda: polar_transform(torch.stack(
+            [c.to(torch.int8) for c in xv]), axis=1), 3)
+        bound, kind = bound_ms(*butterfly_work(x))
+        times[name] = dict(ms=ms, device_ms=alone, plain_ms=plain_ms,
+                           parent_torch_ms=parent_ms, bound_ms=bound,
+                           bound_by=kind)
+        log(f"phase 16: butterfly_rows {list(shape)} {dtype}: {ms:.4f} ms a "
+            f"launch, the kernel alone {alone:.4f} ms; bound {bound:.4f} ms "
+            f"({kind}; {bound / alone:.1%} of it); plain {plain_ms:.3f} ms; "
+            f"the parent's cast, stack and polar_transform {parent_ms:.3f} "
+            f"ms [{card}]")
+    return dict(name="butterfly_rows", route="cuda",
+                source="polar_torch/csrc/butterfly.cu", replaces=None,
+                launches=main_launches, chain_launches=chain_launches,
+                mismatch_elements=bad,
+                checked_elements=checked,
+                **{f"{k}_{name}": v for name, t in times.items()
+                   for k, v in t.items()}, library_ms=None)
+
+
 def bec_link_phase(dev, gen, card, encoder, frozen, reset_counts, counts):
     """Phase 11: ``SystemBECModel`` with the CLI's SC and SCL-8 decoders on
     the k=512 n=1024 code through ``sim_ber``, each BLER against its
@@ -1473,7 +1620,8 @@ def main():
 
     # ---- phase 2: build every kernel of the paths, compilers in parallel
     t0 = time.perf_counter()
-    kernels_built = ("scl_subtree", "sc_subtree", "bp", "probes")
+    kernels_built = ("scl_subtree", "sc_subtree", "bp", "probes",
+                     "butterfly")
     libs = _build.build([(name, "cuda") for name in kernels_built])
     for name in kernels_built:
         _build.load(name, "cuda")
@@ -1902,6 +2050,10 @@ def main():
     launches = main_counts["scl_subtree"]
     if launches == 0:
         raise AssertionError("the main path launched no scl_subtree kernel")
+    if main_counts["butterfly_rows"] != launches:
+        raise AssertionError(f"the main path's decodes launched "
+                             f"butterfly_rows {main_counts['butterfly_rows']}"
+                             f" times, scl_subtree {launches}")
     if main_counts["scl_subtree traced"] or main_counts["scl_subtree wide"]:
         raise AssertionError(f"the fast main path left the static L=8 "
                              f"form: {main_counts}")
@@ -2322,6 +2474,10 @@ def main():
     # ---- phase 15: the probe kernels ----
     probe_entries = probes_phase(dev, card)
 
+    # ---- phase 16: the SCL sweep's closing transform ----
+    butterfly_entry = butterfly_phase(dev, card,
+                                      main_counts["butterfly_rows"])
+
     def entry(name, source, replaces, launches, c, times, **extra):
         return dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=launches,
@@ -2365,6 +2521,7 @@ def main():
                   f"{k}_no_early_stop": v
                   for k, v in bp16_times[False].items()}),
               msg_dtype="bfloat16"),
+        butterfly_entry,
         *probe_entries,
     ]
     print(json.dumps({"kernels": kernels}))

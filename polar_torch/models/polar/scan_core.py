@@ -10,7 +10,8 @@ for SC); the stages above ``b`` run here as tensor code. For SCL:
   ('s') nodes that span whole subtrees, at their true stage;
 * lazy path pointers per upper stage: a fork composes the live pointers
   (``_lptr_live`` / ``_uptr_live``) instead of copying segments;
-* survivor backtracking through the parent maps, then ``polar_transform``.
+* survivor backtracking through the parent maps, then the polar transform
+  of the survivors' codewords (``cuda_butterfly.butterfly_rows``).
 
 The node schedule is Hashemi's fast-SSCL pruning: rate-0 nodes keep a bulk
 path-metric update, repetition nodes one fork, and (``rate1=True``) rate-1
@@ -32,7 +33,8 @@ register lives and dies inside the call.
 
 Both sweeps mark their pieces as spans (``utils.tracing``):
 ``sweep.descend`` (the outer f/g), ``sweep.node`` (an upper node),
-``sweep.cast`` (a subtree's outputs to int8 and the parent map to int64),
+``sweep.cast`` (a subtree's parent map to int64 and, with more than one
+subtree, its codeword to int8),
 ``sweep.rise`` (the pointer updates and partial-sum combines after a
 subtree, and the combines after a node), ``sweep.backtrack`` (the survivor
 labels) and ``sweep.transform`` (the codewords stacked and transformed).
@@ -41,6 +43,7 @@ labels) and ``sweep.transform`` (the codewords stacked and transformed).
 import numpy as np
 import torch
 
+from polar_torch.models.polar.cuda_butterfly import butterfly_rows
 from polar_torch.models.polar.cuda_sc import SC_KIND_CODES, sc_subtree
 from polar_torch.models.polar.cuda_scl import (
     KIND_CODES, SubtreeSchedule, _ctz, _cto, _flip_forks, _lptr_live,
@@ -348,7 +351,10 @@ def scl_sweep_hybrid_fast(llr_ch, frozen_mask, list_size: int,
                                    mode=mode, frz=frz)
             with tracing.span("sweep.cast"):
                 Pj = Pj.to(torch.int64)
-                cws[j] = cw32.to(torch.int8)
+                # one subtree is the whole tree: top is 0, so the rise
+                # combines nothing, and backtracking re-indexes no path;
+                # the transform reads the int32 codeword as it is
+                cws[j] = cw32 if m == 1 else cw32.to(torch.int8)
             with tracing.span("sweep.rise"):
                 compose_live(Pj, j, 0)
                 ps[j] = Pj
@@ -402,8 +408,9 @@ def scl_sweep_hybrid_fast(llr_ch, frozen_mask, list_size: int,
                 label = ps[j] if label is None else _take_paths(ps[j],
                                                                 label)
     with tracing.span("sweep.transform"):
-        cw = torch.stack(cws, dim=0)              # [m, 2^b, L, bs]
-        u = polar_transform(cw, axis=1)
+        # [m, 2^b, L, bs]; some entries are views or expands
+        cw = cws[0][None] if m == 1 else torch.stack(cws, dim=0)
+        u = butterfly_rows(cw.reshape(m, w_sub, L * bs))
     return u.reshape(n, L, bs), pm
 
 

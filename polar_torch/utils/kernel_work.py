@@ -153,6 +153,16 @@ def probe_work(name, x, ptr=None):
     return n_in + n_out, PROBE_OPS[name] * x.numel()
 
 
+def butterfly_work(x):
+    """(bytes, operations) one ``butterfly_rows`` call must at least move
+    and do on ``x`` [m, 2^b, C]: each element read once and each int8
+    decision written once; b stages of one XOR for every pair of rows, as
+    ``flop_estimate`` counts the torch butterfly's."""
+    m, w, C = x.shape
+    b = w.bit_length() - 1
+    return x.numel() * (x.element_size() + 1), m * C * b * (w // 2)
+
+
 def bound_ms(n_bytes, n_ops):
     """(least time in ms, "bytes" or "operations") of a call that moves
     ``n_bytes`` and does ``n_ops`` f32 operations, on the card's
@@ -169,7 +179,8 @@ LAUNCH_COUNTERS = {"scl_subtree": "launch.scl_subtree",
                    "scl_subtree wide": "form.scl_subtree.wide",
                    "sc_subtree": "launch.sc_subtree",
                    "bp": "launch.bp",
-                   "bp bf16": "form.bp.bf16"}
+                   "bp bf16": "form.bp.bf16",
+                   "butterfly_rows": "launch.butterfly_rows"}
 
 
 def launch_counts():

@@ -6,7 +6,9 @@ CA-SCL and hybrid chain, BP single- and two-pass) on the card against the
 same decoders on the CPU; OSD and the dense-G decoder, the BEC channel,
 and the SC and SCL decoders on BEC logits, on the card against the CPU;
 the headline benchmark (``python -m polar_torch.bench``) at a small size;
-the probe kernels (``polar_torch.probes``) against their plain versions.
+the probe kernels (``polar_torch.probes``) against their plain versions;
+the SCL sweep's closing transform (``butterfly_rows``) against its plain
+version, and once a decode on the three main SCL chains.
 Every test here needs a CUDA card and skips without one.
 
 The file imports no JAX, so it also runs where JAX is not installed:
@@ -749,3 +751,87 @@ def test_probe_wrappers_raise_on_the_card(cuda):
     with pytest.raises(ValueError, match="pointers"):
         probes.gather(x, ptr.to(cuda))
     assert probes.launch_counts() == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype", [
+    ((1, 1024, 8 * 8192), torch.int32),     # the fast SCL-8 main path
+    ((1, 256, 8 * 65536), torch.int32),     # the uplink UCI chain, bs 65536
+    ((4, 256, 8 * 2048), torch.int8)])      # the plain sweep at b < S
+def test_butterfly_kernel_equals_plain_on_card(cuda, shape, dtype):
+    """``butterfly_rows`` at the main paths' shapes, bit for bit."""
+    from polar_torch.models.polar.cuda_butterfly import (
+        butterfly_rows, butterfly_rows_plain)
+    gen = torch.Generator(cuda).manual_seed(shape[1])
+    x = torch.randint(0, 2, shape, generator=gen, dtype=dtype, device=cuda)
+    before = tracing.counter("launch.butterfly_rows")
+    got = butterfly_rows(x)
+    torch.cuda.synchronize()
+    assert tracing.counter("launch.butterfly_rows") == before + 1
+    assert got.device == x.device and got.dtype == torch.int8
+    assert torch.equal(got, butterfly_rows_plain(x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", range(1, 13))
+def test_butterfly_kernel_every_width_on_card(cuda, b):
+    """w = 2^b, int32 (any bits above bit 0) and int8, on column counts
+    that fill no block, and on strided blocks and rows."""
+    from polar_torch.models.polar.cuda_butterfly import (
+        butterfly_rows, butterfly_rows_plain)
+    gen = torch.Generator(cuda).manual_seed(b)
+    for C in (1, 33, 4100):
+        for dtype in (torch.int32, torch.int8):
+            x = torch.randint(-100, 100, (3, 1 << b, C), generator=gen,
+                              dtype=dtype, device=cuda)
+            assert torch.equal(butterfly_rows(x), butterfly_rows_plain(x))
+    x = torch.randint(0, 2, (1 << b, 3, 40), generator=gen,
+                      dtype=torch.int32, device=cuda).transpose(0, 1)
+    assert torch.equal(butterfly_rows(x), butterfly_rows_plain(x))
+
+
+def _butterfly_chain(chain, device):
+    """A decoder of one of the three main chains on ``device`` and its
+    input (CPU logits)."""
+    from polar_torch.models.polar.decode5g import Polar5GDecoder
+    from polar_torch.models.polar.encode import Polar5GEncoder
+    if chain == "cascl8_pc":
+        rng = np.random.default_rng(19)
+        u = rng.integers(0, 2, (1024, 19)).astype(np.float32)
+        c = Polar5GEncoder(19, 864, device="cpu")(torch.from_numpy(u))
+        logits = torch.from_numpy((2.0 * ((2.0 * c.numpy() - 1.0) + rng.normal(
+            0, 2.0, c.shape)) / 4.0).astype(np.float32))
+        return Polar5GDecoder(Polar5GEncoder(19, 864, device=device),
+                              dec_type="SCL", list_size=8,
+                              mode="exact"), logits
+    frozen, _ = generate_5g_ranking(512, 1024)
+    kw = (dict(use_fast_scl=True, fast_rate1=True) if chain == "fast_scl8"
+          else dict(use_fast_scl=False, lower_stages=8))
+    return (PolarSCLDecoder(frozen, 1024, list_size=8, device=device, **kw),
+            _logits(1024, 2048, 18))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chain", ["fast_scl8", "cascl8_pc",
+                                   "plain_scl8_b8"])
+def test_butterfly_once_a_decode_on_card(cuda, chain, monkeypatch):
+    """One decode of each main chain (fast SCL-8, the whole tree in one
+    call; CA-SCL-8 with PC bits; plain SCL-8 at b=8, four stacked int8
+    subtrees) launches ``butterfly_rows`` once. Its decisions equal the
+    same card decode with the plain transform, bit for bit, and the same
+    decoder's on CPU tensors on the blocks the SCL kernel decodes alike."""
+    from polar_torch.models.polar import scan_core
+    from polar_torch.models.polar.cuda_butterfly import butterfly_rows_plain
+    dec, logits = _butterfly_chain(chain, cuda)
+    want_cpu = _butterfly_chain(chain, "cpu")[0](logits)
+    dec(logits.to(cuda))                      # builds and loads the kernels
+    torch.cuda.synchronize()
+    before = tracing.counter("launch.butterfly_rows")
+    got = dec(logits.to(cuda))
+    torch.cuda.synchronize()
+    assert tracing.counter("launch.butterfly_rows") == before + 1
+    monkeypatch.setattr(scan_core, "butterfly_rows", butterfly_rows_plain)
+    assert torch.equal(got, dec(logits.to(cuda)))
+    assert tracing.counter("launch.butterfly_rows") == before + 1
+    agree = (got.cpu() == want_cpu).all(dim=1).float().mean().item()
+    assert agree >= BLOCK_AGREEMENT
