@@ -1,6 +1,8 @@
 """Smoke run of the PyTorch port (``polar_torch``) on one CUDA card.
 
     python3 chip_smoke.py            # from the repo root; one card, nvcc
+    python3 chip_smoke.py --parent DIR   # DIR: a checkout of the parent
+                                         # commit, for phase 7's turns
 
 It drives nine paths: the fast-SCL chain (phases 4 and 5), the CLI sweep
 with SC, SCL-8 and BP-20 (phase 6), the 5G NR CA-SCL chain (phase 8),
@@ -84,7 +86,13 @@ Phases (any failure exits non-zero and prints no result):
    within +-0.012 of ``bp_n1024`` (about 4 sigma of both samples
    combined);
 7. where the time goes: the SC, plain SCL, fast SCL and CA-SCL-32 depth
-   surveys, the SCL kernel's registers, stack and shared memory, its time
+   surveys, the SCL kernel's registers, stack and shared memory, its
+   registers, stack and spills from ``-Xptxas -v`` and its resident blocks
+   an SM at b = 10 for every list size; with ``--parent``, the decode
+   kernel alone (profiled) against the parent's build in turns (P C C P,
+   outputs bit for bit the same) on five decodes: scl8's fast SCL-8, the
+   uplink (19, 864) CA-SCL-8 PC decode, CA-SCL-32 at b = 10, the CLI's
+   plain SCL-8 at b = 10 and CA-SCL-8 on the traced form at b = 6; its time
    with the workspace split between shared memory and the global scratch
    at other points than the budget's (fast SCL-8 at b = 6, 8 and the
    default), a breakdown of a whole-tree L=32 call (as decoded, min-sum,
@@ -1390,6 +1398,192 @@ BUTTERFLY_SHAPES = (("scl8", (1, 1024, 8 * 8192), "int32"),
 BUTTERFLY_REPS = 50
 
 
+SCL_TURN_ROUNDS = 3      # P C C P rounds of the kernel-alone timing
+SCL_TURN_REPS = 5        # decodes per profiled reading
+
+
+def scl_ptxas_report(src):
+    """``nvcc -Xptxas -v`` on the SCL subtree source ``src`` (built into a
+    temporary file with the package's flags): each kernel's registers,
+    stack frame and spill bytes, by ``<kernel><L[, pc]>``."""
+    from polar_torch import _build
+    with tempfile.TemporaryDirectory() as tmp:
+        run = subprocess.run(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+             os.path.join(tmp, "lib.so"), src],
+            capture_output=True, text=True, timeout=900)
+    if run.returncode != 0:
+        raise RuntimeError(f"nvcc -Xptxas -v {src} failed:\n{run.stderr}")
+    info, name = {}, None
+    for line in (run.stdout + run.stderr).splitlines():
+        m = re.search(r"(?:entry function|Function properties for) '?"
+                      r"(_Z\w*(scl_subtree_kernel|scl_cw_kernel)ILi(\d+)E"
+                      r"(Lb(\d)E)?\w*)", line)
+        if m:
+            name = f"{m[2]}<{m[3]}{', pc' if m[5] == '1' else ''}>"
+            info.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            info[name].update(stack=int(m[1]), spill_stores=int(m[2]),
+                              spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            info[name]["registers"] = int(m[1])
+    return info
+
+
+def parent_scl_launch(parent):
+    """The parent checkout's ``scl_subtree_launch``: its
+    ``polar_torch/csrc/scl_subtree.cu`` built with the package's nvcc flags
+    into ``build/polar_torch/``. The entry point's arguments are the
+    same, so ``cuda_scl._native_call`` drives it as it does this one."""
+    import ctypes
+    from polar_torch import _build
+    src = os.path.join(parent, "polar_torch", "csrc", "scl_subtree.cu")
+    out = os.path.join(_build.BUILD_DIR, "libscl_subtree_parent.so")
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", out, src],
+                   check=True, capture_output=True, timeout=900)
+    return ctypes.CDLL(out).scl_subtree_launch
+
+
+def scl_turn_decodes(dev):
+    """One decode of each SCL path the quads serve, as the recorded calls
+    ``[(args, kwargs)]`` of ``scl_subtree``: scl8's fast decode (the
+    benchmark's chain), the uplink (19, 864) CA-SCL-8 PC decode, CA-SCL-32
+    of the 5G k=400 E=1000 code at b=10, the CLI's plain SCL-8 at b=10 and
+    CA-SCL-8 on the traced form at b=6, each at its chain's batch and SNR."""
+    import torch
+    from polar_torch.bench import build_model
+    from polar_torch.models.polar import scan_core
+    from polar_torch.models.polar.cuda_scl import scl_subtree
+    from polar_torch.models.polar.decode5g import Polar5GDecoder
+    from polar_torch.models.polar.encode import Polar5GEncoder
+    from polar_torch.models.polar.scl import PolarSCLDecoder
+    from polar_torch.models.systems import SystemAWGNModel
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def calls_of(sub, llr_ch):
+        calls = []
+        kw = dict(mode=sub.mode, llr_max=sub.llr_max,
+                  lower_stages=sub.lower_stages, plan=sub._plan,
+                  subtree=recorder(calls, scl_subtree))
+        if sub.use_fast_scl:
+            scan_core.scl_sweep_hybrid_fast(
+                llr_ch, sub._frozen_mask, sub.list_size,
+                rate1=sub.fast_rate1, spc_min_stage=sub.spc_min_stage, **kw)
+        else:
+            scan_core.scl_sweep_hybrid(llr_ch, sub._frozen_mask,
+                                       sub.list_size, **kw)
+        return calls
+
+    model = build_model(K, N, LIST_SIZE, device=dev)
+    llr = model.front(gen, BATCH, EBNO_MAIN_DB)[2]
+    out = [("scl8 fast SCL-8 (b=10, min-sum)",
+            calls_of(model.decoder, (-llr).t().contiguous()))]
+    plain = PolarSCLDecoder(model.decoder.frozen_pos, N, list_size=LIST_SIZE,
+                            mode=MODE, use_fast_scl=False, lower_stages=10,
+                            device=dev)
+    out.append(("plain SCL-8 of the CLI (b=10, min-sum)",
+                calls_of(plain, (-llr).t().contiguous())))
+    for k, e, ebno, L, b, bs, label in (
+            (UCI_K, UCI_E, UCI_EBNO_DB, 8, None, BATCH,
+             f"uplink ({UCI_K}, {UCI_E}) CA-SCL-8 PC"),
+            (G5_K, G5_E, G5_EBNO_DB, 32, 10, WIDE_BATCH,
+             f"5G ({G5_K}, {G5_E}) CA-SCL-32"),
+            (G5_K, G5_E, G5_EBNO_DB, 8, TRACED_B, BATCH,
+             f"5G ({G5_K}, {G5_E}) CA-SCL-8")):
+        enc = Polar5GEncoder(k, e, device=dev)
+        dec = Polar5GDecoder(enc, dec_type="SCL", list_size=L,
+                             mode=UCI_MODE if k == UCI_K else G5_MODE,
+                             lower_stages=b)
+        llr5 = SystemAWGNModel(e, k, enc, None).front(gen, bs, ebno)[2]
+        sub = dec._polar_dec
+        calls = calls_of(sub, (-dec.rate_recover(llr5)).t().contiguous())
+        form = "traced" if calls[0][0][2].traced else "static"
+        out.append((f"{label} (b={sub.lower_stages}, {sub.mode}, bs={bs}, "
+                    f"{form} form)", calls))
+    return out
+
+
+def scl_quads_phase(dev, card, parent):
+    """Phase 7's SCL kernel lines: the decode kernel's registers, spills
+    and resident blocks an SM (``-Xptxas -v`` and the occupancy API), and,
+    with ``parent`` (a checkout of the parent commit), each decode of
+    ``scl_turn_decodes`` on the parent's build and this one in turns (P C
+    C P, ``SCL_TURN_ROUNDS`` rounds), bit for bit the same outputs, the
+    kernel alone timed by the profiler. Returns {label: (parent ms, this
+    ms)}."""
+    import torch
+    from polar_torch import _build
+    from polar_torch.models.polar import cuda_scl
+    lib = _build.load("scl_subtree", "cuda")
+    info = scl_ptxas_report(os.path.join(ROOT, "polar_torch", "csrc",
+                                         "scl_subtree.cu"))
+    for name, v in info.items():
+        log(f"phase 7: {name}: {v.get('registers')} registers, stack "
+            f"{v.get('stack')} B, spill stores {v.get('spill_stores')} B, "
+            f"spill loads {v.get('spill_loads')} B")
+    for L in cuda_scl.LIST_SIZES:
+        n = cuda_scl.shared_stages(10, L)
+        per_sm = [lib.scl_subtree_blocks_per_sm(L, pc, n) for pc in (0, 1)]
+        log(f"phase 7: scl_subtree_kernel<{L}> at b=10: {n} shared stages, "
+            f"{cuda_scl.block_smem_bytes(L, n)} B a block, blocks an SM "
+            f"{per_sm[0]} (PC build {per_sm[1]})")
+    if parent is None:
+        log("phase 7: no --parent checkout given: the kernel against the "
+            "parent's in turns not measured")
+        return {}
+    launch = parent_scl_launch(parent)
+    for name, v in scl_ptxas_report(os.path.join(
+            parent, "polar_torch", "csrc", "scl_subtree.cu")).items():
+        log(f"phase 7: the parent's {name}: {v.get('registers')} "
+            f"registers, spill stores {v.get('spill_stores')} B")
+
+    def parent_call(a, pm, sched, *, b, llr_max, mode, frz=None,
+                    n_shared=None):
+        if n_shared is None:
+            n_shared = cuda_scl.shared_stages(b, a.shape[1])
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        return cuda_scl._native_call(launch, a, pm, frz, sched, b, llr_max,
+                                     mode, n_shared, stream)
+
+    times = {}
+    for label, calls in scl_turn_decodes(dev):
+        outs = {}
+        for side, fn in (("parent", parent_call),
+                         ("this", cuda_scl.scl_subtree)):
+            outs[side] = [fn(*args, **kw) for args, kw in calls]
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for p, c in zip(outs["parent"],
+                                                    outs["this"])
+                   for x, y in zip(p, c))
+        if not same:
+            raise AssertionError(f"phase 7: {label}: the quads' outputs "
+                                 "differ from the parent kernel's")
+        ms = {"parent": [], "this": []}
+        for _ in range(SCL_TURN_ROUNDS):
+            for side, fn in (("parent", parent_call),
+                             ("this", cuda_scl.scl_subtree),
+                             ("this", cuda_scl.scl_subtree),
+                             ("parent", parent_call)):
+                ms[side].append(len(calls) * kernel_device_ms(
+                    lambda: [fn(*args, **kw) for args, kw in calls],
+                    SCL_TURN_REPS, "scl_subtree_kernel"))
+        p, c = statistics.median(ms["parent"]), statistics.median(ms["this"])
+        times[label] = (p, c)
+        log(f"phase 7: {label}, {len(calls)} calls: scl_subtree_kernel "
+            f"alone, in turns P C C P: parent "
+            f"{', '.join(f'{x:.4f}' for x in ms['parent'])} ms, this "
+            f"{', '.join(f'{x:.4f}' for x in ms['this'])} ms; medians "
+            f"{c / p:.3f}x the parent's; outputs bit-equal [{card}]")
+    return times
+
+
 def butterfly_phase(dev, card, main_launches):
     """Phase 16: ``butterfly_rows`` against its plain version on the card
     (the main paths' shapes, every width at ragged column counts, any bits
@@ -1572,8 +1766,14 @@ def bec_link_phase(dev, gen, card, encoder, frozen, reset_counts, counts):
                              "NumPy twin's")
 
 
-def main():
+def main(argv=None):
+    import argparse
     import torch
+    ap = argparse.ArgumentParser(description="Smoke run of polar_torch on "
+                                             "one CUDA card.")
+    ap.add_argument("--parent", help="a checkout of the parent commit: "
+                    "phase 7 times its SCL kernel against this one's")
+    parent = ap.parse_args(argv).parent
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -2176,6 +2376,7 @@ def main():
         f"{cuda_scl.SMEM_BUDGET} B):")
     for line in resource_usage(libs[:1]):
         log(f"  {line}")
+    scl_turns = scl_quads_phase(dev, card, parent)
     for b in sorted({TRACED_B, 8, main_b}):
         split_calls = []
         scan_core.scl_sweep_hybrid_fast(
@@ -2500,6 +2701,7 @@ def main():
     kernels = [
         entry("scl_subtree", scl_src, f"{pallas}:142", launches, check,
               scl_times["static"], bec_checked_blocks=scl_bec,
+              parent_turns_ms=scl_turns,
               **pc_fields("scl_subtree", pc_scl_check)),
         entry("scl_subtree L=16/32", scl_src, f"{pallas}:515",
               g5_total["scl_subtree wide"], check_wide, scl_times["wide"]),

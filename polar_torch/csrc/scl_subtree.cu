@@ -14,27 +14,39 @@
 // thread per path (32 / L codewords per warp; a block of 128 threads holds
 // 128 / L codewords). Each thread keeps its path's metric, stage pointers
 // and flip bits in registers. The workspaces (f32 LLRs and int8 partial
-// sums, stages 0..b-1) sit in the block's dynamic shared memory as
-// [row][codeword][path], so a warp's lanes touch 32 neighbouring words;
-// the upper stages that do not fit the wrapper's budget go to a global
-// scratch [row][bs][path], which a warp also reads and writes in whole
-// lines. A fork is top-L by rank over the group (2L compares a thread) and
-// one exchange of the parent's state through shared memory, between
-// __syncwarp barriers of the group's mask. The stage-b input is read from
-// global memory, twice per element (the first f and the middle g), with
-// any path stride (0 for a broadcast). The codeword's partial sums rise
-// into the int8 global scratch like any stage's; a second, tiled kernel
-// writes them to cw [2^b, L, bs] int32, whose path-major rows a group
-// could only write 4 bytes to a line.
+// sums, stages 0..b-1) sit in the block's dynamic shared memory, each stage
+// of at least 4 rows as row quads [quad][codeword][path][4], so a lane moves
+// 4 rows of its path in one 16-byte (or 4-byte) access and a warp's lanes
+// touch 512 (128) neighbouring bytes, without bank conflicts; stages 0 and
+// 1 keep the scalar [row][codeword][path] in three rows after the quads.
+// The upper stages that do not fit the wrapper's budget go to a global
+// scratch laid out alike over the batch ([quad][bs][path][4]), which a
+// warp also reads and writes in whole lines. A fork is top-L by rank over
+// the group (2L compares a thread) and one exchange of the parent's state
+// through shared memory, between __syncwarp barriers of the group's mask.
+// The stage-b input is read from global memory, twice per element (the
+// first f and the middle g), with any path stride (0 for a broadcast). The
+// codeword's partial sums rise into the int8 global scratch as quads like
+// any stage's; a second, tiled kernel writes them to cw [2^b, L, bs]
+// int32, whose path-major rows a group could only write 4 bytes to a line.
 //
 // What bounds it: the bytes bound is the input a, read once, and the
-// codeword cw written once (for one fast main-path step at b=6, L=8,
-// bs=8192 about 0.14 ms at 3.35 TB/s); the f/g, softplus and top-L work is
-// smaller still. What sets the pace instead is latency: every f/g is a
-// dependent shared-memory load, op, store per thread, and every fork three
-// group barriers. Occupancy is set by registers and by the shared-memory
-// budget (5 L (2^n_shared - 1) bytes of workspace per codeword plus its
-// exchange arrays).
+// codeword cw written once (for the main path's one call at b=10, L=8,
+// bs=8192 about 0.09 ms at 3.35 TB/s); the f/g, softplus and top-L work is
+// smaller still. What sets the pace instead is the row loops' memory
+// instructions and round trips: every f/g row is a dependent load, op,
+// store per lane, and every fork three group barriers. So the loops move a
+// quad a lane an access and, from 8 rows on, issue two quads' loads before
+// their stores (8 rows a round trip); 98% of the main path's f/g and rise
+// rows a path lie in stages of at least 4 rows (cuda_scl.row_counts).
+// Occupancy: the budget's 48 KiB (5 L (2^n_shared - 1) bytes of workspace
+// per codeword plus its exchange arrays, the same in either layout) gives
+// 4 blocks an SM at n_shared 6, L = 8, which holds the whole bs 8192 batch
+// (512 blocks against 528 places); at most 128 registers a thread keep it
+// there. A leaf schedule (the plain and PC sweeps) spends its time in ops
+// over stages of 1-4 rows, where quads save little; its decodes slow down
+// with the kernel's code size (H100 runs: a few hundred instructions more
+// cost up to 10%), so the loops keep one copy of each op where they can.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libscl_subtree.so scl_subtree.cu
@@ -60,8 +72,10 @@ struct WarpGroup {
   }
 };
 
+// at least 4 blocks an SM: at most 128 registers a thread
 template <int L, bool kPc>
-__global__ void __launch_bounds__(kThreads) scl_subtree_kernel(SubtreeArgs A) {
+__global__ void __launch_bounds__(kThreads, 4)
+    scl_subtree_kernel(SubtreeArgs A) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int C = kThreads / L;
   const int c = threadIdx.x / L;
@@ -78,24 +92,41 @@ __global__ void __launch_bounds__(kThreads) scl_subtree_kernel(SubtreeArgs A) {
                       reinterpret_cast<int8_t*>(smem + off_u), C, c, col);
 }
 
-// cw [2^b, L, bs] int32 from the stage-b sums [2^b, bs, L] int8: a block
-// takes kCwCols columns of one row through a shared tile, so both the read
-// (kCwCols * L neighbouring bytes) and the write (kCwCols neighbouring
-// int32 per path) are whole lines
+// cw [2^b, L, bs] int32 from the stage-b sums: a block takes kCwCols
+// columns of one quad of rows (from b = 2 on; else of one row) through a
+// shared tile, so both the read (kCwCols * L neighbouring words) and the
+// writes (kCwCols neighbouring int32 per path and row) are whole lines
 constexpr int kCwCols = 32;
 
 template <int L>
 __global__ void __launch_bounds__(kCwCols * L) scl_cw_kernel(SubtreeArgs A) {
-  __shared__ int8_t tile[kCwCols * L];
+  constexpr int kPitch = L | 1;   // words between columns: no bank conflict
+  __shared__ uint32_t tile[kCwCols * kPitch];
   const int j = blockIdx.y;
   const int c0 = blockIdx.x * kCwCols;
   const int t = threadIdx.x;
-  const int8_t* src = stage_b_sums(A, L) + ((size_t)j * A.bs + c0) * L;
-  if (c0 + t / L < A.bs) tile[t] = src[t];
-  __syncthreads();
+  const int8_t* sums = stage_b_sums(A, L);
   const int l = t / kCwCols, c = t % kCwCols;
-  if (c0 + c < A.bs)
-    A.cw[((size_t)j * L + l) * A.bs + c0 + c] = tile[c * L + l];
+  if (A.b >= 2) {
+    // quad j: one word of 4 rows per (column, path)
+    const uint32_t* src = reinterpret_cast<const uint32_t*>(sums)
+        + ((size_t)j * A.bs + c0) * L;
+    if (c0 + t / L < A.bs) tile[(t / L) * kPitch + t % L] = src[t];
+    __syncthreads();
+    if (c0 + c < A.bs) {
+      const uint32_t w = tile[c * kPitch + l];
+      for (int k = 0; k < 4; ++k)
+        A.cw[((size_t)(4 * j + k) * L + l) * A.bs + c0 + c] =
+            (int8_t)(w >> (8 * k));
+    }
+  } else {
+    const int8_t* src = sums + ((size_t)j * A.bs + c0) * L;
+    if (c0 + t / L < A.bs) tile[(t / L) * kPitch + t % L] = (uint8_t)src[t];
+    __syncthreads();
+    if (c0 + c < A.bs)
+      A.cw[((size_t)j * L + l) * A.bs + c0 + c] =
+          (int8_t)tile[c * kPitch + l];
+  }
 }
 
 // the decode: the routine's build with the PC register (kPc) or without
@@ -117,7 +148,8 @@ int launch(const SubtreeArgs& A, cudaStream_t st) {
   cudaError_t err = A.pc ? launch_decode<L, true>(A, st)
                          : launch_decode<L, false>(A, st);
   if (err != cudaSuccess) return (int)err;
-  const dim3 cw_grid((A.bs + kCwCols - 1) / kCwCols, 1 << A.b);
+  const dim3 cw_grid((A.bs + kCwCols - 1) / kCwCols,
+                     A.b >= 2 ? 1 << (A.b - 2) : 1 << A.b);
   scl_cw_kernel<L><<<cw_grid, kCwCols * L, 0, st>>>(A);
   return (int)cudaGetLastError();
 }
@@ -130,9 +162,44 @@ extern "C" long long scl_subtree_smem_bytes(int L, int n_shared) {
   return polar_torch::block_smem_bytes(L, n_shared);
 }
 
-// lloc: the global LLR stages n_shared..b-1, [2^b - 2^n_shared, bs, L]
-// (null when n_shared == b); uloc: the global partial-sum stages
-// n_shared..b, [2^(b+1) - 2^n_shared, bs, L]; pc: 1 when the schedule has
+namespace polar_torch {
+
+template <int L>
+int decode_blocks_per_sm(int pc, int n_shared) {
+  const size_t smem = smem_bytes<L>(n_shared, kThreads / L, 0, 0);
+  const void* fn = pc ? (const void*)scl_subtree_kernel<L, true>
+                      : (const void*)scl_subtree_kernel<L, false>;
+  if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess)
+    return -1;
+  int n = -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, kThreads, smem)
+      != cudaSuccess)
+    return -1;
+  return n;
+}
+
+}  // namespace polar_torch
+
+// resident blocks an SM of the decode kernel at list size L (the PC build
+// when pc) with stages 0..n_shared-1 in shared memory; -1 on an error
+extern "C" int scl_subtree_blocks_per_sm(int L, int pc, int n_shared) {
+  using namespace polar_torch;
+  switch (L) {
+    case 1: return decode_blocks_per_sm<1>(pc, n_shared);
+    case 2: return decode_blocks_per_sm<2>(pc, n_shared);
+    case 4: return decode_blocks_per_sm<4>(pc, n_shared);
+    case 8: return decode_blocks_per_sm<8>(pc, n_shared);
+    case 16: return decode_blocks_per_sm<16>(pc, n_shared);
+    case 32: return decode_blocks_per_sm<32>(pc, n_shared);
+    default: return -1;
+  }
+}
+
+// lloc: the global LLR stages n_shared..b-1, 2^b - 2^n_shared rows of bs *
+// L floats, quads then scalar rows (null when n_shared == b); uloc: the
+// global partial-sum stages n_shared..b, 2^(b+1) - 2^n_shared rows of bs *
+// L bytes, laid out alike; pc: 1 when the schedule has
 // p leaves. Launches the decode, then the transpose of the stage-b sums
 // into cw. Returns a cudaError_t.
 extern "C" int scl_subtree_launch(const float* a, long long a_row_stride,

@@ -22,14 +22,29 @@
 //   path pointer (5 bits per stage, LLR stages 1..b in one uint64 and
 //   partial-sum stages 0..b-1 in another), its parent, its node-entry path
 //   and its rate-1 / SPC flip bits live in the lane's registers;
-// * workspaces (lloc f32 LLR segments, uloc int8 partial sums) have the
-//   compact stage layout (stage s at row 2^s - 1), path slot minor: stages
-//   below n_shared in the block's shared memory, [row][codeword][slot], the
-//   rest in a global scratch [row][bs][slot]; stage b's LLRs are read
-//   straight from the input a, and its partial sums (the codeword) rise
-//   into the global scratch like any stage's, from where a transpose
-//   writes cw. Every lane computes its own path's f/g rows; a g reads
-//   through its stage pointers, so forks copy no workspace rows;
+// * workspaces (lloc f32 LLR segments, uloc int8 partial sums) keep the
+//   compact stage order, path slot minor, and store each stage of at
+//   least 4 rows (s >= 2) as row quads: stage s from quad 2^(s-2) - 1,
+//   rows 4q..4q+3 of slot p at [quad q][codeword][p][4], so a lane moves
+//   four rows of its path in one 16-byte (f32) or 4-byte (int8) access and
+//   a warp's lanes touch 512 (128) neighbouring bytes. Stages 0 and 1 (1
+//   and 2 rows) keep the scalar layout [row][codeword][slot] (stage s at
+//   row 2^s - 1), in three rows after the quads. Stages below n_shared sit
+//   in the block's shared memory, the rest in a global scratch laid out
+//   alike with the batch in place of the block's codewords ([quad][bs]
+//   [slot][4], then the scalar rows); stage b's LLRs are read straight from
+//   the input a (any path stride, row by row), and its partial sums (the
+//   codeword) rise into the global scratch as quads like any stage's, from
+//   where a transpose writes cw. Every lane computes its own path's f/g
+//   rows; a g reads through its stage pointers, so forks copy no
+//   workspace rows;
+// * the row loops (f, g, rise, the node sums and rate-1 / SPC orders, the
+//   node codeword writes) step through quads wherever a stage has 4 rows
+//   or more; from 8 rows on each trip issues two quads' loads before their
+//   stores, so 8 rows share a memory round trip, and a rise XORs 4
+//   partial-sum rows a 32-bit operation. Rows of stages under 4 rows, and
+//   of the input a, stay scalar (a's 8 a trip too). The loops take the
+//   layout from each stage's height alone;
 // * a fork is top-L by rank: lane l holds candidates l and L + l, counts the
 //   candidates with a smaller metric or an equal one and a lower index, and
 //   a candidate of rank < L writes its index to slot `rank`; so equal
@@ -43,7 +58,8 @@
 //   reliability order (rows, ties to the lower row) there, and reads the
 //   values again from the node's LLRs.
 // Node path-metric sums run row by row per path, as the plain version's
-// _row_sum does, so exact ties break alike in both.
+// _row_sum does, so exact ties break alike in both; the quads are a layout
+// of the same elementwise operations, so they change no result.
 //
 // PC-aided decoding (TS 38.212 5.3.1.2): each path carries a 5-bit PC
 // register in its state, so a fork hands it to the survivors with the
@@ -88,9 +104,10 @@ struct SubtreeArgs {
   int32_t* cw;             // [2^b, L, bs]
   int32_t* p_out;          // [L, bs]
   float* pm_out;           // [L, bs]
-  float* lloc;             // global stages: [2^b - 2^n_shared, bs, L] or null
+  float* lloc;             // global stages n_shared..b-1: (2^b - 2^n_shared)
+                           // rows of bs * L, quads then scalar rows; or null
   int8_t* uloc;            // the same for the partial sums, and stage b
-                           // (the codeword): [2^(b+1) - 2^n_shared, bs, L]
+                           // (the codeword): 2^(b+1) - 2^n_shared rows
   int b;
   int bs;
   float llr_max;
@@ -187,62 +204,216 @@ struct HostGroup {
   PT_HD void sync() const {}
 };
 
-// the rows of one stage and path slot: element j at p[j * stride]
-template <class T>
-struct Row {
-  T* p;
-  long long stride;
-  PT_HD PT_INLINE T& operator[](int j) const { return p[j * stride]; }
+// four rows of one path: f32 LLRs, or int8 partial sums as one 32-bit word
+// (row 4q + k in byte k)
+struct F4 {
+  float v[4];
 };
 
-// out(j, load(j)) for j < h, the loads of four rows issued before their
-// stores: each caller reads rows that it does not write (another stage, or
-// the other half of the rise destination), so the order is free
-template <class Load, class Store>
-PT_HD PT_INLINE void rows4(int h, Load load, Store out) {
-  int j = 0;
-  for (; j + 4 <= h; j += 4) {
-    const auto v0 = load(j), v1 = load(j + 1), v2 = load(j + 2),
-               v3 = load(j + 3);
-    out(j, v0);
-    out(j + 1, v1);
-    out(j + 2, v2);
-    out(j + 3, v3);
-  }
-  for (; j < h; ++j) out(j, load(j));
+PT_HD PT_INLINE F4 ld_f4(const float* p) {
+#ifdef __CUDA_ARCH__
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  return {{x.x, x.y, x.z, x.w}};
+#else
+  F4 x;
+  memcpy(x.v, p, sizeof x.v);
+  return x;
+#endif
 }
 
-// one codeword's view of its workspaces and outputs
+PT_HD PT_INLINE void st_f4(float* p, const F4& x) {
+#ifdef __CUDA_ARCH__
+  *reinterpret_cast<float4*>(p) = make_float4(x.v[0], x.v[1], x.v[2], x.v[3]);
+#else
+  memcpy(p, x.v, sizeof x.v);
+#endif
+}
+
+PT_HD PT_INLINE uint32_t ld_u4(const int8_t* p) {
+#ifdef __CUDA_ARCH__
+  return *reinterpret_cast<const uint32_t*>(p);
+#else
+  uint32_t w;
+  memcpy(&w, p, sizeof w);
+  return w;
+#endif
+}
+
+PT_HD PT_INLINE void st_u4(int8_t* p, uint32_t w) {
+#ifdef __CUDA_ARCH__
+  *reinterpret_cast<uint32_t*>(p) = w;
+#else
+  memcpy(p, &w, sizeof w);
+#endif
+}
+
+// the rows of one stage and path slot: row j at p[(j >> 2) * stride +
+// (j & 3)] in a quad stage (sh = 2), at p[j * stride] in a scalar one
+// (sh = 0)
+template <class T>
+struct Rows {
+  T* p;
+  long long stride;   // elements between quads, or between rows
+  int sh;
+  PT_HD PT_INLINE T& operator[](int j) const {
+    return p[(j >> sh) * stride + (j & (sh | (sh >> 1)))];
+  }
+  // quad q (rows 4q..4q+3) of a quad stage
+  PT_HD PT_INLINE T* at(int q) const { return p + q * stride; }
+};
+
+// rows 4q..4q+3 of f32 rows of either layout: one load, or four (the
+// input a)
+PT_HD PT_INLINE F4 load4(const Rows<const float>& x, int q) {
+  if (x.sh) return ld_f4(x.at(q));
+  const float* p = x.p + 4 * q * x.stride;
+  return {{p[0], p[x.stride], p[2 * x.stride], p[3 * x.stride]}};
+}
+
+// out(q, op(q, load(q))) for the nq quads of a stage of at least 4 rows.
+// Each trip loads two quads' operands (one where nq is 1) before it
+// stores, so 8 rows share a memory round trip. Each caller reads rows that
+// it does not write (another stage, or the other half of the rise
+// destination), so the order is free
+template <class Load, class Op, class Store>
+PT_HD PT_INLINE void quads(int nq, Load load, Op op, Store out) {
+  for (int q = 0; q < nq; q += 2) {
+    const bool two = q + 1 < nq;
+    const auto v0 = load(q);
+    const auto v1 = two ? load(q + 1) : v0;
+    out(q, op(q, v0));
+    if (two) out(q + 1, op(q + 1, v1));
+  }
+}
+
+// visit(j, x[j]) for the w rows of x in row order, a quad a load, the next
+// quad's load issued before this one's visits; one copy of visit serves
+// every height
+template <class Visit>
+PT_HD PT_INLINE void rows_in_order(const Rows<const float>& x, int w,
+                                   Visit visit) {
+  F4 next = w >= 4 ? load4(x, 0)
+                   : F4{{x[0], w > 1 ? x[1] : 0.0f, 0.0f, 0.0f}};
+  for (int j = 0; j < w; j += 4) {
+    F4 v = next;
+    if (j + 4 < w) next = load4(x, (j >> 2) + 1);
+#pragma unroll 1
+    for (int k = 0; k < (w < 4 ? w : 4); ++k) {
+      visit(j + k, v.v[0]);
+      v.v[0] = v.v[1];
+      v.v[1] = v.v[2];
+      v.v[2] = v.v[3];
+    }
+  }
+}
+
+// rows 0..2h-1 of x (h = 1 or 2: stage 1 or 2, or the input a): stage 2
+// as one quad, whose rows read one by one would put four lanes on a bank
+PT_HD PT_INLINE F4 two_h_rows(const Rows<const float>& x, int h) {
+  return h == 2 ? load4(x, 0) : F4{{x[0], x[1], 0.0f, 0.0f}};
+}
+
+// rows tail..tail+w-1 of o set to v (one word a quad from 4 rows on)
+PT_HD PT_INLINE void fill_rows(const Rows<int8_t>& o, int tail, int w,
+                               int8_t v) {
+  if (w >= 4) {
+    const uint32_t word = 0x01010101u * (uint8_t)v;
+    for (int q = 0; q < (w >> 2); ++q) st_u4(o.at((tail >> 2) + q), word);
+  } else {
+    for (int j = 0; j < w; ++j) o[tail + j] = v;
+  }
+}
+
+// one codeword's view of its workspaces and outputs. A row of the shared
+// stages holds C * L elements, of the global ones bs * L; in each, the
+// quad stages (s >= 2) come first, from the lowest kept there, then the
+// scalar rows. Stage s starts (2^s rows) * width after an offset that the
+// constructor takes once: row j of a quad stage at (j >> 2) * 4 * width +
+// (j & 3) from there, of a scalar stage at j * width
 template <int L>
 struct Workspace {
   const SubtreeArgs& A;
-  float* lsh;             // shared stages [2^s - 1 + j][C][L]
+  float* lsh;             // shared stages
   int8_t* ush;
-  int C, c;               // codewords of the block, this one's index
   int col;                // batch column
+  int ns;                 // stages in shared memory
+  int wsh;                // shared row width, C * L
+  int oq_sh, os_sh;       // shared offsets: quads (this codeword's), rows
+  long long wgl;          // global row width, bs * L
+  long long oq_gl;        // global offsets: quads, LLR rows, sum rows
+  long long os_gl_l, os_gl_u;
 
-  // offset of row 0 of stage s (< b) and the row stride, in elements
-  PT_HD PT_INLINE bool shared(int s) const { return s < A.n_shared; }
-  PT_HD PT_INLINE long long base(int s) const {
-    return shared(s)
-        ? ((long long)((1 << s) - 1) * C + c) * L
-        : ((long long)((1 << s) - (1 << A.n_shared)) * A.bs + col) * L;
+  PT_HD Workspace(const SubtreeArgs& A_, float* lsh_, int8_t* ush_, int C,
+                  int c, int col_)
+      : A(A_), lsh(lsh_), ush(ush_), col(col_), ns(A_.n_shared),
+        wsh(C * L), wgl((long long)A_.bs * L) {
+    oq_sh = 4 * (c * L - wsh);                     // less the 4 rows below
+    os_sh = ((ns > 2 ? (1 << ns) - 4 : 0) - 1) * wsh + c * L;
+    const int lo = ns > 2 ? 1 << ns : 4;           // first global quad row
+    oq_gl = 4LL * col * L - lo * wgl;
+    // the global scalar rows follow the quad rows of the stages up to b - 1
+    // (LLRs) or b (partial sums); stage s's start at 2^s - 2^ns among them
+    const int b = A_.b;
+    const long long qr_l = (1 << b) > lo ? (1 << b) - lo : 0;
+    const long long qr_u = (2 << b) > lo ? (2 << b) - lo : 0;
+    os_gl_l = (qr_l - (1LL << ns)) * wgl + (long long)col * L;
+    os_gl_u = (qr_u - (1LL << ns)) * wgl + (long long)col * L;
   }
-  PT_HD PT_INLINE long long stride(int s) const {
-    return shared(s) ? (long long)C * L : (long long)A.bs * L;
+
+  // the rows of stage s and path slot p in the shared sh or global gl
+  template <class T>
+  PT_HD PT_INLINE Rows<T> rows(T* sh, T* gl, long long os_gl, int s,
+                               int p) const {
+    if (s < ns)
+      return s >= 2 ? Rows<T>{sh + (oq_sh + (wsh << s) + 4 * p), 4LL * wsh, 2}
+                    : Rows<T>{sh + (os_sh + (wsh << s) + p), wsh, 0};
+    return s >= 2 ? Rows<T>{gl + (oq_gl + (wgl << s) + 4 * p), 4 * wgl, 2}
+                  : Rows<T>{gl + (os_gl + (wgl << s) + p), wgl, 0};
   }
   // the LLRs of stage s and physical path slot p (stage b is the input)
-  PT_HD PT_INLINE Row<const float> lrow(int s, int p) const {
+  PT_HD PT_INLINE Rows<const float> lrow(int s, int p) const {
     if (s == A.b)
-      return {A.a + (long long)p * A.a_l_stride + col, A.a_row_stride};
-    return {(shared(s) ? lsh : A.lloc) + base(s) + p, stride(s)};
+      return {A.a + (long long)p * A.a_l_stride + col, A.a_row_stride, 0};
+    const Rows<float> r = lrow_w(s, p);
+    return {r.p, r.stride, r.sh};
   }
-  PT_HD PT_INLINE Row<float> lrow_w(int s, int p) const {
-    return {(shared(s) ? lsh : A.lloc) + base(s) + p, stride(s)};
+  PT_HD PT_INLINE Rows<float> lrow_w(int s, int p) const {
+    return rows<float>(lsh, A.lloc, os_gl_l, s, p);
   }
-  PT_HD PT_INLINE Row<int8_t> urow(int s, int p) const {
-    return {(shared(s) ? ush : A.uloc) + base(s) + p, stride(s)};
+  PT_HD PT_INLINE Rows<int8_t> urow(int s, int p) const {
+    return rows<int8_t>(ush, A.uloc, os_gl_u, s, p);
   }
+};
+
+// f of four rows: min-sum unrolled, the exact boxplus (an order of
+// magnitude more code) one row a turn, so the kernel carries one copy of it
+// (see the code-size note in scl_subtree.cu)
+PT_HD PT_INLINE F4 f4(F4 x, F4 y, float m, int exact) {
+  F4 r{};
+  if (!exact) {
+    for (int k = 0; k < 4; ++k) r.v[k] = minsum(x.v[k], y.v[k], m);
+    return r;
+  }
+#pragma unroll 1
+  for (int k = 0; k < 4; ++k) {
+    r.v[0] = r.v[1];
+    r.v[1] = r.v[2];
+    r.v[2] = r.v[3];
+    r.v[3] = f_op(x.v[0], y.v[0], m, 1);
+    x.v[0] = x.v[1];
+    x.v[1] = x.v[2];
+    x.v[2] = x.v[3];
+    y.v[0] = y.v[1];
+    y.v[1] = y.v[2];
+    y.v[2] = y.v[3];
+  }
+  return r;
+}
+
+// operands of one quad of an f (x's two halves) or a g (and the bits u)
+struct FgQuad {
+  F4 a, c;
+  uint32_t u;
 };
 
 #define PT_FOR_LANES for (int i_ = 0; i_ < G::kPer; ++i_)
@@ -307,26 +478,58 @@ struct SubtreeGroup {
   // the stages written are read through identity pointers from then on
   PT_HD void descend(Lane& st, int l, int lo, int s_nd) const {
     const float m = A.llr_max;
+    const int exact = A.exact;
     int s_top;
     if (lo == 0) {
       s_top = A.b;
     } else {
       const int d = ctz(lo);
       const int h = 1 << d;
-      const Row<const float> x = W.lrow(d + 1, field(st.lp, d));
-      const Row<int8_t> u = W.urow(d, field(st.up, d));
-      const Row<float> y = W.lrow_w(d, l);
-      rows4(h, [=](int j) { return g_op(x[j], x[j + h], u[j]); },
-            [=](int j, float v) { y[j] = v; });
+      const Rows<const float> x = W.lrow(d + 1, field(st.lp, d));
+      const Rows<int8_t> u = W.urow(d, field(st.up, d));
+      const Rows<float> y = W.lrow_w(d, l);
+      if (h >= 4) {
+        const int hq = h >> 2;
+        quads(hq, [=](int q) {
+          return FgQuad{load4(x, q), load4(x, q + hq), ld_u4(u.at(q))};
+        }, [](int, const FgQuad& v) {
+          F4 r;
+          for (int k = 0; k < 4; ++k)
+            r.v[k] = g_op(v.a.v[k], v.c.v[k], (int)((v.u >> (8 * k)) & 0xffu));
+          return r;
+        }, [=](int q, const F4& r) { st_f4(y.at(q), r); });
+      } else {
+        // h = 1 or 2: x's 2h rows in one load (stage 2 is one quad, whose
+        // lanes lie 16 bytes apart: row by row they would conflict)
+        F4 v = two_h_rows(x, h);
+#pragma unroll 1
+        for (int j = 0; j < h; ++j) {
+          y[j] = g_op(v.v[0], h == 2 ? v.v[2] : v.v[1], u[j]);
+          v.v[0] = v.v[1];
+          v.v[2] = v.v[3];
+        }
+      }
       s_top = d;
     }
     for (int s = s_top; s > s_nd; --s) {
       const int h = 1 << (s - 1);
-      const Row<const float> x = W.lrow(s, l);
-      const Row<float> y = W.lrow_w(s - 1, l);
-      const int exact = A.exact;
-      rows4(h, [=](int j) { return f_op(x[j], x[j + h], m, exact); },
-            [=](int j, float v) { y[j] = v; });
+      const Rows<const float> x = W.lrow(s, l);
+      const Rows<float> y = W.lrow_w(s - 1, l);
+      if (h >= 4) {
+        const int hq = h >> 2;
+        quads(hq, [=](int q) {
+          return FgQuad{load4(x, q), load4(x, q + hq), 0u};
+        }, [=](int, const FgQuad& v) { return f4(v.a, v.c, m, exact); },
+        [=](int q, const F4& r) { st_f4(y.at(q), r); });
+      } else {
+        F4 v = two_h_rows(x, h);
+#pragma unroll 1
+        for (int j = 0; j < h; ++j) {
+          y[j] = f_op(v.v[0], h == 2 ? v.v[2] : v.v[1], m, exact);
+          v.v[0] = v.v[1];
+          v.v[2] = v.v[3];
+        }
+      }
     }
     const int hi = lo == 0 ? A.b - 1 : s_top;
     uint64_t reset = 0;
@@ -381,14 +584,20 @@ struct SubtreeGroup {
         const int l = g.lane(i_);
         Lane& st = S[i_];
         descend(st, l, lo, s_nd);
-        const Row<const float> x = W.lrow(s_nd, l);
+        const Rows<const float> x = W.lrow(s_nd, l);
         if (kind == OP_F || kind == OP_Z) {
           // frozen leaf / rate-0 node: bulk PM update, all-zero sums
           float acc = 0.0f;
-          for (int j = 0; j < w; ++j) acc += softplus(-clipf(x[j], m));
+          if (w == 1) {    // a frozen leaf, most of a leaf schedule's ops
+            acc += softplus(-clipf(x[0], m));
+            W.urow(r, l)[tail] = 0;
+          } else {
+            rows_in_order(x, w, [&](int, float v) {
+              acc += softplus(-clipf(v, m));
+            });
+            fill_rows(W.urow(r, l), tail, w, 0);
+          }
           st.pm = st.pm + acc;
-          const Row<int8_t> o = W.urow(r, l);
-          for (int j = 0; j < w; ++j) o[tail + j] = 0;
         } else if (kind == OP_I) {
           const float v = clipf(x[0], m);
           st.c0 = st.pm + softplus(-v);
@@ -404,11 +613,11 @@ struct SubtreeGroup {
           W.urow(r, l)[tail] = (int8_t)bit;
         } else if (kind == OP_R) {
           float s0 = 0.0f, s1 = 0.0f;
-          for (int j = 0; j < w; ++j) {
-            const float v = clipf(x[j], m);
+          rows_in_order(x, w, [&](int, float xv) {
+            const float v = clipf(xv, m);
             s0 += softplus(-v);
             s1 += softplus(v);
-          }
+          });
           st.c0 = st.pm + s0;
           st.c1 = st.pm + s1;
         } else {
@@ -416,11 +625,11 @@ struct SubtreeGroup {
           // decisions plus theta sequential least-reliable-flip forks
           float acc = 0.0f;
           int par = 0;
-          for (int j = 0; j < w; ++j) {
-            const float v = clipf(x[j], m);
+          rows_in_order(x, w, [&](int, float xv) {
+            const float v = clipf(xv, m);
             acc += softplus(-fabsf(v));
             par ^= v < 0.0f;
-          }
+          });
           float v0 = 0.0f;
           if (!small) {
             // ascending (|a|, row) order: the t-th pick is the least pair
@@ -430,14 +639,14 @@ struct SubtreeGroup {
             for (int t = 0; t < theta; ++t) {
               int br = -1;
               float bv = 0.0f;
-              for (int j = 0; j < w; ++j) {
-                const float v = fabsf(clipf(x[j], m));
+              rows_in_order(x, w, [&](int j, float xv) {
+                const float v = fabsf(clipf(xv, m));
                 const bool after = v > pv || (v == pv && j > pr);
                 if (after && (br < 0 || v < bv)) {
                   bv = v;
                   br = j;
                 }
-              }
+              });
               gs.srows[t][l] = (uint16_t)br;
               if (t == 0) v0 = bv;
               pv = bv;
@@ -458,8 +667,7 @@ struct SubtreeGroup {
       if (kind == OP_I || kind == OP_R) {
         fork();
         PT_FOR_LANES {
-          const Row<int8_t> o = W.urow(r, g.lane(i_));
-          for (int j = 0; j < w; ++j) o[tail + j] = (int8_t)S[i_].bit;
+          fill_rows(W.urow(r, g.lane(i_)), tail, w, (int8_t)S[i_].bit);
           // the survivor's bit into its parent's register
           if (kPc && kind == OP_I)
             S[i_].y ^= (uint8_t)(S[i_].bit << pc_slot(lo));
@@ -495,9 +703,20 @@ struct SubtreeGroup {
         PT_FOR_LANES {
           const Lane& st = S[i_];
           const int q = st.qn;
-          const Row<const float> x = W.lrow(s_nd, q);
-          const Row<int8_t> o = W.urow(r, g.lane(i_));
-          for (int j = 0; j < w; ++j) o[tail + j] = x[j] < 0.0f;
+          const Rows<const float> x = W.lrow(s_nd, q);
+          const Rows<int8_t> o = W.urow(r, g.lane(i_));
+          if (w >= 4) {
+            const int tq = tail >> 2;
+            quads(w >> 2, [=](int k) { return load4(x, k); },
+                  [](int, const F4& v) {
+                    uint32_t bits = 0;
+                    for (int k = 0; k < 4; ++k)
+                      bits |= (uint32_t)(v.v[k] < 0.0f) << (8 * k);
+                    return bits;
+                  }, [=](int k, uint32_t v) { st_u4(o.at(tq + k), v); });
+          } else {
+            for (int j = 0; j < w; ++j) o[tail + j] = x[j] < 0.0f;
+          }
           for (int t = spc ? 1 : 0; t < theta; ++t) {
             if ((st.flips >> t) & 1u) {
               const int row = tail + (small ? t : gs.srows[t][q]);
@@ -515,13 +734,22 @@ struct SubtreeGroup {
       PT_FOR_LANES {
         const int l = g.lane(i_);
         Lane& st = S[i_];
-        const Row<int8_t> o = W.urow(r, l);
+        const Rows<int8_t> o = W.urow(r, l);
         for (int s = s_nd; s < R; ++s) {
           const int h = 1 << s;
           const int base = Wd - 2 * h;
-          const Row<int8_t> u = W.urow(s, field(st.up, s));
-          rows4(h, [=](int j) { return (int8_t)(u[j] ^ o[base + h + j]); },
-                [=](int j, int8_t v) { o[base + j] = v; });
+          const Rows<int8_t> u = W.urow(s, field(st.up, s));
+          if (h >= 4) {
+            // 4 rows a 32-bit XOR; the destination is a quad stage (R > s)
+            const int hq = h >> 2, bq = base >> 2;
+            quads(hq, [=](int q) {
+              return ld_u4(u.at(q)) ^ ld_u4(o.at(bq + hq + q));
+            }, [](int, uint32_t v) { return v; },
+               [=](int q, uint32_t v) { st_u4(o.at(bq + q), v); });
+          } else {
+            for (int j = 0; j < h; ++j)
+              o[base + j] = (int8_t)(u[j] ^ o[base + h + j]);
+          }
         }
         if (r < b)
           st.up = (st.up & ~field_mask(r)) | ((uint64_t)l << (kPtrBits * r));
@@ -538,9 +766,12 @@ struct SubtreeGroup {
 
 #undef PT_FOR_LANES
 
-// the stage-b partial sums of every codeword, [2^b, bs, L] int8
+// the stage-b partial sums of every codeword: [2^(b-2)][bs][L][4] int8
+// quads from b = 2 on, else [2^b][bs][L] rows
 PT_HD PT_INLINE const int8_t* stage_b_sums(const SubtreeArgs& A, int L) {
-  return A.uloc + (size_t)((1 << A.b) - (1 << A.n_shared)) * A.bs * L;
+  const int ns = A.n_shared;
+  const int lo = A.b < 2 ? ns : (ns > 2 ? ns : 2);
+  return A.uloc + (size_t)((1 << A.b) - (1 << lo)) * A.bs * L;
 }
 
 // decode one codeword with group g; lsh / ush are its block's shared

@@ -1,7 +1,8 @@
 // Host build of the per-codeword subtree routine (scl_subtree.cuh), compiled
 // with g++ and no CUDA or torch headers. One thread runs a codeword's L
-// lanes in turn between the group's barriers, with the codeword's shared
-// arrays in host memory; the stages from n_shared up, and the codeword's
+// lanes in turn between the group's barriers, with its block's shared
+// arrays in host memory (the card's kThreads / L codewords a block, each
+// in its own slots); the stages from n_shared up, and the codeword's
 // stage-b sums, live in the global scratch lloc / uloc as on the card. The
 // CPU tests hold it against the plain PyTorch version, which checks the
 // CUDA kernel's logic where no card exists. The main path never uses it.
@@ -14,16 +15,19 @@
 
 namespace {
 
+// the columns block by block, as on the card: kThreads / L codewords share
+// the block's shared stages, each in its own slots, one after another
 template <int L, bool kPc>
 void run_columns_as(const polar_torch::SubtreeArgs& A) {
   using namespace polar_torch;
+  constexpr int C = kThreads / L;
   const size_t rows = ((size_t)1 << A.n_shared) - 1;
-  std::vector<float> lsh(rows * L);
-  std::vector<int8_t> ush(rows * L);
+  std::vector<float> lsh(rows * C * L);
+  std::vector<int8_t> ush(rows * C * L);
   GroupShared<L> gs;
   for (int col = 0; col < A.bs; ++col)
     subtree_codeword<L, kPc>(HostGroup<L>{}, A, gs, lsh.data(), ush.data(),
-                             1, 0, col);
+                             C, col % C, col);
 }
 
 // the routine's build with the PC register or without, as on the card
@@ -43,7 +47,9 @@ void cw_from_sums(const polar_torch::SubtreeArgs& A, int L) {
     for (int col = 0; col < A.bs; ++col)
       for (int l = 0; l < L; ++l)
         A.cw[((size_t)j * L + l) * A.bs + col] =
-            src[((size_t)j * A.bs + col) * L + l];
+            A.b >= 2 ? src[(((size_t)(j >> 2) * A.bs + col) * L + l) * 4
+                           + (j & 3)]
+                     : src[((size_t)j * A.bs + col) * L + l];
 }
 
 }  // namespace

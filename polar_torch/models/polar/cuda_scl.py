@@ -27,8 +27,10 @@ The schedule comes in two forms:
   ``launch.scl_subtree`` (two device operations each: the decode and the
   codeword transpose), and of those the traced ones in
   ``form.scl_subtree.traced`` and those at L > 8 in
-  ``form.scl_subtree.wide``, and reports each launch's work to a running
-  ``profiling.flop_estimate``.
+  ``form.scl_subtree.wide``, counts the f/g and rise rows a path that run
+  on row quads and those that stay scalar (``row_counts``) in
+  ``rows.scl_subtree.quad`` and ``rows.scl_subtree.scalar``, and reports
+  each launch's work to a running ``profiling.flop_estimate``.
 * The kernel gives each codeword a group of L threads of one warp, one
   thread per path, and a block of ``THREADS`` threads holds THREADS / L
   codewords. A thread keeps its path's metric and its slot of every
@@ -36,7 +38,10 @@ The schedule comes in two forms:
   reading through those pointers, so forks copy no workspace rows. The
   workspaces sit in shared memory as far as ``SMEM_BUDGET`` bytes a block
   allow (``shared_stages``: stages from 0 up); the wrapper allocates a
-  global scratch for the stages above. A fork is top-L by rank: each
+  global scratch for the stages above. Every stage of at least 4 rows is
+  stored as row quads (a lane's four rows of one path side by side), so
+  the row loops move 16 bytes a lane an access; stages 0 and 1 stay
+  scalar (``csrc/scl_subtree.cuh``). A fork is top-L by rank: each
   thread counts, for its two candidates, the candidates with a smaller
   metric or an equal one and a lower index, and takes the survivor in its
   slot with its parent's state.
@@ -112,6 +117,27 @@ def _uptr_live(s: int, i_end: int, s_node: int = 0) -> bool:
     return s >= s_node and ((i_end >> s) & 1) == 1
 
 
+def row_counts(ops, b: int):
+    """The f/g and rise rows a path of one launch of ``ops`` (a schedule's
+    op tuple) at depth ``b``: ``(quad, scalar)``, those of stages of at
+    least 4 rows, which the kernel moves as row quads, and the rest. It
+    follows the routine: a g at the lowest set bit of ``lo`` (none at
+    ``lo == 0``), f down to the node, and the rise up to ``cto(i_end)``."""
+    quad = scalar = 0
+    for _, s_nd, lo in ops:
+        top = b if lo == 0 else _ctz(lo)
+        heights = [] if lo == 0 else [1 << top]
+        heights += [1 << (s - 1) for s in range(top, s_nd, -1)]
+        heights += [1 << s for s in range(
+            s_nd, min(_cto(lo + (1 << s_nd) - 1), b))]
+        for h in heights:
+            if h >= 4:
+                quad += h
+            else:
+                scalar += h
+    return quad, scalar
+
+
 class SubtreeSchedule:
     """One subtree's op list: ``ops`` for the plain version and ``table``,
     its int32 [n_ops, 3] encoding (kind, stage, lo) on ``device``; ``codes``
@@ -131,6 +157,13 @@ class SubtreeSchedule:
         self.table = torch.tensor(
             [[codes[k], s, lo] for k, s, lo in self.ops],
             dtype=torch.int32, device=device).reshape(-1, 3)
+        self._rows = {}
+
+    def rows(self, b: int):
+        """``row_counts(self.ops, b)``, computed once a depth."""
+        if b not in self._rows:
+            self._rows[b] = row_counts(self.ops, b)
+        return self._rows[b]
 
 
 # ----------------------------------------------------------------------
@@ -159,6 +192,9 @@ def scl_subtree(a, pm, sched: SubtreeSchedule, *, b: int, llr_max: float,
             tracing.count("launch.scl_subtree", ops=2)
             tracing.count("form.scl_subtree.traced", int(sched.traced))
             tracing.count("form.scl_subtree.wide", int(a.shape[1] > 8))
+            quad, scalar = sched.rows(b)
+            tracing.count("rows.scl_subtree.quad", quad)
+            tracing.count("rows.scl_subtree.scalar", scalar)
         kernel_work.report(kernel_work.subtree_work, sched.ops, b, mode, a,
                            frz)
         return out
@@ -172,7 +208,7 @@ def block_smem_bytes(L: int, n_shared: int, route: str = "cuda") -> int:
     stages 0..n_shared-1 in shared memory, as the routine lays it out
     (``smem_bytes`` in csrc/scl_subtree.cuh, asked of the ``route``'s
     build): per codeword 4 + 1 bytes per row and path, plus its exchange
-    arrays."""
+    arrays; the row quads take the same bytes as scalar rows."""
     fn = _build.load("scl_subtree", route).scl_subtree_smem_bytes
     fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_longlong
     return int(fn(L, n_shared))
@@ -245,11 +281,12 @@ def _native_call(fn, a, pm, frz, sched, b, llr_max, mode, n_shared, stream):
     cw = torch.empty((w, L, bs), dtype=torch.int32, device=dev)
     P = torch.empty((L, bs), dtype=torch.int32, device=dev)
     pm_out = torch.empty((L, bs), dtype=torch.float32, device=dev)
-    # the global scratch of the stages that stay out of shared memory; the
-    # partial sums' also holds stage b, the codeword before its transpose
+    # the global scratch of the stages that stay out of shared memory, rows
+    # of bs * L elements (quads of four, then scalar rows); the partial
+    # sums' also holds stage b, the codeword before its transpose
     rows = w - (1 << n_shared)
-    lloc = torch.empty((rows, bs, L), dtype=torch.float32, device=dev)
-    uloc = torch.empty((rows + w, bs, L), dtype=torch.int8, device=dev)
+    lloc = torch.empty(rows * bs * L, dtype=torch.float32, device=dev)
+    uloc = torch.empty((rows + w) * bs * L, dtype=torch.int8, device=dev)
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES + ([] if stream is None
                                    else [ctypes.c_void_p])

@@ -369,7 +369,9 @@ def format_table(s):
     """``summary()``'s span table as text: one line a span name in the
     order the spans first opened, with calls, host and device ms (self
     ms in brackets), ops, host-to-device copies, syncs and launches a
-    batch."""
+    batch; then each other counter a batch (in the outermost span that
+    holds it), a ``rows.<kernel>.<kind>`` counter with its share of its
+    kernel's rows."""
     head = (f"spans: {s['batches']} batches, times over "
             f"{s['timed_batches']}, ops of the first")
     lines = [head, f"{'span':<22}{'calls':>6} {'host ms (self)':>20} "
@@ -388,6 +390,20 @@ def format_table(s):
             f"{'-' if r['ops'] is None else r['ops']:>7}"
             f"{r.get('h2d', 0):>6.2f}{r.get('sync', 0):>6.2f}"
             f"{launches:>7.2f}")
+    columns = {"calls", "host_ms", "device_ms", "self_host_ms",
+               "self_device_ms", "ops", "h2d", "sync"}
+    counters = {}
+    for r in s["spans"].values():
+        for k, v in r.items():
+            if k not in columns and not k.startswith("launch."):
+                counters.setdefault(k, v)
+    for k, v in counters.items():
+        group = k.rsplit(".", 1)[0]
+        total = sum(x for n, x in counters.items()
+                    if n.rsplit(".", 1)[0] == group)
+        share = (f" ({100 * v / total:.1f}% of {group}.*)"
+                 if k.startswith("rows.") and total else "")
+        lines.append(f"counter {k} {v:.2f} a batch{share}")
     for key in ("front_ops", "decode_ops", "harness_ops", "decode_kernel_ms",
                 "decode_glue_ms", "harness_host_ms"):
         lines.append(f"{key} {s[key]!r}")

@@ -835,3 +835,78 @@ def test_butterfly_once_a_decode_on_card(cuda, chain, monkeypatch):
     assert tracing.counter("launch.butterfly_rows") == before + 1
     agree = (got.cpu() == want_cpu).all(dim=1).float().mean().item()
     assert agree >= BLOCK_AGREEMENT
+
+
+# sha256 of the decode kernel's outputs (cw, P and the path metrics' bits)
+# on each quad case's inputs, as the kernel gave them with the scalar
+# [row][codeword][slot] workspaces, before they became row quads
+QUAD_CARD_DIGESTS = {
+    "scl8_fast_b10": "d60d8ba81a4bc17e",
+    "uci_pc_b8": "41c6e2ef3bd22252",
+    "traced_L32_b8": "69f443b77f82fab5",
+}
+QUAD_CARD_COLUMNS = 2051      # no block's codeword count divides it
+
+
+def _quad_card_case(case):
+    """(ops, b, L, mode, frz) of the quad layout's card cases: scl8's fast
+    schedule at b=10, the uplink (19, 864) code's PC leaf schedule at b=8
+    and the traced form at L=32, b=8 (5G k=128 n=256 frozen flags)."""
+    from polar_torch.models.polar.encode import Polar5GEncoder
+    if case == "scl8_fast_b10":
+        units, _ = split_fast_schedule(_mask_5g(512, 1024), 10, rate1=True)
+        return units[0][2], 10, 8, "minsum", None
+    if case == "uci_pc_b8":
+        enc = Polar5GEncoder(19, 864, device="cpu")
+        mask = np.zeros(enc.n_polar, bool)
+        mask[enc.frozen_pos] = True
+        pc = np.zeros(enc.n_polar, bool)
+        pc[enc.pc_pos] = True
+        return tuple(leaf_schedule(mask, pc)), 8, 8, "exact", None
+    frz = torch.from_numpy(_mask_5g(128, 256).astype(np.int32))
+    return traced_schedule(8), 8, 32, "exact", frz
+
+
+def _digest(out):
+    import hashlib
+    cw, P, pm = (x.cpu().numpy() for x in out)
+    return hashlib.sha256(cw.tobytes() + P.tobytes()
+                          + pm.view(np.int32).tobytes()).hexdigest()[:16]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["scl8_fast_b10", "uci_pc_b8",
+                                  "traced_L32_b8"])
+def test_quad_kernel_on_card(cuda, case):
+    """The row-quad kernel on 2051 columns with no stage, the budget's and
+    (where a block fits) every stage in shared memory: the same bits at
+    every split, equal to the scalar-layout kernel's outputs
+    (``QUAD_CARD_DIGESTS``) and to the plain version (min-sum: every
+    block)."""
+    from polar_torch.models.polar.cuda_scl import (block_smem_bytes,
+                                                   shared_stages)
+    ops, b, L, mode, frz = _quad_card_case(case)
+    rng = np.random.default_rng(b + L)
+    bs = QUAD_CARD_COLUMNS
+    a = torch.from_numpy(rng.normal(0, 3, (1 << b, L, bs)).astype(
+        np.float32)).to(cuda)
+    pm = torch.from_numpy(rng.exponential(2.0, (L, bs)).astype(
+        np.float32)).to(cuda)
+    frz = None if frz is None else frz.to(cuda)
+    kw = dict(b=b, llr_max=LLR_MAX, mode=mode, frz=frz)
+    sched = SubtreeSchedule(ops, cuda)
+    splits = {0, shared_stages(b, L)}
+    if block_smem_bytes(L, b) <= 232448:      # a block's shared memory
+        splits.add(b)
+    outs = [scl_subtree(a, pm, sched, n_shared=n, **kw)
+            for n in sorted(splits)]
+    torch.cuda.synchronize()
+    for other in outs[1:]:
+        assert all(torch.equal(x, y) for x, y in zip(outs[0], other))
+    assert _digest(outs[0]) == QUAD_CARD_DIGESTS[case]
+    want = scl_subtree_plain(a, pm, ops, **kw)
+    share, _ = assert_blocks_agree(
+        tuple(x.cpu().numpy() for x in want[:2]),
+        tuple(x.cpu().numpy() for x in outs[0][:2]),
+        want[2].cpu().numpy(), outs[0][2].cpu().numpy())
+    assert mode == "exact" or share == 1.0

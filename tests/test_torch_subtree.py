@@ -3,6 +3,8 @@ Pallas kernel of polar_tpu (interpret mode), and the host build of the
 CUDA kernel's routine against the plain version. The kernel itself is
 tested on the card in ``test_torch_gpu.py``."""
 
+import hashlib
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -408,3 +410,130 @@ def test_native_call_rejects_bad_inputs():
         scl_subtree_host(torch.zeros(2, 8, 4, dtype=torch.float64), pm,
                          sched, b=1, llr_max=LLR_MAX, mode="minsum")
 
+
+
+# sha256 of each quad-edge case's outputs (cw, P and the path metrics'
+# bits, schedule by schedule), as the routine gave them with the scalar
+# [row][codeword][slot] workspaces, before they became row quads
+QUAD_EDGE_DIGESTS = {
+    (1, 1, 'minsum'): '81d9523c8d39225b',
+    (1, 1, 'exact'): '0110982825ecb5c3',
+    (1, 8, 'minsum'): 'b68461b35c0964ee',
+    (1, 8, 'exact'): '473051d5ba2d760d',
+    (1, 32, 'minsum'): 'b524393b8921f2b5',
+    (1, 32, 'exact'): 'd1031e09f3fc6ceb',
+    (2, 1, 'minsum'): '05f49a2700d68ca5',
+    (2, 1, 'exact'): 'bedf325d1e8a245d',
+    (2, 8, 'minsum'): '73d8fe381b2948ad',
+    (2, 8, 'exact'): '89a0a324024cf7ef',
+    (2, 32, 'minsum'): '02581f96de7fd956',
+    (2, 32, 'exact'): '551446415bf5a604',
+    (3, 1, 'minsum'): '1ff7a750db5e7dda',
+    (3, 1, 'exact'): 'b8d4af0a26525f55',
+    (3, 8, 'minsum'): '41d6ab4810f16a63',
+    (3, 8, 'exact'): 'b1cd05075d111775',
+    (3, 32, 'minsum'): '69a97c685a66a265',
+    (3, 32, 'exact'): 'a66b81579adaac9c',
+    (4, 1, 'minsum'): 'cc5960f7d7aaf4b4',
+    (4, 1, 'exact'): '643bbadd05d8eaac',
+    (4, 8, 'minsum'): 'e4f7a4a1aac2b776',
+    (4, 8, 'exact'): '3f7d895fa00d3e38',
+    (4, 32, 'minsum'): 'b341769bdba28980',
+    (4, 32, 'exact'): 'c09aff33bded35f1',
+}
+
+
+def _quad_edge_schedules(b):
+    """Schedules of depth ``b`` whose stages sit on both sides of the quad
+    edge (4 rows): fast units of a 5G mask, whole-subtree rate-0, rate-1
+    and SPC nodes (their loops read the input straight), two half-subtree
+    nodes, a leaf schedule with PC leaves and the traced form."""
+    rng = np.random.default_rng(b)
+    units = _sub_units(_mask_5g(16 << b, 32 << b), b, True, 2)
+    half = 1 << (b - 1)
+    leaves = rng.random(1 << b) < 0.5
+    pc = ~leaves & (rng.random(1 << b) < 0.4)
+    return [*units[:2], units[-1], (("z", b, 0),), (("o", b, 0),),
+            (("s", b, 0),), (("r", b - 1, 0), ("s", b - 1, half)),
+            leaf_schedule(leaves, pc), traced_schedule(b)], leaves
+
+
+def _digest(outs):
+    h = hashlib.sha256()
+    for cw, P, pm in outs:
+        h.update(cw.numpy().tobytes() + P.numpy().tobytes()
+                 + pm.numpy().view(np.int32).tobytes())
+    return h.hexdigest()[:16]
+
+
+@pytest.mark.parametrize("mode", ["minsum", "exact"])
+@pytest.mark.parametrize("L", [1, 8, 32])
+@pytest.mark.parametrize("b", [1, 2, 3, 4])
+def test_host_build_quad_edges_equal_plain(b, L, mode, monkeypatch):
+    """Row quads at their edges: depths 1-4, workspace stages split
+    between the block's shared arrays and the global scratch at 0, 2, 3
+    and b shared stages, a batch that fills no whole block (131 columns
+    against 128 / L codewords a block). Every split gives the same bits,
+    equal to the routine's outputs before the quads (``QUAD_EDGE_DIGESTS``)
+    and to the plain version (exact mode: up to near-tie forks)."""
+    bs = 131
+    scheds, leaves = _quad_edge_schedules(b)
+    frz = torch.from_numpy(leaves.astype(np.int32))
+    near_tie, close_call = _near_tie_blocks(monkeypatch)
+    outs = []
+    for i, ops in enumerate(scheds):
+        a, pm = _inputs(b, L, bs, seed=10 * b + i)
+        a_t, pm_t = torch.from_numpy(a), torch.from_numpy(pm)
+        kw = dict(b=b, llr_max=LLR_MAX, mode=mode,
+                  frz=frz if ops[0][0] == "t" else None)
+        sched = SubtreeSchedule(ops, "cpu")
+        splits = [scl_subtree_host(a_t, pm_t, sched, n_shared=n, **kw)
+                  for n in sorted({0, 2, 3, b} & set(range(b + 1)))]
+        for other in splits[1:]:
+            assert all(torch.equal(x, y) for x, y in zip(splits[0], other))
+        got = [x.numpy() for x in splits[0]]
+        outs.append(splits[0])
+        want = [x.numpy() for x in scl_subtree_plain(a_t, pm_t, ops, **kw)]
+        close_call(bs)
+        _, rel, bad = block_agreement(want[:2], got[:2], want[2], got[2])
+        assert rel <= PM_RTOL
+        if mode == "minsum":
+            assert not bad.any()
+        else:
+            assert not (bad & ~near_tie[-1].numpy()).any()
+    assert _digest(outs) == QUAD_EDGE_DIGESTS[b, L, mode]
+
+
+def test_block_smem_bytes_unchanged():
+    """A block's dynamic shared memory is what it was with the scalar
+    layout: per codeword 5 bytes a row and path of the shared stages
+    (f32, then int8, each 8-aligned) plus its exchange arrays, so the
+    budget keeps 6 shared stages at L = 8."""
+    align8 = lambda x: (x + 7) & ~7
+    for L in cuda_scl.LIST_SIZES:
+        C = cuda_scl.THREADS // L
+        exchange = align8(33 * L + 2 * L * L)   # sizeof(GroupShared<L>)
+        for n in range(11):
+            rows = (1 << n) - 1
+            want = align8(align8(4 * rows * C * L) + C * exchange
+                          + rows * C * L)
+            assert cuda_scl.block_smem_bytes(L, n, route="host") == want
+    assert cuda_scl.shared_stages(10, 8, route="host") == 6
+
+
+def test_quad_row_counts():
+    """The f/g and rise rows a path that run on quads and those that stay
+    scalar: scl8's fast schedule at b=10 and the uplink (19, 864) code's PC
+    leaf schedule at b=8."""
+    from polar_torch.models.polar.encode import Polar5GEncoder
+    (ops,) = _sub_units(_mask_5g(512, 1024), 10, True)
+    assert cuda_scl.row_counts(ops, 10) == (8988, 174)
+    enc = Polar5GEncoder(19, 864, device="cpu")
+    mask = np.zeros(enc.n_polar, bool)
+    mask[enc.frozen_pos] = True
+    pc = np.zeros(enc.n_polar, bool)
+    pc[enc.pc_pos] = True
+    assert cuda_scl.row_counts(tuple(leaf_schedule(mask, pc)), 8) == (2304,
+                                                                      768)
+    assert cuda_scl.row_counts((("o", 1, 0),), 1) == (0, 0)
+    assert cuda_scl.row_counts((("i", 0, 0), ("f", 0, 1)), 1) == (0, 3)

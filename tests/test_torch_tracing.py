@@ -198,7 +198,9 @@ def test_summarize_on_fixed_records():
             _row("chain.front", i, b, 2 * scale, 1 * scale, ops=5, h2d=3),
             _row("chain.decode", i, b, 4 * scale, 6 * scale, ops=7),
             _row("kernel.scl_subtree", i + 2, b, 1 * scale, 4 * scale,
-                 ops=2, **{"launch.scl_subtree": 1}),
+                 ops=2, **{"launch.scl_subtree": 1,
+                           "rows.scl_subtree.quad": 8988,
+                           "rows.scl_subtree.scalar": 174}),
             _row("sim.sync", i, b, 3 * scale, 0.5 * scale, sync=1),
         ]
     s = tracing.summarize(rows, counted=1)
@@ -219,3 +221,7 @@ def test_summarize_on_fixed_records():
     assert s["harness_host_ms"] == pytest.approx(2.0)
     text = tracing.format_table(s)
     assert "kernel.scl_subtree" in text and "decode_glue_ms 4.0" in text
+    # the quad rows' share of the SCL kernel's rows (scl8's schedule)
+    assert ("counter rows.scl_subtree.quad 8988.00 a batch (98.1% of "
+            "rows.scl_subtree.*)") in text
+    assert "launch.scl_subtree" not in text
