@@ -14,6 +14,7 @@ from polar_tpu.models.polar import rate_match as jrm
 from polar_tpu.models.polar.decode5g import Polar5GDecoder as JPolar5GDecoder
 from polar_tpu.models.polar.encode import Polar5GEncoder as JPolar5GEncoder
 
+from _torch_parity import run_both
 from polar_torch import (Polar5GDecoder, Polar5GEncoder, SystemAWGNModel,
                          from_numpy_state, sim_ber)
 from polar_torch.models.polar import pc as tpc
@@ -160,10 +161,10 @@ def test_decoder_equals_reference_on_shared_llrs(k, n, channel, dec_type, L):
     j_enc = JPolar5GEncoder(k, n, channel_type=channel)
     _, logits = _noisy_logits(t_enc, 64, 0.9, seed=k + L)
     kw = dict(dec_type=dec_type, list_size=L, return_crc_status=True)
-    u_j, ok_j = JPolar5GDecoder(j_enc, **kw)(jnp.asarray(logits))
-    u_t, ok_t = Polar5GDecoder(t_enc, **kw)(torch.from_numpy(logits))
-    np.testing.assert_array_equal(u_t.numpy(), np.asarray(u_j))
-    np.testing.assert_array_equal(ok_t.numpy(), np.asarray(ok_j))
+    (u_j, ok_j), (u_t, ok_t) = run_both(JPolar5GDecoder(j_enc, **kw),
+                                        Polar5GDecoder(t_enc, **kw), logits)
+    np.testing.assert_array_equal(u_t, u_j)
+    np.testing.assert_array_equal(ok_t, ok_j)
 
 
 @pytest.mark.parametrize("k,n,channel,dec_type", [

@@ -1,7 +1,11 @@
 """polar_torch's public surface against polar_tpu's: every name the JAX
 package exports (its reference-compatible aliases included), the
 constellation's call and plot, the mapper's symbol indices, and the SCL
-decoder's ``schedule``, which resolves ``use_fast_scl`` as JAX does."""
+decoder's ``schedule``, which resolves ``use_fast_scl`` as JAX does; and
+the tests' own rule that a pytest-xdist worker gives torch its share of the
+CPUs."""
+
+import os
 
 import numpy as np
 import jax.numpy as jnp
@@ -16,6 +20,7 @@ from polar_tpu.ops.mapping import Constellation as JConstellation
 from polar_tpu.ops.mapping import Mapper as JMapper
 from polar_tpu.sim import hard_decisions as j_hard_decisions
 
+from _torch_parity import run_both, share_cpus_among_xdist_workers
 import polar_torch as pt
 from polar_torch.models.polar.construction import generate_5g_ranking
 from polar_torch.models.polar.hybrid import HybridSCLDecoder
@@ -47,8 +52,7 @@ def test_gen_arikan_and_hard_decisions_equal_jax():
     llr = np.random.default_rng(0).normal(0, 2, (8, 16)).astype(np.float32)
     llr[0, :3] = 0.0
     np.testing.assert_array_equal(
-        pt.hard_decisions(torch.from_numpy(llr)).numpy(),
-        np.asarray(j_hard_decisions(jnp.asarray(llr))))
+        *run_both(j_hard_decisions, pt.hard_decisions, llr))
 
 
 @pytest.mark.parametrize("m", [2, 4, 6])
@@ -98,9 +102,7 @@ def test_scl_schedule_equals_jax(schedule):
                            device="cpu")
     assert tdec.schedule == jdec.schedule == schedule
     assert tdec.use_fast_scl == jdec.use_fast_scl == (schedule == "unrolled")
-    np.testing.assert_array_equal(
-        tdec(torch.from_numpy(logits)).numpy(),
-        np.asarray(jdec(jnp.asarray(logits))))
+    np.testing.assert_array_equal(*run_both(jdec, tdec, logits))
 
 
 @pytest.mark.parametrize("n", [64, 256])
@@ -166,3 +168,28 @@ def test_requires_host_equals_jax(config):
     got = _with_requires_host(pt, config, device="cpu").requires_host
     assert got == want
     assert want == config.endswith(("hybrid", "hybSCL"))
+
+
+@pytest.mark.parametrize("workers,threads", [("6", 1), ("2", 4), (None, None)])
+def test_xdist_worker_takes_its_share_of_the_cpus(monkeypatch, workers,
+                                                  threads):
+    """Of ``-n workers`` on 8 CPUs, a worker gives torch and the
+    subprocesses its tests start 8 // workers threads; outside xdist,
+    torch's count and the environment stay as they were."""
+    saved = torch.get_num_threads()
+    monkeypatch.setattr(os, "sched_getaffinity", lambda pid: set(range(8)))
+    for var in ("OMP_NUM_THREADS", "MKL_NUM_THREADS"):
+        monkeypatch.setenv(var, "as before")
+    if workers is None:
+        monkeypatch.delenv("PYTEST_XDIST_WORKER_COUNT", raising=False)
+    else:
+        monkeypatch.setenv("PYTEST_XDIST_WORKER_COUNT", workers)
+    try:
+        assert share_cpus_among_xdist_workers() == threads
+        assert torch.get_num_threads() == (saved if threads is None
+                                           else threads)
+        env = "as before" if threads is None else str(threads)
+        assert os.environ["OMP_NUM_THREADS"] == env
+        assert os.environ["MKL_NUM_THREADS"] == env
+    finally:
+        torch.set_num_threads(saved)

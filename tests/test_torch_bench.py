@@ -9,13 +9,13 @@ import os
 import subprocess
 import sys
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import polar_tpu as jpt
 
+from _torch_parity import run_both
 from polar_torch import bench
 from polar_torch.sim import count_block_errors, count_errors
 
@@ -47,13 +47,9 @@ def test_build_model_equals_bench_chain(k, n):
     assert (dec.mode, dec.list_size, model.k, model.n) == ("minsum", 8, k, n)
     rng = np.random.default_rng(n)
     u = rng.integers(0, 2, (16, k)).astype(np.float32)
-    np.testing.assert_array_equal(
-        model.encoder(torch.from_numpy(u)).numpy(),
-        np.asarray(j_enc(jnp.asarray(u))))
+    np.testing.assert_array_equal(*run_both(j_enc, model.encoder, u))
     logits = rng.normal(0.0, 4.0, (48, n)).astype(np.float32)
-    np.testing.assert_array_equal(
-        dec(torch.from_numpy(logits)).numpy(),
-        np.asarray(j_dec(jnp.asarray(logits))))
+    np.testing.assert_array_equal(*run_both(j_dec, dec, logits))
 
 
 def test_build_model_options():

@@ -5,7 +5,6 @@ import filecmp
 import os
 
 import numpy as np
-import jax.numpy as jnp
 import pytest
 import torch
 
@@ -16,6 +15,7 @@ from polar_tpu.models.polar.construction import (
     generate_5g_ranking as j_generate_5g_ranking)
 from polar_tpu.models.polar.encode import PolarEncoder as JPolarEncoder
 
+from _torch_parity import run_both
 from polar_torch.models.polar import construction as tconstruction
 from polar_torch.models.polar import ga as tga
 from polar_torch.models.polar import scan_core as tsc
@@ -49,10 +49,10 @@ def test_5g_ranking_rejects_invalid_codes(k, n):
 def test_encoder_equals_jax(k, n):
     frozen, _ = generate_5g_ranking(k, n)
     u = np.random.default_rng(n).integers(0, 2, (16, k)).astype(np.float32)
-    c = PolarEncoder(frozen, n, device="cpu")(torch.from_numpy(u))
-    assert c.dtype == torch.float32 and c.shape == (16, n)
-    np.testing.assert_array_equal(
-        c.numpy(), np.asarray(JPolarEncoder(frozen, n)(jnp.asarray(u))))
+    want, c = run_both(JPolarEncoder(frozen, n),
+                       PolarEncoder(frozen, n, device="cpu"), u)
+    assert c.dtype == np.float32 and c.shape == (16, n)
+    np.testing.assert_array_equal(c, want)
 
 
 def _random_masks(n, count, seed):

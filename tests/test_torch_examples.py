@@ -11,6 +11,8 @@ import tomllib
 
 import pytest
 
+import _torch_parity  # noqa: F401 (caps torch's threads under xdist)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # (script, arguments after --device cpu, result lines it must print)

@@ -14,6 +14,7 @@ import torch
 from polar_tpu.models.polar.hybrid import HybridSCLDecoder as JHybrid
 from polar_tpu.ops.crc import CRCEncoder as JCRCEncoder
 
+from _torch_parity import run_both
 from polar_torch import (HybridSCLDecoder, Polar5GDecoder, Polar5GEncoder,
                          PolarEncoder, PolarSCLDecoder, SystemAWGNModel,
                          generate_5g_ranking, sim_ber)
@@ -65,11 +66,11 @@ def test_hybrid_equals_reference():
     frozen, logits, _ = _crc_batch(n, k, 1.0, 256, seed=2)
     kw = dict(list_size=8, crc_degree=DEG, min_capacity=4,
               return_crc_status=True)
-    u_j, st_j = JHybrid(frozen, n, **kw)(jnp.asarray(logits))
-    u_t, st_t = HybridSCLDecoder(frozen, n, device="cpu", **kw)(
-        torch.from_numpy(logits))
-    np.testing.assert_array_equal(u_t.numpy(), np.asarray(u_j))
-    np.testing.assert_array_equal(st_t.numpy(), np.asarray(st_j))
+    (u_j, st_j), (u_t, st_t) = run_both(
+        JHybrid(frozen, n, **kw),
+        HybridSCLDecoder(frozen, n, device="cpu", **kw), logits)
+    np.testing.assert_array_equal(u_t, u_j)
+    np.testing.assert_array_equal(st_t, st_j)
 
 
 def test_crc_batches_equal_reference_crc():

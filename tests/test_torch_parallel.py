@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_parity  # noqa: F401 (caps torch's threads under xdist)
+
 HERE = os.path.abspath(__file__)
 REPO = os.path.dirname(os.path.dirname(HERE))
 N, K, BATCH, EBNO_DB, SEED = 32, 16, 64, 2.0, 7

@@ -13,6 +13,7 @@ import torch
 
 from polar_tpu.utils.profiling import flop_estimate as j_flop_estimate
 
+import _torch_parity  # noqa: F401 (caps torch's threads under xdist)
 from polar_torch.models.polar.construction import generate_5g_ranking
 from polar_torch.models.polar.sc import PolarSCDecoder
 from polar_torch.models.polar.scan_core import fast_schedule

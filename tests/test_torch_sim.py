@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_parity  # noqa: F401 (caps torch's threads under xdist)
 from polar_torch import PlotBER, SystemAWGNModel, sim_ber
 from polar_torch.models.polar.construction import generate_5g_ranking
 from polar_torch.models.polar.encode import PolarEncoder

@@ -6,6 +6,7 @@ CA-SCL-8 chain at a few blocks, off, under ``torch.profiler`` and under
 import pytest
 import torch
 
+import _torch_parity  # noqa: F401 (caps torch's threads under xdist)
 from polar_torch.models.polar.construction import generate_5g_ranking
 from polar_torch.models.polar.decode5g import Polar5GDecoder
 from polar_torch.models.polar.encode import Polar5GEncoder, PolarEncoder
