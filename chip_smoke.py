@@ -1436,6 +1436,27 @@ def scl_ptxas_report(src):
     return info
 
 
+def scl_sass_counts(lib):
+    """SASS instructions of each decode kernel in the built library
+    ``lib`` (``cuobjdump -sass``), by ``scl_subtree_kernel<L[, pc]>``."""
+    from polar_torch import _build
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    run = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                         text=True, timeout=300, check=True)
+    counts, name = {}, None
+    for line in run.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            k = re.search(r"scl_subtree_kernelILi(\d+)ELb(\d)E", m[1])
+            pc = ", pc" if k and k[2] == "1" else ""
+            name = f"scl_subtree_kernel<{k[1]}{pc}>" if k else None
+            if name:
+                counts[name] = 0
+        elif name and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
+            counts[name] += 1
+    return counts
+
+
 def parent_scl_launch(parent):
     """The parent checkout's ``scl_subtree_launch``: its
     ``polar_torch/csrc/scl_subtree.cu`` built with the package's nvcc flags
@@ -1524,10 +1545,12 @@ def scl_quads_phase(dev, card, parent):
     lib = _build.load("scl_subtree", "cuda")
     info = scl_ptxas_report(os.path.join(ROOT, "polar_torch", "csrc",
                                          "scl_subtree.cu"))
+    sass = scl_sass_counts(_build._library_path("scl_subtree", "cuda"))
     for name, v in info.items():
         log(f"phase 7: {name}: {v.get('registers')} registers, stack "
             f"{v.get('stack')} B, spill stores {v.get('spill_stores')} B, "
-            f"spill loads {v.get('spill_loads')} B")
+            f"spill loads {v.get('spill_loads')} B, "
+            f"{sass.get(name, '-')} SASS instructions")
     for L in cuda_scl.LIST_SIZES:
         n = cuda_scl.shared_stages(10, L)
         per_sm = [lib.scl_subtree_blocks_per_sm(L, pc, n) for pc in (0, 1)]
@@ -1539,10 +1562,13 @@ def scl_quads_phase(dev, card, parent):
             "parent's in turns not measured")
         return {}
     launch = parent_scl_launch(parent)
+    sass = scl_sass_counts(os.path.join(_build.BUILD_DIR,
+                                        "libscl_subtree_parent.so"))
     for name, v in scl_ptxas_report(os.path.join(
             parent, "polar_torch", "csrc", "scl_subtree.cu")).items():
         log(f"phase 7: the parent's {name}: {v.get('registers')} "
-            f"registers, spill stores {v.get('spill_stores')} B")
+            f"registers, spill stores {v.get('spill_stores')} B, "
+            f"{sass.get(name, '-')} SASS instructions")
 
     def parent_call(a, pm, sched, *, b, llr_max, mode, frz=None,
                     n_shared=None):
@@ -1552,27 +1578,31 @@ def scl_quads_phase(dev, card, parent):
         return cuda_scl._native_call(launch, a, pm, frz, sched, b, llr_max,
                                      mode, n_shared, stream)
 
+    def leaf_rows(calls):
+        """The calls with each schedule's table one row a leaf (no
+        frozen-run rows), which every parent build takes"""
+        return [((a, pm, cuda_scl.SubtreeSchedule(
+            sched.ops, a.device, runs=False)), kw)
+            for (a, pm, sched), kw in calls]
+
     times = {}
     for label, calls in scl_turn_decodes(dev):
-        outs = {}
-        for side, fn in (("parent", parent_call),
-                         ("this", cuda_scl.scl_subtree)):
-            outs[side] = [fn(*args, **kw) for args, kw in calls]
+        sides = (("parent", parent_call, leaf_rows(calls)),
+                 ("this", cuda_scl.scl_subtree, calls))
+        outs = {side: [fn(*args, **kw) for args, kw in cs]
+                for side, fn, cs in sides}
         torch.cuda.synchronize()
         same = all(torch.equal(x, y) for p, c in zip(outs["parent"],
                                                     outs["this"])
                    for x, y in zip(p, c))
         if not same:
-            raise AssertionError(f"phase 7: {label}: the quads' outputs "
+            raise AssertionError(f"phase 7: {label}: the kernel's outputs "
                                  "differ from the parent kernel's")
         ms = {"parent": [], "this": []}
         for _ in range(SCL_TURN_ROUNDS):
-            for side, fn in (("parent", parent_call),
-                             ("this", cuda_scl.scl_subtree),
-                             ("this", cuda_scl.scl_subtree),
-                             ("parent", parent_call)):
-                ms[side].append(len(calls) * kernel_device_ms(
-                    lambda: [fn(*args, **kw) for args, kw in calls],
+            for side, fn, cs in (*sides, *sides[::-1]):
+                ms[side].append(len(cs) * kernel_device_ms(
+                    lambda: [fn(*args, **kw) for args, kw in cs],
                     SCL_TURN_REPS, "scl_subtree_kernel"))
         p, c = statistics.median(ms["parent"]), statistics.median(ms["this"])
         times[label] = (p, c)

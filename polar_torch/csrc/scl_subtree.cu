@@ -44,9 +44,13 @@
 // 4 blocks an SM at n_shared 6, L = 8, which holds the whole bs 8192 batch
 // (512 blocks against 528 places); at most 128 registers a thread keep it
 // there. A leaf schedule (the plain and PC sweeps) spends its time in ops
-// over stages of 1-4 rows, where quads save little; its decodes slow down
-// with the kernel's code size (H100 runs: a few hundred instructions more
-// cost up to 10%), so the loops keep one copy of each op where they can.
+// over stages of 1-4 rows, where quads save little and each op's fixed
+// cost (schedule read, live masks, pointer resets, rise, barrier) sets the
+// pace; the PC build walks each aligned block of frozen leaves inside one
+// op (OP_FRUN), stages 1 and 2 in registers. Leaf and fast decodes slow
+// down with the kernel's code size (H100 runs: a few hundred instructions
+// more cost up to 10%), so the loops keep one copy of each op where they
+// can, and the frozen-run walk exists in the PC build only.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libscl_subtree.so scl_subtree.cu

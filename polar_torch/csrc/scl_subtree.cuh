@@ -72,7 +72,12 @@
 // global. The routine is built twice, with and without the register
 // (kPc): a schedule with no p leaf runs the build without it, the code of
 // the kernel before PC decoding, whose register use and instruction
-// schedule the main path was tuned on.
+// schedule the main path was tuned on. A PC schedule walks every leaf, and
+// most of its leaves are frozen: its table holds each aligned block of 2^s
+// frozen leaves as one OP_FRUN row, which the kPc build decodes leaf by
+// leaf inside one op (frozen_run), with the leaf ops' arithmetic and
+// without their per-op cost (schedule read, live masks, pointer resets,
+// rises of zero sums, barrier).
 #pragma once
 
 #include <stddef.h>
@@ -82,8 +87,10 @@
 namespace polar_torch {
 
 // op kinds of the schedule table [n_ops, 3] = (kind, stage, lo)
+// (OP_FRUN: 2^stage frozen leaves from lo, walked leaf by leaf in one op;
+// the kPc build only)
 enum OpKind { OP_Z = 0, OP_R = 1, OP_O = 2, OP_S = 3, OP_F = 4, OP_I = 5,
-              OP_T = 6, OP_P = 7 };
+              OP_T = 6, OP_P = 7, OP_FRUN = 8 };
 
 constexpr int kMaxB = 12;          // subtree depth limit (n <= 4096)
 constexpr int kThreads = 128;      // threads of a block on the card
@@ -537,6 +544,73 @@ struct SubtreeGroup {
     st.lp = (st.lp & ~reset) | (every_field(l) & reset);
   }
 
+  // the 2^s frozen leaves under the node at stage s (s >= 1) whose LLRs
+  // are in slot l, leaf by leaf: the f/g rows, values and metric adds of
+  // 2^s 'f' ops, whose partial sums are all zero. Stages 2 and up stay in
+  // slot l's workspace rows; stage 2 (the current 4 leaves) and stage 1
+  // (the current 2) are kept in registers, and stage 0 is never stored
+  PT_HD float frozen_run(int l, int s, float pm) const {
+    const float m = A.llr_max;
+    const int exact = A.exact;
+    F4 v{};                       // stage 2: rows of leaves 4k..4k+3
+    float y0 = 0.0f, y1 = 0.0f;   // stage 1: rows of leaves 2k, 2k+1
+#pragma unroll 1
+    for (int j = 0; j < (1 << s); ++j) {
+      if (s >= 2 && (j & 3) == 0) {
+        // stage 2 of leaf j: a g with zero sums at stage ctz(j) (none at
+        // j = 0), then f down to stage 2
+        int top = s;
+        if (j > 0) {
+          top = ctz(j);
+          const int hq = 1 << (top - 2);
+          const Rows<const float> x = W.lrow(top + 1, l);
+          const Rows<float> y = W.lrow_w(top, l);
+          quads(hq, [=](int q) {
+            return FgQuad{load4(x, q), load4(x, q + hq), 0u};
+          }, [](int, const FgQuad& u) {
+            F4 r;
+            for (int k = 0; k < 4; ++k) r.v[k] = g_op(u.a.v[k], u.c.v[k], 0);
+            return r;
+          }, [=](int q, const F4& r) { st_f4(y.at(q), r); });
+        }
+#pragma unroll 1
+        for (int t = top; t > 2; --t) {
+          const int hq = 1 << (t - 3);
+          const Rows<const float> x = W.lrow(t, l);
+          const Rows<float> y = W.lrow_w(t - 1, l);
+          quads(hq, [=](int q) {
+            return FgQuad{load4(x, q), load4(x, q + hq), 0u};
+          }, [=](int, const FgQuad& u) { return f4(u.a, u.c, m, exact); },
+          [=](int q, const F4& r) { st_f4(y.at(q), r); });
+        }
+        v = load4(W.lrow(2, l), 0);
+      }
+      if ((j & 1) == 0) {
+        if (s == 1) {
+          const F4 x = two_h_rows(W.lrow(1, l), 1);
+          y0 = x.v[0];
+          y1 = x.v[1];
+        } else {
+          // stage 1 of leaf j: f of stage 2 (j = 4k), else its g
+          F4 x = v;
+#pragma unroll 1
+          for (int k = 0; k < 2; ++k) {
+            y0 = y1;
+            y1 = (j & 2) ? g_op(x.v[0], x.v[2], 0)
+                         : f_op(x.v[0], x.v[2], m, exact);
+            x.v[0] = x.v[1];
+            x.v[2] = x.v[3];
+          }
+        }
+      }
+      const float x = (j & 1) ? g_op(y0, y1, 0) : f_op(y0, y1, m, exact);
+      float acc = 0.0f;
+      acc += softplus(-clipf(x, m));
+      pm = pm + acc;
+    }
+    return pm;
+  }
+
   // |a| of the t-th least reliable row of node-entry path q (node at s_nd)
   PT_HD PT_INLINE float order_val(int s_nd, int t, int q) const {
     return fabsf(clipf(W.lrow(s_nd, q)[gs.srows[t][q]], A.llr_max));
@@ -602,6 +676,17 @@ struct SubtreeGroup {
           const float v = clipf(x[0], m);
           st.c0 = st.pm + softplus(-v);
           st.c1 = st.pm + softplus(v);
+        } else if (kPc && kind == OP_FRUN) {
+          // 2^s_nd frozen leaves in one op: their metrics leaf by leaf, then
+          // the block's zero sums rise as a rate-0 node's do. The pointer
+          // fields end as the leaf ops leave them: LLR stages 1..s_nd - 1
+          // and partial-sum stages 0..s_nd - 1 in slot l
+          st.pm = frozen_run(l, s_nd, st.pm);
+          fill_rows(W.urow(r, l), tail, w, 0);
+          const uint64_t low = ((uint64_t)1 << (kPtrBits * s_nd)) - 1;
+          st.lp = (st.lp & ~(low >> kPtrBits))
+              | (every_field(l) & (low >> kPtrBits));
+          st.up = (st.up & ~low) | (every_field(l) & low);
         } else if (kPc && kind == OP_P) {
           // PC leaf: the register decides; the metric rounds as a frozen
           // leaf's does (0 + softplus, then the add), for either bit

@@ -94,7 +94,7 @@ def shared_stages(b: int, lanes: int, route: str = "cuda") -> int:
 
 def sc_schedule(ops, device) -> SubtreeSchedule:
     """An SC subtree's ops (kinds z/f/i/t/p) as a ``SubtreeSchedule``."""
-    return SubtreeSchedule(ops, device, codes=SC_KIND_CODES)
+    return SubtreeSchedule(ops, device, codes=SC_KIND_CODES, runs=False)
 
 
 # ----------------------------------------------------------------------

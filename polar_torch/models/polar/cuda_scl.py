@@ -29,8 +29,10 @@ The schedule comes in two forms:
   ``form.scl_subtree.traced`` and those at L > 8 in
   ``form.scl_subtree.wide``, counts the f/g and rise rows a path that run
   on row quads and those that stay scalar (``row_counts``) in
-  ``rows.scl_subtree.quad`` and ``rows.scl_subtree.scalar``, and reports
-  each launch's work to a running ``profiling.flop_estimate``.
+  ``rows.scl_subtree.quad`` and ``rows.scl_subtree.scalar``, the table's
+  rows in ``ops.scl_subtree`` and the leaves decoded inside frozen-run rows
+  in ``leaves.scl_subtree.run``, and reports each launch's work to a
+  running ``profiling.flop_estimate``.
 * The kernel gives each codeword a group of L threads of one warp, one
   thread per path, and a block of ``THREADS`` threads holds THREADS / L
   codewords. A thread keeps its path's metric and its slot of every
@@ -82,6 +84,9 @@ from polar_torch.utils import kernel_work, tracing
 
 KIND_CODES = {"z": 0, "r": 1, "o": 2, "s": 3, "f": 4, "i": 5, "t": 6,
               "p": 7}
+# a table row of 2^s frozen leaves from lo (kPc builds only): not an op
+# kind of the schedules, which keep one op a leaf
+RUN, RUN_CODE = "run", 8
 PC_REGISTER = 5     # length of the PC shift register (TS 38.212 5.3.1.2)
 MAX_B = 12          # kMaxB in csrc/scl_subtree.cuh
 LIST_SIZES = (1, 2, 4, 8, 16, 32)
@@ -138,15 +143,38 @@ def row_counts(ops, b: int):
     return quad, scalar
 
 
+def frozen_runs(ops):
+    """The table rows ``(kind, stage, lo)`` of a schedule's ops with each
+    maximal aligned block of at least two frozen leaves, ``('f', 0, lo)``
+    to ``('f', 0, lo + 2^s - 1)`` with ``lo`` a multiple of 2^s, as one
+    ``(RUN, s, lo)`` row; every other op stays as it is."""
+    rows, i = [], 0
+    while i < len(ops):
+        k, s, lo = ops[i]
+        w = 1
+        if k == "f" and s == 0:
+            while (lo % (2 * w) == 0 and i + 2 * w <= len(ops)
+                   and all(ops[i + t] == ("f", 0, lo + t)
+                           for t in range(w, 2 * w))):
+                w *= 2
+        rows.append((RUN, w.bit_length() - 1, lo) if w > 1 else (k, s, lo))
+        i += w
+    return rows
+
+
 class SubtreeSchedule:
     """One subtree's op list: ``ops`` for the plain version and ``table``,
     its int32 [n_ops, 3] encoding (kind, stage, lo) on ``device``; ``codes``
     maps the kinds a kernel takes to their codes. ``span`` is the number of
     leaves the ops cover, which the wrappers hold against 2^b; ``traced``
     says whether any op reads the run-time frozen flags (``'t'``), ``pc``
-    whether any is a PC leaf (``'p'``)."""
+    whether any is a PC leaf (``'p'``). With ``runs`` (the SCL kernel's
+    table) a PC schedule's table holds each aligned block of frozen leaves
+    as one row (``frozen_runs``), which the kernel's PC build walks leaf by
+    leaf; ``n_rows`` counts the table's rows and ``run_leaves`` the leaves
+    in such blocks."""
 
-    def __init__(self, ops, device, codes=KIND_CODES):
+    def __init__(self, ops, device, codes=KIND_CODES, runs=True):
         self.ops = tuple((str(k), int(s), int(lo)) for k, s, lo in ops)
         bad = sorted({k for k, _, _ in self.ops} - set(codes))
         if bad:
@@ -154,8 +182,12 @@ class SubtreeSchedule:
         self.span = max((lo + (1 << s) for _, s, lo in self.ops), default=0)
         self.traced = any(k == "t" for k, _, _ in self.ops)
         self.pc = any(k == "p" for k, _, _ in self.ops)
+        rows = frozen_runs(self.ops) if runs and self.pc else self.ops
+        codes = {**codes, RUN: RUN_CODE}
+        self.n_rows = len(rows)
+        self.run_leaves = sum(1 << s for k, s, _ in rows if k == RUN)
         self.table = torch.tensor(
-            [[codes[k], s, lo] for k, s, lo in self.ops],
+            [[codes[k], s, lo] for k, s, lo in rows],
             dtype=torch.int32, device=device).reshape(-1, 3)
         self._rows = {}
 
@@ -195,6 +227,8 @@ def scl_subtree(a, pm, sched: SubtreeSchedule, *, b: int, llr_max: float,
             quad, scalar = sched.rows(b)
             tracing.count("rows.scl_subtree.quad", quad)
             tracing.count("rows.scl_subtree.scalar", scalar)
+            tracing.count("ops.scl_subtree", sched.n_rows)
+            tracing.count("leaves.scl_subtree.run", sched.run_leaves)
         kernel_work.report(kernel_work.subtree_work, sched.ops, b, mode, a,
                            frz)
         return out

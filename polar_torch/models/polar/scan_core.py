@@ -44,9 +44,9 @@ import numpy as np
 import torch
 
 from polar_torch.models.polar.cuda_butterfly import butterfly_rows
-from polar_torch.models.polar.cuda_sc import SC_KIND_CODES, sc_subtree
+from polar_torch.models.polar.cuda_sc import sc_schedule, sc_subtree
 from polar_torch.models.polar.cuda_scl import (
-    KIND_CODES, SubtreeSchedule, _ctz, _cto, _flip_forks, _lptr_live,
+    SubtreeSchedule, _ctz, _cto, _flip_forks, _lptr_live,
     _rep_fork, _take_paths, _uptr_live, scl_subtree, traced_schedule)
 from polar_torch.ops.butterfly import polar_transform
 from polar_torch.ops.fg import F_FUNCTIONS, _clip, g as g_op, softplus
@@ -211,9 +211,10 @@ def sum_rows(x):
     return x.sum(dim=0)
 
 
-def plan_sweep(ops, b, device, codes=KIND_CODES):
+def plan_sweep(ops, b, device, schedule=SubtreeSchedule):
     """``split_schedule``'s units with each subtree's op list encoded once
-    as a ``SubtreeSchedule`` on ``device`` (op codes ``codes``). A subtree
+    by ``schedule(ops, device)`` (the SCL kernel's ``SubtreeSchedule`` or
+    the SC kernel's ``cuda_sc.sc_schedule``). A subtree
     unit is ``("sub", j, schedule, frz)``; ``frz`` is None for a static
     schedule. PC leaves (``'p'``) need the whole tree in one subtree
     (``b = log2(n)``): the kernels start each call's PC register at zero
@@ -222,7 +223,7 @@ def plan_sweep(ops, b, device, codes=KIND_CODES):
     if any(k == "p" for k, _, _ in ops) and len(units) > 1:
         raise ValueError(f"PC leaves need the whole tree in one subtree "
                          f"call; b={b} cuts it into {len(units)} units")
-    return [("sub", u[1], SubtreeSchedule(u[2], device, codes), None)
+    return [("sub", u[1], schedule(u[2], device), None)
             if u[0] == "sub" else u for u in units]
 
 
@@ -436,7 +437,7 @@ def plan_sc_sweep(frozen_mask, b, device, pc_mask=None):
     ``fast_schedule(mask, rep=False, pc_mask=pc_mask)`` with the SC
     kernel's op codes."""
     return plan_sweep(fast_schedule(frozen_mask, rep=False, pc_mask=pc_mask),
-                      b, device, codes=SC_KIND_CODES)
+                      b, device, schedule=sc_schedule)
 
 
 def sc_sweep_hybrid(llr_ch, frozen_mask, mode: str = "minsum",

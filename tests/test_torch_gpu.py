@@ -539,9 +539,10 @@ def test_decoders_on_bec_logits_card_equal_cpu(cuda, pe):
 @pytest.mark.parametrize("code", [(19, 864), (12, 48)])
 def test_pc_kernels_equal_plain_on_card(cuda, code, mode):
     """The ``'p'`` leaves of both kernels (the whole tree in one call) on
-    the mother codes of the uplink PC codes: SCL at L = 8 and 32 under the
-    block rule (min-sum: every block, path metrics bit for bit), SC on
-    every block in min-sum."""
+    the mother codes of the uplink PC codes: SCL at L = 8, 16 and 32 under
+    the block rule (min-sum: every block, path metrics bit for bit), with
+    the aligned blocks of frozen leaves as frozen-run rows of the table
+    (counted once a launch), SC on every block in min-sum."""
     from polar_torch.models.polar import scan_core
     from polar_torch.models.polar.cuda_sc import sc_subtree_plain
     from polar_torch.models.polar.encode import Polar5GEncoder
@@ -554,10 +555,19 @@ def test_pc_kernels_equal_plain_on_card(cuda, code, mode):
     pc[enc.pc_pos] = True
     llr = 3.0 * torch.randn((n, 1024), device=cuda,
                             generator=torch.Generator(cuda).manual_seed(n))
-    for L in (8, 32):
+    rows, run_leaves = {(19, 864): (54, 220), (12, 48): (35, 36)}[code]
+    for L in (8, 16, 32):
         plan = scan_core.plan_plain_sweep(mask, S, cuda, pc_mask=pc)
         kw = dict(mode=mode, llr_max=LLR_MAX, lower_stages=S, plan=plan)
+        before = (tracing.counter("ops.scl_subtree"),
+                  tracing.counter("leaves.scl_subtree.run"),
+                  tracing.counter("launch.scl_subtree"))
         u_k, pm_k = scan_core.scl_sweep_hybrid(llr, mask, L, **kw)
+        after = (tracing.counter("ops.scl_subtree"),
+                 tracing.counter("leaves.scl_subtree.run"),
+                 tracing.counter("launch.scl_subtree"))
+        assert [y - x for x, y in zip(before, after)] == [rows, run_leaves,
+                                                          1]
         u_p, pm_p = scan_core.scl_sweep_hybrid(
             llr, mask, L, subtree=lambda a, pm, s, **k: scl_subtree_plain(
                 a, pm, s.ops, **k), **kw)

@@ -39,6 +39,25 @@ def _random_mask(n, seed):
     return rng.random(n) < rng.uniform(0.2, 0.8)
 
 
+def _uplink_pc_ops(k, e):
+    """The PC leaf schedule of the uplink (k, e) code's mother code and
+    its depth."""
+    from polar_torch.models.polar.encode import Polar5GEncoder
+    enc = Polar5GEncoder(k, e, device="cpu")
+    mask = np.zeros(enc.n_polar, bool)
+    mask[enc.frozen_pos] = True
+    pc = np.zeros(enc.n_polar, bool)
+    pc[enc.pc_pos] = True
+    return leaf_schedule(mask, pc), enc.n_polar.bit_length() - 1
+
+
+def _random_pc_ops(n, seed):
+    """A leaf schedule of n leaves with random frozen and PC leaves."""
+    rng = np.random.default_rng(seed)
+    frozen = rng.random(n) < 0.6
+    return leaf_schedule(frozen, ~frozen & (rng.random(n) < 0.2))
+
+
 def _inputs(b, L, bs, seed):
     rng = np.random.default_rng(seed)
     a = rng.normal(0, 3, (1 << b, L, bs)).astype(np.float32)
@@ -264,12 +283,18 @@ def test_traced_form_equals_static_form(L):
                                    rtol=PM_RTOL)
 
 
-@pytest.mark.parametrize("L,n_shared", [(8, 0), (8, 3), (32, 0), (32, 2)])
-def test_host_build_split_stages_equals_plain(L, n_shared):
+@pytest.mark.parametrize("L,n_shared", [(8, 0), (8, 3), (32, 0), (32, 2),
+                                        (1, 0), (1, 5), (8, 5), (32, 4)])
+def test_host_build_split_stages_equals_plain(L, n_shared, monkeypatch):
     """Workspace stages from ``n_shared`` up in the global scratch, the
     rest in the codeword's shared arrays, as the card splits them when a
     subtree does not fit the block's budget: bit-equal to the all-shared
-    layout and equal to the plain version."""
+    layout and equal to the plain version. PC leaf schedules (the uplink
+    (19, 864) and (12, 48) codes, a random PC mask), whose aligned blocks
+    of frozen leaves run as frozen-run rows (the (19, 864) code's 64-leaf
+    block has its root in the global scratch below 7 shared stages), in
+    both modes: bit-equal as well to the routine on the table of one row
+    a leaf, the parent kernel's."""
     cases = [(_mask_5g(128, 256), 6, None), (_random_mask(256, L + 5), 6, 2)]
     for c, (mask, b, spc) in enumerate(cases):
         for i, ops in enumerate(_sub_units(mask, b, True, spc)[:2]):
@@ -287,6 +312,32 @@ def test_host_build_split_stages_equals_plain(L, n_shared):
                 assert torch.equal(x, y)
             np.testing.assert_allclose(split[2].numpy(), want[2].numpy(),
                                        rtol=PM_RTOL)
+    near_tie, close_call = _near_tie_blocks(monkeypatch)
+    pc_cases = [_uplink_pc_ops(19, 864), _uplink_pc_ops(12, 48),
+                (_random_pc_ops(128, L), 7)]
+    for c, (ops, b) in enumerate(pc_cases):
+        runs = SubtreeSchedule(ops, "cpu")
+        assert runs.run_leaves > 0
+        leaves = SubtreeSchedule(ops, "cpu", runs=False)
+        a, pm = _inputs(b, L, 32, seed=4000 * c + L)
+        a_t, pm_t = torch.from_numpy(a), torch.from_numpy(pm)
+        for mode in ("minsum", "exact"):
+            kw = dict(b=b, llr_max=LLR_MAX, mode=mode)
+            split = scl_subtree_host(a_t, pm_t, runs, n_shared=n_shared,
+                                     **kw)
+            for other in (scl_subtree_host(a_t, pm_t, runs, **kw),
+                          scl_subtree_host(a_t, pm_t, leaves, **kw)):
+                assert all(torch.equal(x, y) for x, y in zip(split, other))
+            want = [x.numpy() for x in scl_subtree_plain(a_t, pm_t, ops,
+                                                         **kw)]
+            close_call(32)
+            got = [x.numpy() for x in split]
+            _, rel, bad = block_agreement(want[:2], got[:2], want[2], got[2])
+            assert rel <= PM_RTOL
+            if mode == "minsum":
+                assert not bad.any()
+            else:
+                assert not (bad & ~near_tie[-1].numpy()).any()
 
 
 @pytest.mark.parametrize("L", [2, 8, 32])
@@ -386,6 +437,48 @@ def test_schedule_table_encoding():
     assert table.dtype == torch.int32 and table.shape == (6, 3)
     assert table[:, 0].tolist() == [KIND_CODES[k] for k, _, _ in ops]
     assert table[:, 1:].tolist() == [[s, lo] for _, s, lo in ops]
+
+
+def test_pc_schedule_table_holds_frozen_runs():
+    """A PC schedule's table holds each maximal aligned block of frozen
+    leaves as one frozen-run row (kind ``RUN_CODE``, its stage, its first
+    leaf), which the kernel's PC build walks leaf by leaf; the op list, its
+    row counts and every table without PC leaves stay one op a leaf."""
+    ops, b = _uplink_pc_ops(19, 864)
+    sched = SubtreeSchedule(ops, "cpu")
+    table = sched.table.tolist()
+    assert (b, len(table), sched.n_rows, sched.run_leaves) == (8, 54, 54, 220)
+    assert table[0] == [cuda_scl.RUN_CODE, 6, 0]
+    runs = [s for k, s, _ in table if k == cuda_scl.RUN_CODE]
+    # blocks of 2, 4, 8, 16, 32 and 64 leaves
+    assert sorted(runs) == [1] * 6 + [2] * 4 + [3] * 2 + [4] * 3 + [5] * 2 + [
+        6]
+    # the rows cover the leaves in order, each run aligned to its size
+    lo = 0
+    for k, s, start in table:
+        assert start == lo and start % (1 << s) == 0
+        leaves = ops[lo:lo + (1 << s)]
+        if k == cuda_scl.RUN_CODE:
+            assert s >= 1 and all(op[0] == "f" for op in leaves)
+        else:
+            assert s == 0 and leaves == [(next(
+                n for n, c in KIND_CODES.items() if c == k), 0, lo)]
+        lo += 1 << s
+    assert lo == 256
+    assert sched.ops == tuple(ops)
+    assert sched.rows(8) == cuda_scl.row_counts(tuple(ops), 8) == (2304, 768)
+    assert SubtreeSchedule(_uplink_pc_ops(12, 48)[0], "cpu").n_rows == 35
+    # one row a leaf or node where no PC leaf is: the fast schedule, a leaf
+    # schedule, the traced form, and the SC kernel's tables
+    from polar_torch.models.polar.cuda_sc import sc_schedule
+    fast = _sub_units(_mask_5g(512, 1024), 10, True)[0]
+    for plain in (fast, tuple(leaf_schedule(_mask_5g(32, 64))),
+                  traced_schedule(4)):
+        sched = SubtreeSchedule(plain, "cpu")
+        assert sched.table.tolist() == [[KIND_CODES[k], s, lo]
+                                        for k, s, lo in plain]
+        assert (sched.n_rows, sched.run_leaves) == (len(plain), 0)
+    assert sc_schedule(ops, "cpu").table.shape == (256, 3)
 
 
 def test_liveness_rules_equal_reference():

@@ -201,7 +201,9 @@ def test_summarize_on_fixed_records():
             _row("kernel.scl_subtree", i + 2, b, 1 * scale, 4 * scale,
                  ops=2, **{"launch.scl_subtree": 1,
                            "rows.scl_subtree.quad": 8988,
-                           "rows.scl_subtree.scalar": 174}),
+                           "rows.scl_subtree.scalar": 174,
+                           "ops.scl_subtree": 54,
+                           "leaves.scl_subtree.run": 220}),
             _row("sim.sync", i, b, 3 * scale, 0.5 * scale, sync=1),
         ]
     s = tracing.summarize(rows, counted=1)
@@ -225,4 +227,8 @@ def test_summarize_on_fixed_records():
     # the quad rows' share of the SCL kernel's rows (scl8's schedule)
     assert ("counter rows.scl_subtree.quad 8988.00 a batch (98.1% of "
             "rows.scl_subtree.*)") in text
+    # the kernel's table rows and the leaves inside its frozen-run rows
+    # (the uplink PC schedule's), beside the rows
+    assert "counter ops.scl_subtree 54.00 a batch\n" in text + "\n"
+    assert "counter leaves.scl_subtree.run 220.00 a batch\n" in text + "\n"
     assert "launch.scl_subtree" not in text
