@@ -169,17 +169,19 @@ void (*kernel_of(const BpPlan& p, bool shared))(BpArgs) {
 
 // lattice == nullptr: the shared form; else the global form in lattice, a
 // [bs, 2 (S + 1) n] scratch of the message type (f32, or bf16 with
-// bf16 != 0). Returns a cudaError_t.
+// bf16 != 0). done and sweeps (each [bs] or nullptr) receive the
+// convergence flag and the sweeps each codeword ran. Returns a cudaError_t.
 extern "C" int bp_launch(const float* llr, long long llr_rs, long long llr_cs,
                          const float* prior, float* out, long long out_rs,
-                         long long out_cs, int32_t* done, void* lattice,
-                         int S, int bs, int num_iter, int check_every,
-                         int early_stop, int exact, int negate, float msf,
-                         float llr_max, int bf16, void* stream) {
+                         long long out_cs, int32_t* done, int32_t* sweeps,
+                         void* lattice, int S, int bs, int num_iter,
+                         int check_every, int early_stop, int exact,
+                         int negate, float msf, float llr_max, int bf16,
+                         void* stream) {
   using namespace polar_torch;
-  BpArgs A{llr, llr_rs, llr_cs, prior, out, out_rs, out_cs, done, lattice,
-           S, bs, num_iter, check_every, early_stop, exact, negate, msf,
-           llr_max};
+  BpArgs A{llr, llr_rs, llr_cs, prior, out, out_rs, out_cs, done, sweeps,
+           lattice, S, bs, num_iter, check_every, early_stop, exact, negate,
+           msf, llr_max};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool shared = lattice == nullptr;
   if (S < 1 || S > 16 || (shared && S > kBpMaxSharedS))

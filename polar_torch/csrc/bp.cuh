@@ -8,7 +8,8 @@
 // caller hands logits) and the frozen prior [n] (+llr_max at frozen
 // positions, 0 elsewhere), run num_iter BP sweeps over the message lattice
 // and return the info-side total LLR out [n, bs] and, when asked, the
-// G-matrix convergence flag done [bs] int32.
+// G-matrix convergence flag done [bs] int32 and the sweeps each codeword
+// ran, sweeps [bs] int32 (num_iter where no check passed).
 //
 // Lattice: lmsg[s] / rmsg[s], s = 0..S, [n] each. lmsg[S] holds the channel
 // LLRs, rmsg[0] the prior. The stage-s processing element couples rows u
@@ -89,6 +90,7 @@ struct BpArgs {
   float* out;                  // [n, bs], strides below
   long long out_rs, out_cs;
   int32_t* done;               // [bs] or null
+  int32_t* sweeps;             // [bs] or null: the sweeps a codeword ran
   void* lattice;               // [bs, 2 (S + 1) n] global scratch of the
                                // message type, or null
   int S;
@@ -601,6 +603,8 @@ struct BpCodeword {
             A.out[r * A.out_rs + col * A.out_cs] = total0(i_, k, j);
         }
       if (A.done != nullptr && t.tid(i_) == 0) A.done[col] = done ? 1 : 0;
+      if (A.sweeps != nullptr && t.tid(i_) == 0)
+        A.sweeps[col] = A.num_iter - left;
     }
   }
 };

@@ -43,17 +43,19 @@ void run_plan(const polar_torch::BpArgs& A, bool shared,
 // lattice + col * 2 (S + 1) n messages (f32, or bf16 with bf16 != 0).
 // warp_blocks > 0 sets the shared form's resident blocks per warp (1 or 2)
 // in place of the card's plan, so the tests reach the two-block form (the
-// card's at n = 2048) at small n.
+// card's at n = 2048) at small n. done and sweeps (each [bs] or nullptr)
+// receive the convergence flag and the sweeps each codeword ran.
 extern "C" int bp_host(const float* llr, long long llr_rs, long long llr_cs,
                        const float* prior, float* out, long long out_rs,
-                       long long out_cs, int32_t* done, void* lattice, int S,
-                       int bs, int num_iter, int check_every, int early_stop,
-                       int exact, int negate, float msf, float llr_max,
-                       int bf16, int warp_blocks) {
+                       long long out_cs, int32_t* done, int32_t* sweeps,
+                       void* lattice, int S, int bs, int num_iter,
+                       int check_every, int early_stop, int exact,
+                       int negate, float msf, float llr_max, int bf16,
+                       int warp_blocks) {
   using namespace polar_torch;
-  BpArgs A{llr, llr_rs, llr_cs, prior, out, out_rs, out_cs, done, lattice,
-           S, bs, num_iter, check_every, early_stop, exact, negate, msf,
-           llr_max};
+  BpArgs A{llr, llr_rs, llr_cs, prior, out, out_rs, out_cs, done, sweeps,
+           lattice, S, bs, num_iter, check_every, early_stop, exact, negate,
+           msf, llr_max};
   const bool shared = lattice == nullptr;
   if (S < 1 || S > 16 || (shared && S > kBpMaxSharedS)) return 1;
   const BpPlan p = shared && warp_blocks > 0

@@ -9,14 +9,21 @@ elsewhere), it runs ``num_iter`` sweeps of scaled min-sum (``msf``) or
 exact processing-element updates over the message lattice and returns the
 info-side total LLR [n, bs] f32, and with ``return_done`` the G-matrix
 convergence flag [bs] int32. With ``early_stop`` a codeword stops at the
-first of its checks (every ``check_every`` sweeps) that passes.
+first of its checks (every ``check_every`` sweeps) that passes. Given
+``sweeps``, an int32 [bs] tensor on the LLRs' device, each entry receives
+the sweeps its codeword ran (``num_iter`` where no check passed); the
+other outputs are the same with it or without it.
 
 * ``bp_decode`` is the wrapper the decoder calls. A CUDA tensor goes
   through the kernel (``csrc/bp.cu``), a CPU tensor through the plain
   version; nothing falls back from one to the other. It runs in the span
   ``kernel.bp``, counts its launches in the tracing counter ``launch.bp``
   (the bf16 instance's also in ``form.bp.bf16``) and reports each launch's
-  work to a running ``profiling.flop_estimate``.
+  work to a running ``profiling.flop_estimate``. While tracing is on it
+  asks for the sweeps output and the convergence flag and feeds the
+  device counters ``sweeps.bp`` (sweeps summed over the codewords) and,
+  with early stop, ``converged.bp`` (codewords whose check passed), which
+  stay on the card until ``tracing.summary()``; off, it asks for neither.
 * ``bp_decode_plain`` mirrors the JAX package's XLA engine
   (``PolarBPDecoder._run``): whole-batch tensor ops, a converged lane frozen
   by a select, the loop left when every lane has converged.
@@ -85,30 +92,43 @@ def bp_decode(llr, prior, *, num_iter: int, check_every: int,
     """Decode; see the module docstring. CUDA tensors launch the kernel
     (``lattice`` forces its lattice into shared or global memory; the
     ``msg_dtype`` instance), CPU tensors run ``bp_decode_plain``."""
+    traced = tracing.on()
+    want_done = return_done or (traced and early_stop)
+    sweeps = (torch.empty(llr.shape[1:], dtype=torch.int32,
+                          device=llr.device) if traced else None)
     kw = dict(num_iter=num_iter, check_every=check_every,
               early_stop=early_stop, mode=mode, msf=msf, llr_max=llr_max,
-              return_done=return_done, negate=negate, msg_dtype=msg_dtype)
+              return_done=want_done, negate=negate, msg_dtype=msg_dtype,
+              sweeps=sweeps)
     with tracing.span("kernel.bp"):
         if llr.device.type == "cpu":
             resolve_lattice(llr.shape[0], lattice)
-            return bp_decode_plain(llr, prior, **kw)
-        if llr.device.type != "cuda":
+            res = bp_decode_plain(llr, prior, **kw)
+        elif llr.device.type != "cuda":
             raise ValueError(f"bp_decode: unsupported device {llr.device}")
-        lib = _build.load("bp", "cuda")
-        with torch.cuda.device(llr.device):
-            stream = torch.cuda.current_stream(llr.device).cuda_stream
-            res = _native_call(lib.bp_launch, llr, prior, lattice,
-                               (ctypes.c_void_p, stream), **kw)
-            launched = int(llr.shape[1] > 0)        # an empty batch: none
-            tracing.count("launch.bp", launched, ops=1)
-            tracing.count("form.bp.bf16",
-                          launched * (msg_dtype == torch.bfloat16))
-        # an estimate counts every sweep and check: early stop is data that
-        # it cannot read without a sync; the bf16 lattice does the same work
-        n, bs = llr.shape
-        kernel_work.report(kernel_work.bp_work, n, bs, num_iter * bs,
-                           (num_iter // check_every) * bs if early_stop
-                           else 0, mode, msf)
+        else:
+            lib = _build.load("bp", "cuda")
+            with torch.cuda.device(llr.device):
+                stream = torch.cuda.current_stream(llr.device).cuda_stream
+                res = _native_call(lib.bp_launch, llr, prior, lattice,
+                                   (ctypes.c_void_p, stream), **kw)
+                launched = int(llr.shape[1] > 0)    # an empty batch: none
+                tracing.count("launch.bp", launched, ops=1)
+                tracing.count("form.bp.bf16",
+                              launched * (msg_dtype == torch.bfloat16))
+            # an estimate counts every sweep and check: early stop is data
+            # that it cannot read without a sync; the bf16 lattice does the
+            # same work
+            n, bs = llr.shape
+            kernel_work.report(kernel_work.bp_work, n, bs, num_iter * bs,
+                               (num_iter // check_every) * bs if early_stop
+                               else 0, mode, msf)
+        if traced:
+            tracing.count_on_device("sweeps.bp", sweeps)
+            if early_stop:
+                tracing.count_on_device("converged.bp", res[1])
+        if want_done and not return_done:
+            return res[0]
         return res
 
 
@@ -154,7 +174,8 @@ def bf16_round_host(x):
 
 _ARGTYPES = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-              ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+              ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+              ctypes.c_void_p]
              + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_float,
                                      ctypes.c_int])
 
@@ -169,11 +190,16 @@ def msg_is_bf16(msg_dtype) -> bool:
 
 
 def _check(llr, prior, num_iter, check_every, early_stop, mode, return_done,
-           msg_dtype):
+           msg_dtype, sweeps=None):
     msg_is_bf16(msg_dtype)
     if llr.dim() != 2 or llr.dtype != torch.float32:
         raise TypeError("bp_decode takes f32 LLRs of shape [n, bs]")
-    n, _ = llr.shape
+    n, bs = llr.shape
+    if sweeps is not None and (
+            sweeps.dtype != torch.int32 or tuple(sweeps.shape) != (bs,)
+            or sweeps.device != llr.device or not sweeps.is_contiguous()):
+        raise ValueError(f"sweeps must be a contiguous int32 [{bs}] tensor "
+                         f"on {llr.device}")
     if n < 2 or n & (n - 1) or n > 1 << MAX_S:
         raise ValueError(f"n={n} must be a power of 2 in [2, 2^{MAX_S}]")
     if (prior.dtype != torch.float32 or tuple(prior.shape) != (n,)
@@ -189,12 +215,12 @@ def _check(llr, prior, num_iter, check_every, early_stop, mode, return_done,
 
 def _native_call(fn, llr, prior, lattice, last, *, num_iter, check_every,
                  early_stop, mode, msf, llr_max, return_done=False,
-                 negate=False, msg_dtype=torch.float32):
+                 negate=False, msg_dtype=torch.float32, sweeps=None):
     """Call ``bp_launch`` or ``bp_host``; ``last`` is the (ctypes type,
     value) of the entry point's last argument: the stream, or the host's
     ``warp_blocks``."""
     _check(llr, prior, num_iter, check_every, early_stop, mode, return_done,
-           msg_dtype)
+           msg_dtype, sweeps)
     n, bs = llr.shape
     where = resolve_lattice(n, lattice)
     dev = llr.device
@@ -216,6 +242,7 @@ def _native_call(fn, llr, prior, lattice, last, *, num_iter, check_every,
     args = [llr.data_ptr(), llr.stride(0), llr.stride(1), prior.data_ptr(),
             out.data_ptr(), out.stride(0), out.stride(1),
             None if done is None else done.data_ptr(),
+            None if sweeps is None else sweeps.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
             n.bit_length() - 1, bs, int(num_iter), int(check_every),
             int(bool(early_stop)), int(F_FUNCTIONS[mode] is f_exact),
@@ -241,12 +268,12 @@ def _pairs(x, s):
 def bp_decode_plain(llr, prior, *, num_iter: int, check_every: int,
                     early_stop: bool, mode: str, msf: float, llr_max: float,
                     return_done: bool = False, negate: bool = False,
-                    msg_dtype=torch.float32):
+                    msg_dtype=torch.float32, sweeps=None):
     """Plain PyTorch BP decode on any device, the JAX package's XLA engine
     step for step, its lattice in ``msg_dtype``; same contract as
     ``bp_decode``."""
     _check(llr, prior, num_iter, check_every, early_stop, mode, return_done,
-           msg_dtype)
+           msg_dtype, sweeps)
     n, bs = llr.shape
     S = n.bit_length() - 1
     dev = llr.device
@@ -305,19 +332,29 @@ def bp_decode_plain(llr, prior, *, num_iter: int, check_every: int,
         keep = done[None, None, :]
         return torch.where(keep, lm, l_new), torch.where(keep, rm, r_new)
 
+    def count(k):
+        # the sweeps each lane ran, where asked for
+        if sweeps is not None:
+            sweeps.add_((~done).to(torch.int32) * k)
+
     done = torch.zeros(bs, dtype=torch.bool, device=dev)
+    if sweeps is not None:
+        sweeps.zero_()
     if early_stop:
         # full chunks while a lane is left, then the unchecked remainder
         full = (num_iter // check_every) * check_every
         i = 0
         while i < full and not bool(done.all()):
             lmsg, rmsg = frozen_sweeps(lmsg, rmsg, done, check_every)
+            count(check_every)
             done = done | converged(lmsg, rmsg)
             i += check_every
         if num_iter > full:
             lmsg, rmsg = frozen_sweeps(lmsg, rmsg, done, num_iter - full)
+            count(num_iter - full)
     else:
         for _ in range(num_iter):
             sweep_(lmsg, rmsg)
+        count(num_iter)
     out = (lmsg[0] + rmsg[0]).to(torch.float32)
     return (out, done.to(torch.int32)) if return_done else out

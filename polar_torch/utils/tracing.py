@@ -27,6 +27,13 @@ read by ``kernel_work.launch_counts`` and ``probes.launch_counts``), the
 blocking device-to-host reads (``sync``) and the host-to-device copies
 (``h2d``). While a span is open the count is charged to it too.
 
+``count_on_device(name, values)`` adds a tensor's sum to a device counter
+of the session, only while tracing is on: the sum stays on the tensor's
+device (one reduction and one add, launched and never waited for) until
+``summary()``, whose one synchronisation reads it, so a decoder can count
+what only the card knows (the BP kernel's sweeps) without a sync. Off, it
+does nothing. Its own two ops are not charged to any span.
+
 The aten ops a span dispatches are counted in the first batch of a session
 only (a ``TorchDispatchMode``), and that batch is left out of every time
 mean, so the counting does not bend the times: the chain runs the same ops
@@ -107,7 +114,7 @@ class _OpCount(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
         stack = self._tracer._stack
-        if stack and self._counts(func):
+        if stack and not self._tracer._own and self._counts(func):
             rec = stack[-1]
             if any(isinstance(x, torch.Tensor) and x.device.type != "cpu"
                    for x in tree_leaves((args, kwargs, out))):
@@ -134,6 +141,8 @@ class Tracer:
         self._cuda = False
         self._pool = []             # free CUDA events
         self._summary = None
+        self._device = {}           # name: [sum tensor, items]
+        self._own = False           # the tracer's own ops run
 
     def on(self):
         return bool(self.explicit) or _profiling()
@@ -144,6 +153,7 @@ class Tracer:
             if rec.events:
                 self._pool.extend(rec.events)
         self._records, self._stack, self._summary = [], [], None
+        self._device = {}
         self._counted = None
         self._cuda = torch.cuda.is_available() and torch.cuda.is_initialized()
         self._live = True
@@ -207,6 +217,23 @@ class Tracer:
             if self._mode is not None:
                 rec.ops += ops * n
 
+    def count_on_device(self, name, values):
+        if not self.on():
+            return
+        if not self._live:
+            self._start_session()
+        self._own = True
+        try:
+            total = values.sum(dtype=torch.int64)
+            hit = self._device.get(name)
+            if hit is None:
+                self._device[name] = [total, values.numel()]
+            else:
+                hit[0].add_(total)
+                hit[1] += values.numel()
+        finally:
+            self._own = False
+
     # ---- reading ----
     def records(self):
         """(name, parent index or None, batch id or None) of each record of
@@ -233,6 +260,9 @@ class Tracer:
                      ops=r.ops, cpu_ops=r.cpu_ops,
                      counts=dict(r.counts or {})) for r in kept]
         s = summarize(rows, self._counted)
+        s["device_counters"] = {
+            name: dict(sum=int(total.item()), items=items)
+            for name, (total, items) in self._device.items()}
         if not self._live:
             self._summary = s
         return s
@@ -404,6 +434,9 @@ def format_table(s):
         share = (f" ({100 * v / total:.1f}% of {group}.*)"
                  if k.startswith("rows.") and total else "")
         lines.append(f"counter {k} {v:.2f} a batch{share}")
+    for name, c in s.get("device_counters", {}).items():
+        lines.append(f"device counter {name} {c['sum']} over {c['items']} "
+                     f"items")
     for key in ("front_ops", "decode_ops", "harness_ops", "decode_kernel_ms",
                 "decode_glue_ms", "harness_host_ms"):
         lines.append(f"{key} {s[key]!r}")
@@ -411,6 +444,12 @@ def format_table(s):
 
 
 _TRACER = Tracer()
+
+
+def on():
+    """Whether tracing is on: a profiler runs or an ``enabled()`` block is
+    open."""
+    return _TRACER.on()
 
 
 def span(name):
@@ -437,6 +476,14 @@ def count(name, n=1, ops=0):
     the span too, with ``ops`` device operations each (a hand-written
     kernel's launch) in the batch whose ops are counted."""
     _TRACER.count(name, n, ops)
+
+
+def count_on_device(name, values):
+    """While tracing is on, add ``values``' sum (a tensor, summed as
+    int64 on its own device) to the session's device counter ``name`` and
+    its element count to the counter's items; ``summary()`` reports both
+    as ``device_counters[name]``. Off, nothing."""
+    _TRACER.count_on_device(name, values)
 
 
 def counter(name):
@@ -471,7 +518,8 @@ def records():
 
 
 def summary():
-    """The latest session's table (``summarize``), or None where no
+    """The latest session's table (``summarize``) with its
+    ``device_counters`` ({name: {"sum", "items"}}), or None where no
     session has run. Synchronises once with the card where the session
     recorded events."""
     return _TRACER.summary()

@@ -1,10 +1,12 @@
 """polar_torch on the card: the SCL and SC subtree kernels and the BP
 kernel against their plain versions on the same CUDA inputs (the SCL
 kernel at L up to 32 and in its traced form; BP with its lattice in shared
-and in global memory, f32 and bf16 messages), and the decoders (fast and plain SCL, SC, the 5G
-CA-SCL and hybrid chain, BP single- and two-pass) on the card against the
-same decoders on the CPU; OSD and the dense-G decoder, the BEC channel,
-and the SC and SCL decoders on BEC logits, on the card against the CPU;
+and in global memory, f32 and bf16 messages, and its per-codeword sweeps
+and tracing's device counters), and the decoders (fast and plain SCL, SC,
+the 5G CA-SCL and hybrid chain, BP single- and two-pass) on the card
+against the same decoders on the CPU; OSD and the dense-G decoder, the
+BEC channel, and the SC and SCL decoders on BEC logits, on the card
+against the CPU;
 the headline benchmark (``python -m polar_torch.bench``) at a small size;
 the probe kernels (``polar_torch.probes``) against their plain versions;
 the SCL sweep's closing transform (``butterfly_rows``) against its plain
@@ -360,6 +362,49 @@ def test_bp_kernel_equals_plain_on_card(cuda, n, lattice, msf, early_stop,
         assert torch.equal(got[1], want[1])
         got, want = got[0], want[0]
     assert got.device == logits.device and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,lattice,msg_dtype,ebno_db", [
+    (1024, "shared", torch.float32, 2.0),
+    (1024, "global", torch.float32, 2.0),
+    (2048, "auto", torch.float32, 5.0),
+    (1024, "auto", torch.bfloat16, 2.0)])
+def test_bp_kernel_sweeps_on_card(cuda, n, lattice, msg_dtype, ebno_db):
+    """The kernel's per-codeword sweeps output equals the plain version's,
+    the other outputs are bit-equal with it and without it, and a traced
+    ``bp_decode`` reports their sums as the device counters ``sweeps.bp``
+    and ``converged.bp``. Each point has codewords that converge and
+    codewords that do not (n = 2048 takes the construction beyond the 5G
+    table, on which BP needs more signal)."""
+    import ctypes
+    from polar_torch import _build
+    from polar_torch.models.polar.cuda_bp import (_native_call, bp_decode,
+                                                  bp_decode_plain)
+    bs = 512 if n >= 2048 else 2048
+    prior, logits = _bp_inputs(n, bs, ebno_db, n + 7)
+    prior, llr = prior.to(cuda), (-logits).t().contiguous().to(cuda)
+    kw = dict(num_iter=20, check_every=2, early_stop=True, mode="minsum",
+              msf=0.9375, llr_max=LLR_MAX, msg_dtype=msg_dtype)
+    want_sw = torch.empty(bs, dtype=torch.int32, device=cuda)
+    want, done = bp_decode_plain(llr, prior, return_done=True,
+                                 sweeps=want_sw, **kw)
+    sw = torch.full((bs,), -1, dtype=torch.int32, device=cuda)
+    stream = (ctypes.c_void_p, torch.cuda.current_stream(cuda).cuda_stream)
+    got, got_done = _native_call(_build.load("bp", "cuda").bp_launch, llr,
+                                 prior, lattice, stream, return_done=True,
+                                 sweeps=sw, **kw)
+    off = bp_decode(llr, prior, lattice=lattice, **kw)
+    with tracing.enabled():
+        with tracing.batch():
+            on = bp_decode(llr, prior, lattice=lattice, **kw)
+    c = tracing.summary()["device_counters"]
+    assert torch.equal(sw, want_sw) and torch.equal(got_done, done)
+    assert 0 < done.sum() < bs
+    for x in (got, off, on):
+        assert torch.equal(x, want)
+    assert c == {"sweeps.bp": {"sum": int(want_sw.sum()), "items": bs},
+                 "converged.bp": {"sum": int(done.sum()), "items": bs}}
 
 
 @pytest.mark.gpu
