@@ -45,8 +45,8 @@ Phases (any failure exits non-zero and prints no result):
    at the SC decoder's depth and as the whole tree. Min-sum must agree on every block, exact
    mode on >= 99.9% of blocks. The BP kernel (``bp_decode``) against
    ``bp_decode_plain``: n = 64..2048 with the lattice in shared memory
-   (one to six CTA stages after the warp stages, one or two resident
-   blocks a warp), n = 4096 and n = 1024 with it in global memory; scaled
+   (the tiled schedule: groups of three stages, the top group of one,
+   two or three), n = 4096 and n = 1024 with it in global memory; scaled
    and unscaled min-sum, early stop on and off, odd sweep counts and
    check_every 1, 2 and 3, the convergence flags returned; exact mode at
    n = 1024. Min-sum must be bit-equal (every LLR and flag); in exact mode
@@ -54,8 +54,8 @@ Phases (any failure exits non-zero and prints no result):
    converged and on >= 99% of all blocks, since ``expf``/``log1pf`` and
    ``torch.logaddexp`` round differently. The same for the kernel's bf16
    instance against ``bp_decode_plain(msg_dtype=torch.bfloat16)``: at
-   n = 1024 (shared, one block a warp, and forced global), 2048 (two
-   blocks a warp), 4096 (global) and 256, min-sum bit-equal, exact mode at
+   n = 1024 (shared and forced global), 2048 (shared), 4096 (global) and
+   256, min-sum bit-equal, exact mode at
    n = 1024 under the same rule. On BEC inputs (the logits of
    ``BinaryErasureChannel(return_llrs=True)`` at pe = 0.3 and 0.45, 8192
    blocks each: +-100, erasures as -0.0 and +0.0) the SCL kernel on the
@@ -252,8 +252,8 @@ CLI_GATES = (("SC", "sc_n1024", 2.0, 0.011),
 # check_every, mode); n <= 1024 on the 5G code, beyond on the RM-style one
 BP_ITER, BP_EBNO_DB = 20, 2.0
 # (n, bs, lattice, msf, early stop, sweeps, check_every, mode): S = 6..11
-# put one to six CTA stages after the five warp stages; n = 2048 keeps two
-# 64-row blocks resident a warp
+# end the tiled schedule's groups of three stages on a group of three, one
+# or two
 BP_CASES = ((64, 4096, "auto", 1.0, True, 21, 1, "minsum"),
             (128, 4096, "auto", 0.9375, True, 11, 3, "minsum"),
             (256, 4096, "auto", 0.9375, True, 21, 2, "minsum"),
@@ -268,8 +268,8 @@ BP_CASES = ((64, 4096, "auto", 1.0, True, 21, 1, "minsum"),
             (1024, BATCH, "auto", 0.9375, True, BP_ITER, 2, "exact"))
 BP_EXACT_AGREEMENT = 0.99
 # the bf16 instance's checks, the same fields: n = 1024 in shared memory
-# (one block a warp) and forced global, 2048 (two blocks a warp), 4096
-# (global), and a small unscaled case
+# and forced global, 2048 (shared), 4096 (global), and a small unscaled
+# case
 BP_BF16_CASES = ((1024, BATCH, "auto", 0.9375, True, BP_ITER, 2, "minsum"),
                  (1024, BATCH, "auto", 0.9375, False, BP_ITER, 2, "minsum"),
                  (1024, 2048, "global", 0.9375, True, 13, 3, "minsum"),
@@ -423,15 +423,17 @@ def resource_usage(libs):
 
 def bp_bf16_resources(lib):
     """The BP kernel's bf16 instances' lines of ``resource_usage``, named
-    ``bp_kernel<blocks a warp, lattice, bf16>``."""
+    ``bp_kernel_tiled<S, mode, bf16>`` (the shared lattice, at n = 1024
+    and 2048) and ``bp_kernel<bf16>`` (the global one)."""
     import re
     out = []
     for line in resource_usage([lib]):
-        m = re.search(r"bp_kernelILi(\d)ELb(\d)ELb1E", line)
-        if m:
-            lattice = "shared" if m[2] == "1" else "global"
-            out.append(f"bp_kernel<{m[1]}, {lattice}, bf16>: "
+        tiled = re.search(r"bp_kernel_tiledILi(1[01])ELi(\d)ELb1E", line)
+        if tiled:
+            out.append(f"bp_kernel_tiled<{tiled[1]}, {tiled[2]}, bf16>: "
                        f"{line.split(': ', 1)[1]}")
+        elif re.search(r"bp_kernelILb1E", line):
+            out.append(f"bp_kernel<bf16>: {line.split(': ', 1)[1]}")
     return out or ["bf16 instances: resource usage not measured"]
 
 
@@ -2506,13 +2508,14 @@ def main(argv=None):
     for n_bp in (N, 2048, 4096):
         lat = cuda_bp.resolve_lattice(n_bp)
         for msg in (torch.float32, torch.bfloat16):
-            threads, wb_, smem = cuda_bp.launch_plan(n_bp, msg_dtype=msg)
+            threads, syncs, smem = cuda_bp.launch_plan(n_bp, msg_dtype=msg)
+            # the scaled min-sum instance, the CLI's
             per_sm = bp_lib.bp_blocks_per_sm(n_bp.bit_length() - 1,
                                              int(lat == "shared"),
-                                             int(msg == torch.bfloat16))
+                                             int(msg == torch.bfloat16), 0)
             log(f"bp launch plan: n={n_bp}, {lat} lattice, "
-                f"{str(msg)[6:]} messages: {threads} threads, warp_blocks "
-                f"{wb_}, {smem} B shared, {per_sm} CTAs per SM")
+                f"{str(msg)[6:]} messages: {threads} threads, {syncs} "
+                f"barriers a sweep, {smem} B shared, {per_sm} CTAs per SM")
     for b in sorted({8, 9, 10, sc_b}):
         calls = []
         scan_core.sc_sweep_hybrid(llr_ch, mask, mode=MODE, lower_stages=b,

@@ -7,51 +7,37 @@
 // and the optional convergence flag. The schedule and the arithmetic live in
 // bp.cuh and are shared with the host build that the CPU tests run.
 //
-// What bounds it: operations. At n = 1024, bs = 8192 and 20 sweeps with no
-// early stop, about 3.4e10 f32 operations (two check-node updates, two adds
-// and two scalings per element and stage), 0.5 ms at 67 TFLOP/s; the bytes
-// (llr in, out back, 64 MiB) take 0.02 ms. The first design (one thread per
-// element of a stage, the whole 90,112-byte lattice in shared memory, a
-// __syncthreads() after every stage: 2 S = 20 per sweep and S + 2 per
-// check) ran at 13.5-15x that bound.
+// What bounds it: issue slots. A processing element (PE) of scaled min-sum
+// is about 13 instructions (an add, two 5-instruction minsums, a product, a
+// fused multiply-add); the bytes (the LLRs in, the decisions out) are far
+// below. The warp-stage design (a CTA of 512 threads a codeword, stages
+// 0..4 by warp shuffles, stages 5..S-1 one at a time in shared memory
+// between barriers) spent about 85-95 issue slots a PE at n = 1024
+// (PERF.md §6): shuffles and selects in the warp stages; index
+// arithmetic, four shared loads, two stores and a barrier a stage in the
+// CTA stages; runtime mode flags in every PE; one PE a thread a stage,
+// each hanging on the one before. Cutting its barriers from 10 to 6 a
+// sweep alone tied.
 //
-// Design: one CTA per codeword, as before; what changed is where the
-// messages live, how often the CTA waits, and what an element costs.
-// * Warp stages. Lane k of a warp owns rows 2k, 2k + 1 of each of its
-//   64-row blocks, so stages 0..4 exchange by __shfl_xor_sync inside the
-//   warp and need no CTA barrier. A lane and its partner split their two
-//   elements, one each, so no lane idles on the other's branch (three
-//   shuffles an element). The l and r messages of these stages stay in
-//   the lane's registers across sweeps, and shared memory holds only
-//   stages 5..S: 49,152 B at n = 1024 (was 90,112), 114,688 B at n = 2048.
-//   A warp keeps one block (512 threads at n = 1024) or two (n = 2048),
-//   run side by side.
-// * CTA stages. Stages 5..S-1 run one at a time, a barrier after each: at
-//   n = 1024 a sweep waits 10 times (was 20). A trial that ran them two at
-//   a time (6 barriers a sweep) tied this with early stop, so the simpler
-//   schedule stayed (PERF.md §6).
-// * The check in bits. A warp's hard decisions are two ballots a block;
-//   the XOR butterfly's stages 1..5 are shifts and masks of those words,
-//   its upper stages XORs of words in warp 0, and one __syncthreads_and
-//   hands the verdict to the CTA: 3 barriers a check at n = 1024 (was 12).
-// * A cheaper min-sum (fg.cuh minsum: 5 instructions, the same bits as
-//   the sign-product form).
-// What the card showed (PERF.md §6): the first design was issue-bound more
-// than barrier-bound (about 50 instructions an element, an estimate from
-// the code; no profiler counted them), and so is this one. The lane split
-// and the cheaper f paid the most; cutting barriers alone bought nothing.
-// 512 threads a CTA, held to 64 registers so that two CTAs share an SM,
-// beat 256 threads with two resident blocks a warp.
+// Design (bp.cuh, BpTile): the stages in groups of three, a thread owning
+// the 8 rows of its group's three bits, so that the PEs of three stages
+// run on its own registers with fixed indices (no shuffle, select or
+// address arithmetic), 4 independent PEs a stage. Only the levels between
+// groups pass through shared memory (padded so that every group's accesses
+// are free of bank conflicts); a group's interior messages stay in its
+// owner's registers across sweeps. At n = 1024: 128 threads a codeword, 6
+// barriers a sweep, 33,408 B of shared memory a CTA, and l_0 and r_S (read
+// by the check and the output alone) left out of the sweeps. The mode and S are template parameters (bp_kernel_tiled<S, mode,
+// bf16>, 66 instances), so no PE branches. The check runs the XOR
+// butterfly's stages 0..2 on a thread's 8 bits, the lane bits' stages by
+// shuffles and the warp bits' through a byte a thread in shared memory.
+// The bf16 lattice (bp_launch(..., bf16 = 1)) is the same template with
+// kBf16: 16-bit messages in shared memory and a rounding to bf16 after
+// every op; its bound is the f32 form's.
 // From n = 4096 (or with the global form forced) the lattice sits in a
-// global scratch that the wrapper allocates, 512 threads loop over the
-// blocks, and the warp stages' messages go through the scratch around each
-// use: the same schedule, without the register residency.
-// The bf16 lattice (bp_launch(..., bf16 = 1)) is its own set of template
-// instances (kBf16), so the f32 instances' code does not change: the same
-// schedule and launch plan, 16-bit messages in shared memory and the
-// scratch (24,832 B a CTA at n = 1024, 57,856 B at n = 2048), and a
-// rounding to bf16 after every op (bp.cuh). It does the f32 form's
-// operations plus the roundings; its bound is the f32 form's.
+// global scratch that the wrapper allocates, and bp_kernel<bf16> keeps the
+// warp-stage schedule: 512 threads loop over the 64-row blocks, the warp
+// stages' messages go through the scratch around each use.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libbp.so bp.cu
@@ -92,9 +78,11 @@ struct BpCta {
   }
   // a lane's partner is itself: its value comes by shuffle
   PT_HD PT_INLINE int partner(int i, int) const { return i; }
-  PT_HD PT_INLINE float peer(float mine, float, int m) const {
+  template <class V>
+  PT_HD PT_INLINE V peer(V mine, V, int m,
+                         unsigned mask = 0xffffffffu) const {
 #ifdef __CUDA_ARCH__
-    return __shfl_xor_sync(0xffffffffu, mine, m);
+    return __shfl_xor_sync(mask, mine, m);
 #else
     return mine;
 #endif
@@ -117,59 +105,70 @@ struct BpCta {
   }
 };
 
-// one resident block a warp at 512 threads: at most 64 registers, so that
-// two CTAs share an SM
-template <int kB, bool kRes, bool kBf16>
-__global__ void __launch_bounds__(kBpMaxThreads, kB == 1 && kRes ? 2 : 1)
-    bp_kernel(BpArgs A) {
+// the tiled form: the lattice between groups in shared memory, the
+// interior levels in registers; held to the registers that let at least
+// three CTAs of 128 threads share an SM
+template <int kS, int kMode, bool kBf16>
+__global__ void __launch_bounds__(BpTiles<kS>::kT,
+                                  bp_tiled_ctas(BpTiles<kS>::kT))
+    bp_kernel_tiled(BpArgs A) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  BpTileLane<kS> lane;
+  bp_tiled_column<kS, kMode, kBf16>(BpCta{}, A, blockIdx.x, smem, &lane);
+}
+
+// the global form: the lattice in the scratch, the check's words in shared
+// memory
+template <bool kBf16>
+__global__ void __launch_bounds__(kBpMaxThreads, 1) bp_kernel(BpArgs A) {
   using T = typename BpMsg<kBf16>::T;
   extern __shared__ __align__(16) unsigned char smem[];
-  BpLane<kB> lane;
-  T* lat;
-  uint32_t* words;
-  if (kRes) {
-    lat = reinterpret_cast<T*>(smem);
-    words = reinterpret_cast<uint32_t*>(smem + sizeof(T)
-                                        * bp_shared_elems(A.S));
-  } else {
-    lat = static_cast<T*>(A.lattice) + blockIdx.x * bp_lattice_elems(A.S);
-    words = reinterpret_cast<uint32_t*>(smem);
+  BpLane lane;
+  bp_global_column<kBf16>(BpCta{}, A, blockIdx.x,
+                          static_cast<T*>(A.lattice)
+                              + blockIdx.x * bp_lattice_elems(A.S),
+                          reinterpret_cast<uint32_t*>(smem), &lane);
+}
+
+using BpKernel = void (*)(BpArgs);
+
+template <int kS, bool kBf16>
+BpKernel tiled_of(int mode) {
+  if (mode == kBpScaled) return bp_kernel_tiled<kS, kBpScaled, kBf16>;
+  if (mode == kBpMinsum) return bp_kernel_tiled<kS, kBpMinsum, kBf16>;
+  return bp_kernel_tiled<kS, kBpExact, kBf16>;
+}
+
+// the launch's kernel: the tiled instance of (S, mode) or the global form
+template <bool kBf16>
+BpKernel kernel_of(int S, bool shared, int mode) {
+  if (!shared) return bp_kernel<kBf16>;
+  switch (S) {
+    case 1: return tiled_of<1, kBf16>(mode);
+    case 2: return tiled_of<2, kBf16>(mode);
+    case 3: return tiled_of<3, kBf16>(mode);
+    case 4: return tiled_of<4, kBf16>(mode);
+    case 5: return tiled_of<5, kBf16>(mode);
+    case 6: return tiled_of<6, kBf16>(mode);
+    case 7: return tiled_of<7, kBf16>(mode);
+    case 8: return tiled_of<8, kBf16>(mode);
+    case 9: return tiled_of<9, kBf16>(mode);
+    case 10: return tiled_of<10, kBf16>(mode);
+    case 11: return tiled_of<11, kBf16>(mode);
+    default: return nullptr;
   }
-  bp_column<kB, kRes, kBf16>(BpCta{}, A, blockIdx.x, lat, words, &lane);
 }
 
-template <int kB, bool kRes, bool kBf16>
-int launch(const BpArgs& A, const BpPlan& p, cudaStream_t st) {
-  const size_t smem = (size_t)bp_smem_bytes(
-      A.S, kRes, sizeof(typename BpMsg<kBf16>::T));
-  cudaError_t err = cudaFuncSetAttribute(
-      bp_kernel<kB, kRes, kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  bp_kernel<kB, kRes, kBf16><<<A.bs, p.threads, smem, st>>>(A);
-  return (int)cudaGetLastError();
-}
-
-template <bool kBf16>
-int dispatch(const BpArgs& A, bool shared, cudaStream_t st) {
-  const BpPlan p = bp_plan(A.S, shared);
-  if (!shared) return launch<1, false, kBf16>(A, p, st);
-  if (p.warp_blocks == 2) return launch<2, true, kBf16>(A, p, st);
-  return launch<1, true, kBf16>(A, p, st);
-}
-
-template <bool kBf16>
-void (*kernel_of(const BpPlan& p, bool shared))(BpArgs) {
-  if (!shared) return bp_kernel<1, false, kBf16>;
-  return p.warp_blocks == 2 ? bp_kernel<2, true, kBf16>
-                            : bp_kernel<1, true, kBf16>;
+BpKernel kernel_for(int S, bool shared, int bf16, int mode) {
+  return bf16 ? kernel_of<true>(S, shared, mode)
+              : kernel_of<false>(S, shared, mode);
 }
 
 }  // namespace polar_torch
 
-// lattice == nullptr: the shared form; else the global form in lattice, a
-// [bs, 2 (S + 1) n] scratch of the message type (f32, or bf16 with
-// bf16 != 0). done and sweeps (each [bs] or nullptr) receive the
+// lattice == nullptr: the shared (tiled) form; else the global form in
+// lattice, a [bs, 2 (S + 1) n] scratch of the message type (f32, or bf16
+// with bf16 != 0). done and sweeps (each [bs] or nullptr) receive the
 // convergence flag and the sweeps each codeword ran. Returns a cudaError_t.
 extern "C" int bp_launch(const float* llr, long long llr_rs, long long llr_cs,
                          const float* prior, float* out, long long out_rs,
@@ -182,29 +181,46 @@ extern "C" int bp_launch(const float* llr, long long llr_rs, long long llr_cs,
   BpArgs A{llr, llr_rs, llr_cs, prior, out, out_rs, out_cs, done, sweeps,
            lattice, S, bs, num_iter, check_every, early_stop, exact, negate,
            msf, llr_max};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool shared = lattice == nullptr;
   if (S < 1 || S > 16 || (shared && S > kBpMaxSharedS))
     return (int)cudaErrorInvalidValue;
-  return bf16 ? dispatch<true>(A, shared, st) : dispatch<false>(A, shared, st);
+  const BpPlan p = bp_plan(S, shared, bf16 ? 2 : 4);
+  BpKernel kernel = kernel_for(S, shared, bf16,
+                               bf16 ? bp_mode<true>(A) : bp_mode<false>(A));
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<bs, p.threads, (size_t)p.smem,
+           static_cast<cudaStream_t>(stream)>>>(A);
+  return (int)cudaGetLastError();
+}
+
+// the launch plan: threads, CTA barriers a sweep, dynamic shared memory
+// bytes (of bf16 messages with bf16 != 0)
+extern "C" void bp_plan_of(int S, int shared, int bf16, int* out) {
+  using namespace polar_torch;
+  const BpPlan p = bp_plan(S, shared != 0, bf16 ? 2 : 4);
+  out[0] = p.threads;
+  out[1] = p.syncs;
+  out[2] = (int)p.smem;
 }
 
 // CTAs of the kernel that one SM holds at once (the occupancy API), for
-// the form (shared != 0) and message type (bf16 != 0) of a launch at 2^S
-// rows; -1 on error
-extern "C" int bp_blocks_per_sm(int S, int shared, int bf16) {
+// the form (shared != 0), message type (bf16 != 0) and mode (kBpScaled,
+// kBpMinsum, kBpExact) of a launch at 2^S rows; -1 on error
+extern "C" int bp_blocks_per_sm(int S, int shared, int bf16, int mode) {
   using namespace polar_torch;
-  const BpPlan p = bp_plan(S, shared != 0);
-  const size_t smem = (size_t)bp_smem_bytes(S, shared != 0, bf16 ? 2 : 4);
-  void (*kernel)(BpArgs) = bf16 ? kernel_of<true>(p, shared != 0)
-                                : kernel_of<false>(p, shared != 0);
-  if (cudaFuncSetAttribute(kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem) != cudaSuccess)
+  const BpPlan p = bp_plan(S, shared != 0, bf16 ? 2 : 4);
+  BpKernel kernel = kernel_for(S, shared != 0, bf16, mode);
+  if (kernel == nullptr
+      || cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)p.smem) != cudaSuccess)
     return -1;
   int n = -1;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, p.threads,
-                                                    smem) != cudaSuccess)
+                                                    (size_t)p.smem)
+      != cudaSuccess)
     return -1;
   return n;
 }

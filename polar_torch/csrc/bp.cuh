@@ -29,9 +29,9 @@
 // -fmad, and min-sum is bit-equal to the JAX package's XLA engine. With
 // msf == 1 or the exact boxplus there is no product to round.
 //
-// The bf16 message lattice (the kBf16 instance): the lattice holds bf16
+// The bf16 message lattice (the kBf16 instances): the lattice holds bf16
 // values, 16 bits each in shared memory and in the global scratch, and the
-// lanes' registers hold f32 values that are bf16 values. Every add,
+// threads' registers hold f32 values that are bf16 values. Every add,
 // product, expf and log1pf of a processing element rounds to bf16 on its
 // own, as XLA runs bf16 on the CPU: l_v/r_v round msf * minsum, then the
 // add (no fmaf); the sums l + r of the check and the output are rounded;
@@ -49,39 +49,73 @@
 // touches it again. After the last full chunk the remaining
 // num_iter % check_every sweeps run unchecked.
 //
-// Schedule. Rows are cut into blocks of 64; lane k of a warp owns rows
-// 2k and 2k + 1 of each of its blocks. The partners of stages 0..4 then lie
-// in the same lane (stage 0) or in lane k ^ 2^(s-1) of the same warp, so
-// those "warp stages" exchange through shuffles with no CTA barrier (a lane
-// and its partner compute one of their two elements each), and
-// their interior messages (l and r at stages 0..Sw-1, Sw = min(S, 5)) stay
-// in the lane's registers from sweep to sweep ("resident"); only stages
-// Sw..S sit in shared memory. The "CTA stages" Sw..S-1 run one at a time,
-// a thread on one row pair of the stage, with a CTA barrier after each.
-// Where the whole lattice lives in the global scratch (n >= 4096 or
-// a forced global form), the warp stages' messages are loaded from and
-// stored to the scratch around each use instead of staying resident, and
-// the schedule is otherwise the same. The check packs a warp's hard
-// decisions with ballots, runs the XOR butterfly's stages 1..5 as shifts
-// and masks within 32-bit words and the upper ones as XORs of words.
+// Two schedules.
 //
-// The routine is written over a "team" policy: on the card one CTA (a
-// thread per lane, shuffles, ballots, __syncthreads); on the host one
-// thread that runs every lane in turn between barriers, reading a partner
-// lane's values from its state where the card shuffles. Both run the same
-// arithmetic in the same control flow.
+// The tiled form (BpTile; n <= 2048, the lattice in shared memory). The
+// stages are cut into groups of three from stage 0, {0, 1, 2}, {3, 4, 5},
+// ..., the last group taking the S mod 3 stages left. In each group a
+// thread owns 8 rows: those whose indices differ only in the group's three
+// bits (in the last group of fewer stages, the top three bits). Every
+// processing element of the group's stages then couples two of the
+// thread's own rows: 4 independent elements a stage, on registers with
+// fixed indices, with no shuffle, select or address arithmetic. A group's
+// interior messages (l and r at its inner levels) stay in the owning
+// thread's registers from sweep to sweep, since no other thread reads them;
+// shared memory holds only the levels between groups (l and r at 3, 6,
+// ...) and l_S, the channel; the prior r_0 is a constant in registers. A
+// sweep runs the groups' l passes top down and their r passes bottom up,
+// with a CTA barrier between two groups: 2 (groups - 1) barriers a sweep.
+// Group 0 runs its l pass and r pass back to back, and the top group its r
+// pass and the next sweep's l pass, with no barrier between them. l_0 and
+// r_S are read by the check and the output alone, so a sweep skips them and
+// the check and the output compute them from what their stage read (l_1
+// and r_0; r_{S-1} and l_S), which no later stage of the sweep changes.
+// The levels in shared memory carry 16 bytes of padding after every 128,
+// so that a warp's loads and stores of any group fall in distinct banks;
+// group 0's 8 contiguous rows move as 16-byte vectors. The mode (scaled
+// min-sum, min-sum, exact) and S are template parameters, so no processing
+// element branches on them.
+// The check: group 0's threads hold the info-side decisions of 8
+// contiguous rows as 8 bits and run the XOR butterfly's stages 0..2 inside
+// the thread, the stages of the lane bits by shuffles and those of the
+// warp bits through a byte a thread in shared memory; the top group writes
+// the channel-side decisions as a byte a row.
+//
+// The global form (BpCodeword; n >= 4096 or forced, the whole lattice in a
+// global scratch). Rows are cut into blocks of 64; lane k of a warp owns
+// rows 2k and 2k + 1 of each of its blocks. The partners of stages 0..4
+// then lie in the same lane (stage 0) or in lane k ^ 2^(s-1) of the same
+// warp, so those "warp stages" exchange through shuffles with no CTA
+// barrier (a lane and its partner compute one of their two elements each);
+// their messages are loaded from and stored to the scratch around each
+// use. The "CTA stages" 5..S-1 run one at a time, a thread on one row
+// pair of the stage, with a CTA barrier after each. The check packs a
+// warp's hard decisions with ballots, runs the XOR butterfly's stages 1..5
+// as shifts and masks within 32-bit words and the upper ones as XORs of
+// words.
+//
+// Both are written over a "team" policy: on the card one CTA (a thread per
+// lane, shuffles, ballots, __syncthreads); on the host one thread that runs
+// every lane in turn between barriers, reading a partner lane's values from
+// its state where the card shuffles. Both run the same arithmetic in the
+// same control flow.
 #pragma once
 
 #include "fg.cuh"
 
 namespace polar_torch {
 
-constexpr int kBpMaxThreads = 512;
-constexpr int kBpWarpStages = 5;      // stages whose partners share a warp
-constexpr int kBpRows = 64;           // rows of a block (2 per lane)
-// the shared form up to n = 2^11: beyond it a warp would keep more than
-// two blocks' warp-stage messages in registers
-constexpr int kBpMaxSharedS = 11;
+constexpr int kBpMaxThreads = 512;    // the global form's CTA
+constexpr int kBpWarpStages = 5;      // the global form: stages of a warp
+constexpr int kBpRows = 64;           // the global form: rows of a block
+constexpr int kBpMaxSharedS = 11;     // the tiled form up to n = 2^11
+
+// the processing element's arithmetic: scaled min-sum, min-sum, the exact
+// boxplus, or whichever the run's arguments ask for (the global form)
+constexpr int kBpScaled = 0;
+constexpr int kBpMinsum = 1;
+constexpr int kBpExact = 2;
+constexpr int kBpAnyMode = 3;
 
 struct BpArgs {
   const float* llr;            // [n, bs], strides below, in elements
@@ -117,41 +151,72 @@ PT_HD PT_INLINE int bp_blocks(int S) {
   return S >= 6 ? 1 << (S - 6) : 1;
 }
 
-// floats of the shared form's lattice: stages Sw..S of lmsg and rmsg
-PT_HD PT_INLINE long long bp_shared_elems(int S) {
-  return 2LL * (S - bp_warp_stages(S) + 1) * (1LL << S);
+// ---- the tiled form's geometry ----
+// the element offset of row r of a level in shared memory: 16 bytes of
+// padding after every 128, so that the rows a warp of any group touches
+// fall in distinct banks. Additive over rows of disjoint bits, so a
+// thread's row offsets are its first row's plus constants.
+template <bool kBf16>
+PT_HD PT_INLINE constexpr int bp_pad(int r) {
+  return kBf16 ? r + 8 * (r >> 6) : r + 4 * (r >> 5);
 }
 
-// the launch: threads of the CTA and 64-row blocks per warp. The shared
-// form keeps one block resident per warp, or two where one would take more
-// than 512 threads (n = 2048); the global form runs 512 threads at most and
-// loops over its blocks.
-struct BpPlan {
-  int threads;
-  int warp_blocks;
+// groups of stages at 2^kS rows
+template <int kS>
+struct BpTiles {
+  static constexpr int kN = 1 << kS;
+  static constexpr int kRb = kS < 3 ? kS : 3;   // row bits a thread owns
+  static constexpr int kR = 1 << kRb;           // rows a thread owns
+  static constexpr int kT = kN >> kRb;          // threads of the CTA
+  static constexpr int kWarps = (kT + 31) / 32;
+  static constexpr int kGroups = (kS + 2) / 3;
+  // group g runs stages lo(g)..hi(g) - 1 on rows that differ in bits
+  // base(g)..base(g) + kRb - 1
+  PT_HD static constexpr int lo(int g) { return 3 * g; }
+  PT_HD static constexpr int hi(int g) {
+    return 3 * g + 3 <= kS ? 3 * g + 3 : kS;
+  }
+  PT_HD static constexpr int base(int g) {
+    return 3 * g + 3 <= kS ? 3 * g : kS - kRb;
+  }
 };
 
-// the shared form with kb blocks resident per warp (at most the blocks)
-PT_HD PT_INLINE BpPlan bp_shared_plan(int S, int kb) {
-  const int blocks = bp_blocks(S);
-  if (kb > blocks) kb = blocks;
-  return {blocks / kb * 32, kb};
+// CTAs an SM should hold (__launch_bounds__): three of 128 threads
+PT_HD PT_INLINE constexpr int bp_tiled_ctas(int threads) {
+  return threads >= 256 ? 1 : 384 / threads < 32 ? 384 / threads : 32;
 }
 
-PT_HD PT_INLINE BpPlan bp_plan(int S, bool shared) {
-  const int blocks = bp_blocks(S);
-  if (shared)
-    return bp_shared_plan(S, blocks * 32 > kBpMaxThreads
-                                 ? blocks * 32 / kBpMaxThreads : 1);
-  int warps = blocks < kBpMaxThreads / 32 ? blocks : kBpMaxThreads / 32;
-  return {warps * 32, blocks / warps};
+// bytes of the tiled form's shared memory: the levels between groups (l and
+// r) and l_S, padded, of msg_bytes-byte messages; the check's byte a row
+// and byte a thread
+PT_HD PT_INLINE long long bp_tiled_smem_bytes(int S, int msg_bytes) {
+  const int n = 1 << S;
+  const int rb = S < 3 ? S : 3;
+  const int stride = msg_bytes == 2 ? bp_pad<true>(n) : bp_pad<false>(n);
+  const long long levels = 2 * ((S + 2) / 3 - 1) + 1;
+  const long long bytes = msg_bytes * levels * stride + n + (n >> rb);
+  return (bytes + 15) / 16 * 16;
 }
 
-// bytes of dynamic shared memory: the shared lattice (if any) of
-// msg_bytes-byte messages and the check's four words per block
-PT_HD PT_INLINE long long bp_smem_bytes(int S, bool shared, int msg_bytes) {
-  return (shared ? (long long)msg_bytes * bp_shared_elems(S) : 0)
-      + 16LL * bp_blocks(S);
+// the launch: threads of the CTA, CTA barriers a sweep, dynamic shared
+// memory bytes. The global form runs 512 threads at most and loops over its
+// 64-row blocks; its shared memory holds the check's four words a block.
+struct BpPlan {
+  int threads;
+  int syncs;
+  long long smem;
+};
+
+PT_HD PT_INLINE BpPlan bp_plan(int S, bool shared, int msg_bytes) {
+  if (shared) {
+    const int rb = S < 3 ? S : 3;
+    return {(1 << S) >> rb, 2 * ((S + 2) / 3 - 1),
+            bp_tiled_smem_bytes(S, msg_bytes)};
+  }
+  const int blocks = bp_blocks(S);
+  const int warps = blocks < kBpMaxThreads / 32 ? blocks
+                                                : kBpMaxThreads / 32;
+  return {warps * 32, 2 * (S - bp_warp_stages(S)), 16LL * blocks};
 }
 
 // bits k of a 32-bit word whose bit s is clear: the upper rows of the
@@ -204,30 +269,46 @@ struct BpMsg<true> {
   PT_HD static PT_INLINE float rnd(float x) { return bf16_round(x); }
 };
 
-// the u output f(a, y) and the v output f(a, b) + add of a processing
-// element, with the rounding of the header note
+// the mode of a run's arguments (msf rounded as the lattice's type rounds it)
 template <bool kBf16>
+PT_HD PT_INLINE int bp_mode(const BpArgs& A) {
+  if (A.exact) return kBpExact;
+  return BpMsg<kBf16>::rnd(A.msf) != 1.0f ? kBpScaled : kBpMinsum;
+}
+
+// the u output f(a, y) and the v output f(a, b) + add of a processing
+// element, with the rounding of the header note; kMode fixes the
+// arithmetic, or kBpAnyMode reads it from exact and scaled
+template <bool kBf16, int kMode = kBpAnyMode>
 struct BpOps {
   using M = BpMsg<kBf16>;
   float m, msf;
   int exact;
   bool scaled;
+  PT_HD PT_INLINE bool is_exact() const {
+    if constexpr (kMode == kBpAnyMode) return exact != 0;
+    else return kMode == kBpExact;
+  }
+  PT_HD PT_INLINE bool is_scaled() const {
+    if constexpr (kMode == kBpAnyMode) return scaled;
+    else return kMode == kBpScaled;
+  }
   PT_HD PT_INLINE float f(float a, float b) const {
-    if constexpr (kBf16) return exact ? f_exact_bf16(a, b, m)
-                                      : minsum(a, b, m);
-    else return f_op(a, b, m, exact);
+    if constexpr (kBf16) return is_exact() ? f_exact_bf16(a, b, m)
+                                           : minsum(a, b, m);
+    else return f_op(a, b, m, is_exact());
   }
   PT_HD PT_INLINE float u(float a, float y) const {
     const float fy = f(a, y);
-    return scaled ? M::rnd(mul_rn(msf, fy)) : fy;
+    return is_scaled() ? M::rnd(mul_rn(msf, fy)) : fy;
   }
   // bf16: the product's rounding (integer ops) stands between the product
   // and the add, so no contraction can fuse them
   PT_HD PT_INLINE float v(float a, float b, float add) const {
     const float fb = f(a, b);
     if constexpr (kBf16)
-      return M::rnd((scaled ? M::rnd(mul_rn(msf, fb)) : fb) + add);
-    else return scaled ? fmaf(msf, fb, add) : fb + add;
+      return M::rnd((is_scaled() ? M::rnd(mul_rn(msf, fb)) : fb) + add);
+    else return is_scaled() ? fmaf(msf, fb, add) : fb + add;
   }
   // one element on rows (u, v): left writes l_s, right r_{s+1}
   PT_HD PT_INLINE void pe(bool left, float lu, float lv, float ru, float rv,
@@ -238,41 +319,388 @@ struct BpOps {
   }
 };
 
-// one codeword's lattice stages lo..S (l then r), each n messages
-template <class T>
-struct BpLattice {
-  T* l;
-  T* r;
-  int lo, n;
-  PT_HD PT_INLINE T* L(int s) const { return l + (long long)(s - lo) * n; }
-  PT_HD PT_INLINE T* R(int s) const { return r + (long long)(s - lo) * n; }
+#define PT_FOR_LANES(t) for (int i_ = 0; i_ < (t).per(); ++i_)
+
+// ---- the tiled form ----
+// one thread's registers: a group's interior levels lo + 1, lo + 2 (l and
+// r at the group's rows), the prior at group 0's rows, the check's bits
+template <int kS>
+struct BpTileLane {
+  using P = BpTiles<kS>;
+  float l[P::kGroups][2][P::kR];
+  float r[P::kGroups][2][P::kR];
+  float r0[P::kR];
+  uint32_t bits, give;  // the check: the thread's bits, a shuffled copy
+  int ok;
 };
 
-// one lane's messages at the warp stages of its kB resident blocks: index
-// [block][stage][row]; stage Sw holds the top boundary while a sweep runs
-template <int kB>
+template <class Team, int kS, int kMode, bool kBf16>
+struct BpTile {
+  using P = BpTiles<kS>;
+  using M = BpMsg<kBf16>;
+  using T = typename M::T;
+  using Lane = BpTileLane<kS>;
+  static constexpr int kR = P::kR;
+  static constexpr int kRb = P::kRb;
+  static constexpr int kG = P::kGroups;
+  static constexpr int kStride = bp_pad<kBf16>(P::kN);   // a level's elements
+  static constexpr unsigned kMask =
+      P::kT >= 32 ? 0xffffffffu : (1u << P::kT) - 1u;
+  const Team& t;
+  const BpArgs& A;
+  Lane* ln;             // the lanes this thread runs (t.per() of them)
+  T* lat;               // l, r at levels 3, 6, ... below S; then l_S
+  uint8_t* xh;          // [n]: the channel-side decisions
+  uint8_t* xb;          // [threads]: the info side's bits past the lanes
+  int col;
+  BpOps<kBf16, kMode> ops;
+
+  // level lv's l or r (is_r) in shared memory
+  PT_HD PT_INLINE T* level(int lv, bool is_r) const {
+    return lat + (lv == kS ? 2 * (kG - 1) : 2 * (lv / 3 - 1) + is_r)
+        * kStride;
+  }
+  // row j of thread tid in a group whose rows differ in bits B..B+kRb-1
+  template <int B>
+  PT_HD PT_INLINE static int row(int tid, int j) {
+    return ((tid >> B) << (B + kRb)) | (j << B) | (tid & ((1 << B) - 1));
+  }
+  template <int B>
+  PT_HD PT_INLINE static int first(int tid) {
+    return bp_pad<kBf16>(row<B>(tid, 0));
+  }
+
+  // the thread's rows of a level (offset at of its first row): group 0's
+  // 8 contiguous rows as 16-byte vectors, others one at a time
+  template <int B>
+  PT_HD PT_INLINE void load(float (&v)[kR], const T* a, int at) const {
+#ifdef __CUDA_ARCH__
+    if constexpr (B == 0 && kR == 8) {
+      if constexpr (kBf16) {
+        const uint4 q = *reinterpret_cast<const uint4*>(a + at);
+        const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          v[2 * k] = f32_of(w[k] << 16);
+          v[2 * k + 1] = f32_of(w[k] & 0xffff0000u);
+        }
+      } else {
+        const float4 p = *reinterpret_cast<const float4*>(a + at);
+        const float4 q = *reinterpret_cast<const float4*>(a + at + 4);
+        v[0] = p.x; v[1] = p.y; v[2] = p.z; v[3] = p.w;
+        v[4] = q.x; v[5] = q.y; v[6] = q.z; v[7] = q.w;
+      }
+      return;
+    }
+#endif
+#pragma unroll
+    for (int j = 0; j < kR; ++j) v[j] = M::ld(a[at + bp_pad<kBf16>(j << B)]);
+  }
+  template <int B>
+  PT_HD PT_INLINE void store(T* a, const float (&v)[kR], int at) const {
+#ifdef __CUDA_ARCH__
+    if constexpr (B == 0 && kR == 8) {
+      if constexpr (kBf16) {
+        uint32_t w[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          w[k] = (uint32_t)M::st(v[2 * k])
+              | (uint32_t)M::st(v[2 * k + 1]) << 16;
+        *reinterpret_cast<uint4*>(a + at) = make_uint4(w[0], w[1], w[2],
+                                                       w[3]);
+      } else {
+        *reinterpret_cast<float4*>(a + at) = make_float4(v[0], v[1], v[2],
+                                                         v[3]);
+        *reinterpret_cast<float4*>(a + at + 4) = make_float4(v[4], v[5],
+                                                             v[6], v[7]);
+      }
+      return;
+    }
+#endif
+#pragma unroll
+    for (int j = 0; j < kR; ++j) a[at + bp_pad<kBf16>(j << B)] = M::st(v[j]);
+  }
+
+  // one stage on the thread's rows, bit k of the group: from l_{s+1} (il)
+  // and r_s (ir) to l_s (left) or r_{s+1}
+  template <bool kLeft>
+  PT_HD PT_INLINE void stage(int k, const float (&il)[kR],
+                             const float (&ir)[kR], float (&o)[kR]) const {
+#pragma unroll
+    for (int u = 0; u < kR; ++u) {
+      if (u & (1 << k)) continue;
+      const int v = u | (1 << k);
+      ops.pe(kLeft, il[u], il[v], ir[u], ir[v], o[u], o[v]);
+    }
+  }
+
+  // group g's l pass (kL) and r pass (kRp) for lane i: l at stages
+  // hi - 1..lo (but 0), then r at stages lo..hi - 1 (but S - 1)
+  template <int g, bool kL, bool kRp>
+  PT_HD PT_INLINE void pass(int i) const {
+    constexpr int B = P::base(g), LO = P::lo(g), HI = P::hi(g);
+    Lane& x = ln[i];
+    const int at = first<B>(t.tid(i));
+    float lv[4][kR], rv[4][kR];       // levels B..B + 3 at the thread's rows
+    load<B>(lv[HI - B], level(HI, false), at);
+#pragma unroll
+    for (int s = LO + 1; s < HI; ++s)
+#pragma unroll
+      for (int j = 0; j < kR; ++j) {
+        lv[s - B][j] = x.l[g][s - LO - 1][j];
+        rv[s - B][j] = x.r[g][s - LO - 1][j];
+      }
+    if constexpr (kL) {
+      if constexpr (LO == 0) {
+#pragma unroll
+        for (int j = 0; j < kR; ++j) rv[0][j] = x.r0[j];
+      } else {
+        load<B>(rv[LO - B], level(LO, true), at);
+      }
+#pragma unroll
+      for (int s = HI - 1; s >= LO; --s)
+        if (s > 0) stage<true>(s - B, lv[s + 1 - B], rv[s - B], lv[s - B]);
+      if constexpr (LO > 0) store<B>(level(LO, false), lv[LO - B], at);
+    }
+    if constexpr (kRp) {
+      if constexpr (LO == 0) {
+#pragma unroll
+        for (int j = 0; j < kR; ++j) rv[0][j] = x.r0[j];
+      } else {
+        load<B>(rv[LO - B], level(LO, true), at);
+      }
+#pragma unroll
+      for (int s = LO; s < HI; ++s)
+        if (s < kS - 1)
+          stage<false>(s - B, lv[s + 1 - B], rv[s - B], rv[s + 1 - B]);
+      if constexpr (HI < kS) store<B>(level(HI, true), rv[HI - B], at);
+    }
+#pragma unroll
+    for (int s = LO + 1; s < HI; ++s)
+#pragma unroll
+      for (int j = 0; j < kR; ++j) {
+        x.l[g][s - LO - 1][j] = lv[s - B][j];
+        x.r[g][s - LO - 1][j] = rv[s - B][j];
+      }
+  }
+
+  // the l passes of groups g..1, top down, a barrier after each
+  template <int g>
+  PT_HD PT_INLINE void l_down() const {
+    if constexpr (g > 0) {
+      PT_FOR_LANES(t) pass<g, true, false>(i_);
+      t.sync();
+      l_down<g - 1>();
+    }
+  }
+  // the r passes of groups g..top, a barrier before each
+  template <int g>
+  PT_HD PT_INLINE void r_up() const {
+    if constexpr (g < kG) {
+      t.sync();
+      PT_FOR_LANES(t) pass<g, false, true>(i_);
+      r_up<g + 1>();
+    }
+  }
+  PT_HD PT_INLINE void sweep() const {
+    l_down<kG - 1>();
+    PT_FOR_LANES(t) pass<0, true, true>(i_);
+    r_up<1>();
+  }
+
+  // l_0 at lane i's rows of group 0: stage 0 of the l pass
+  PT_HD PT_INLINE void l0(int i, float (&o)[kR]) const {
+    const Lane& x = ln[i];
+    float l1[kR];
+    if constexpr (kS == 1) {
+      load<0>(l1, level(1, false), first<0>(t.tid(i)));
+    } else {
+#pragma unroll
+      for (int j = 0; j < kR; ++j) l1[j] = x.l[0][0][j];
+    }
+    stage<true>(0, l1, x.r0, o);
+  }
+
+  // l_S and r_S at lane i's rows of the top group: stage S - 1 of the r
+  // pass
+  PT_HD PT_INLINE void top(int i, float (&ls)[kR], float (&o)[kR]) const {
+    constexpr int g = kG - 1, B = P::base(g), LO = P::lo(g);
+    const Lane& x = ln[i];
+    const int at = first<B>(t.tid(i));
+    load<B>(ls, level(kS, false), at);
+    float r1[kR];                        // r_{S-1}
+    if constexpr (kS - 1 > LO) {
+#pragma unroll
+      for (int j = 0; j < kR; ++j) r1[j] = x.r[g][kS - 2 - LO][j];
+    } else if constexpr (LO == 0) {
+#pragma unroll
+      for (int j = 0; j < kR; ++j) r1[j] = x.r0[j];
+    } else {
+      load<B>(r1, level(LO, true), at);
+    }
+    stage<false>(kS - 1 - B, ls, r1, o);
+  }
+
+  // the G-matrix check; uniform over the CTA. Follows a sweep, whose last
+  // barrier orders the levels it reads.
+  PT_HD PT_INLINE bool converged() const {
+    constexpr int BT = P::base(kG - 1);
+    PT_FOR_LANES(t) {
+      Lane& x = ln[i_];
+      const int tid = t.tid(i_);
+      // the channel side at the top group's rows, a byte a row
+      float ls[kR], rs[kR];
+      top(i_, ls, rs);
+#pragma unroll
+      for (int j = 0; j < kR; ++j)
+        xh[row<BT>(tid, j)] = M::rnd(ls[j] + rs[j]) <= 0.0f;
+      // the info side at group 0's rows, through the XOR butterfly's
+      // stages 0..kRb - 1
+      float l0v[kR];
+      l0(i_, l0v);
+      uint32_t b = 0;
+#pragma unroll
+      for (int j = 0; j < kR; ++j)
+        b |= (uint32_t)(!(x.r0[j] > 0.0f)
+                        && M::rnd(l0v[j] + x.r0[j]) <= 0.0f) << j;
+#pragma unroll
+      for (int s = 0; s < kRb; ++s) b ^= (b >> (1 << s)) & bp_word_mask(s);
+      x.bits = b;
+    }
+    // the stages of the lane bits: the upper lane takes the XOR
+#pragma unroll
+    for (int m = 1; m < (P::kT < 32 ? P::kT : 32); m <<= 1) {
+      PT_FOR_LANES(t) ln[i_].give = ln[i_].bits;
+      PT_FOR_LANES(t) {
+        const uint32_t got = t.peer(ln[i_].give, ln[t.partner(i_, m)].give,
+                                    m, kMask);
+        if ((t.tid(i_) & m) == 0) ln[i_].bits ^= got;
+      }
+    }
+    if constexpr (P::kWarps > 1)
+      PT_FOR_LANES(t) xb[t.tid(i_)] = (uint8_t)ln[i_].bits;
+    t.sync();
+    PT_FOR_LANES(t) {
+      Lane& x = ln[i_];
+      const int tid = t.tid(i_);
+      uint32_t b = x.bits;
+      if constexpr (P::kWarps > 1) {
+        // the stages of the warp bits: the XOR over the warps whose index
+        // holds this warp's bits
+        const int w = tid >> 5;
+        b = 0;
+#pragma unroll
+        for (int W = 0; W < P::kWarps; ++W)
+          if ((W & w) == w) b ^= xb[(W << 5) | (tid & 31)];
+      }
+      uint32_t c = 0;
+#pragma unroll
+      for (int j = 0; j < kR; ++j) c |= (uint32_t)xh[tid * kR + j] << j;
+      x.ok = b == c;
+    }
+    return t.all(ln);
+  }
+
+  PT_HD PT_INLINE void run() {
+    const float sign = A.negate ? -1.0f : 1.0f;
+    PT_FOR_LANES(t) {
+      Lane& x = ln[i_];
+      const int tid = t.tid(i_);
+      // the levels between groups: 0; l_S: the channel at group 0's rows
+      for (int e = tid; e < 2 * (kG - 1) * kStride; e += P::kT)
+        lat[e] = M::st(0.0f);
+      float ch[kR];
+#pragma unroll
+      for (int j = 0; j < kR; ++j) {
+        const long long r = tid * kR + j;
+        ch[j] = M::rnd(sign * A.llr[r * A.llr_rs + col * A.llr_cs]);
+        x.r0[j] = M::rnd(A.prior[r]);
+      }
+      store<0>(level(kS, false), ch, first<0>(tid));
+#pragma unroll
+      for (int g = 0; g < kG; ++g)
+#pragma unroll
+        for (int k = 0; k < 2; ++k)
+#pragma unroll
+          for (int j = 0; j < kR; ++j) x.l[g][k][j] = x.r[g][k][j] = 0.0f;
+    }
+    t.sync();
+
+    // sweeps, a check after every check_every of the full chunks
+    const int checks = A.early_stop ? A.num_iter / A.check_every : 0;
+    bool done = false;
+    int ran = 0, chunk = 0;
+    while (ran < A.num_iter) {
+      sweep();
+      ++ran;
+      if (++chunk == A.check_every && ran <= checks * A.check_every) {
+        chunk = 0;
+        if (converged()) {
+          done = true;
+          break;
+        }
+      }
+    }
+
+    PT_FOR_LANES(t) {
+      const Lane& x = ln[i_];
+      const int tid = t.tid(i_);
+      float l0v[kR];
+      l0(i_, l0v);
+#pragma unroll
+      for (int j = 0; j < kR; ++j)
+        A.out[(tid * kR + j) * A.out_rs + col * A.out_cs] =
+            M::rnd(l0v[j] + x.r0[j]);
+      if (A.done != nullptr && tid == 0) A.done[col] = done ? 1 : 0;
+      if (A.sweeps != nullptr && tid == 0) A.sweeps[col] = ran;
+    }
+  }
+};
+
+// decode column col by the tiled form: smem holds
+// bp_tiled_smem_bytes(kS, sizeof(T)) bytes, lanes t.per() lanes
+template <int kS, int kMode, bool kBf16, class Team>
+PT_HD PT_INLINE void bp_tiled_column(const Team& t, const BpArgs& A, int col,
+                                     unsigned char* smem,
+                                     BpTileLane<kS>* lanes) {
+  using M = BpMsg<kBf16>;
+  using Tile = BpTile<Team, kS, kMode, kBf16>;
+  constexpr int kLevels = 2 * (Tile::kG - 1) + 1;
+  uint8_t* xh = smem + sizeof(typename M::T) * kLevels * Tile::kStride;
+  const float msf = M::rnd(A.msf);
+  Tile tile{t, A, lanes, reinterpret_cast<typename M::T*>(smem), xh,
+            xh + (1 << kS), col,
+            BpOps<kBf16, kMode>{M::rnd(A.llr_max), msf, A.exact,
+                                !A.exact && msf != 1.0f}};
+  tile.run();
+}
+
+// ---- the global form ----
+// one lane's messages at the warp stages of its current block: index
+// [stage][row]; stage Sw holds the top boundary while a sweep runs
 struct BpLane {
-  float l[kB][kBpWarpStages + 1][2];
-  float r[kB][kBpWarpStages + 1][2];
+  float l[kBpWarpStages + 1][2];
+  float r[kBpWarpStages + 1][2];
   float own, give;      // a warp stage's outputs: own row, partner's row
   uint32_t bits;        // the check's predicates (compute_bits)
   int ok;
 };
 
-#define PT_FOR_LANES(t) for (int i_ = 0; i_ < (t).per(); ++i_)
-
-template <class Team, int kB, bool kRes, bool kBf16>
+template <class Team, bool kBf16>
 struct BpCodeword {
   using M = BpMsg<kBf16>;
   using T = typename M::T;
   const Team& t;
   const BpArgs& A;
-  BpLane<kB>* ln;       // the lanes this thread runs (t.per() of them)
-  BpLattice<T> lat;     // stages lat.lo..S (the global form: 0..S)
+  BpLane* ln;           // the lanes this thread runs (t.per() of them)
+  T* l_;                // the whole lattice: l at stages 0..S, then r
+  T* r_;
   uint32_t* words;      // [blocks][4]: the check's words
   int col, n, Sw, blocks, warps, nb;
   BpOps<kBf16> ops;
 
+  PT_HD PT_INLINE T* L(int s) const { return l_ + (long long)s * n; }
+  PT_HD PT_INLINE T* R(int s) const { return r_ + (long long)s * n; }
   PT_HD PT_INLINE int lane(int i) const { return t.tid(i) & 31; }
   PT_HD PT_INLINE int warp(int i) const { return t.tid(i) >> 5; }
   // row j (0, 1) of lane i in its k-th block; -1 past n
@@ -282,20 +710,19 @@ struct BpCodeword {
   }
 
   // ---- the warp stages of one block ----
-  // stage s of the l (left) or r pass on block slot kk of every lane
-  PT_HD PT_INLINE void warp_stage(int kk, int s, bool left) const {
+  // stage s of the l (left) or r pass on every lane's current block
+  PT_HD PT_INLINE void warp_stage(int s, bool left) const {
     if (s == 0) {                 // both rows in the lane
       PT_FOR_LANES(t) {
-        BpLane<kB>& x = ln[i_];
+        BpLane& x = ln[i_];
         float du, dv;
-        ops.pe(left, x.l[kk][1][0], x.l[kk][1][1], x.r[kk][0][0],
-               x.r[kk][0][1], du, dv);
+        ops.pe(left, x.l[1][0], x.l[1][1], x.r[0][0], x.r[0][1], du, dv);
         if (left) {
-          x.l[kk][0][0] = du;
-          x.l[kk][0][1] = dv;
+          x.l[0][0] = du;
+          x.l[0][1] = dv;
         } else {
-          x.r[kk][1][0] = du;
-          x.r[kk][1][1] = dv;
+          x.r[1][0] = du;
+          x.r[1][1] = dv;
         }
       }
       return;
@@ -307,16 +734,15 @@ struct BpCodeword {
     // output on the partner's row (a third shuffle)
     const int m = 1 << (s - 1);
     PT_FOR_LANES(t) {
-      BpLane<kB>& x = ln[i_];
-      const BpLane<kB>& y = ln[t.partner(i_, m)];
+      BpLane& x = ln[i_];
+      const BpLane& y = ln[t.partner(i_, m)];
       const bool up = (lane(i_) & m) == 0;
-      const float l0 = x.l[kk][s + 1][0], l1 = x.l[kk][s + 1][1];
-      const float r0 = x.r[kk][s][0], r1 = x.r[kk][s][1];
+      const float l0 = x.l[s + 1][0], l1 = x.l[s + 1][1];
+      const float r0 = x.r[s][0], r1 = x.r[s][1];
       // send slot up ? 1 : 0, receive the partner's slot up ? 0 : 1
-      const float pl = t.peer(up ? l1 : l0, up ? y.l[kk][s + 1][0]
-                                               : y.l[kk][s + 1][1], m);
-      const float pr = t.peer(up ? r1 : r0, up ? y.r[kk][s][0]
-                                               : y.r[kk][s][1], m);
+      const float pl = t.peer(up ? l1 : l0, up ? y.l[s + 1][0]
+                                               : y.l[s + 1][1], m);
+      const float pr = t.peer(up ? r1 : r0, up ? y.r[s][0] : y.r[s][1], m);
       const float ml = up ? l0 : l1, mr = up ? r0 : r1;
       float du, dv;
       ops.pe(left, up ? ml : pl, up ? pl : ml, up ? mr : pr, up ? pr : mr,
@@ -325,25 +751,24 @@ struct BpCodeword {
       x.give = up ? dv : du;
     }
     PT_FOR_LANES(t) {
-      BpLane<kB>& x = ln[i_];
+      BpLane& x = ln[i_];
       const bool up = (lane(i_) & m) == 0;
       const float got = t.peer(x.give, ln[t.partner(i_, m)].give, m);
       const float o0 = up ? x.own : got, o1 = up ? got : x.own;
       if (left) {
-        x.l[kk][s][0] = o0;
-        x.l[kk][s][1] = o1;
+        x.l[s][0] = o0;
+        x.l[s][1] = o1;
       } else {
-        x.r[kk][s + 1][0] = o0;
-        x.r[kk][s + 1][1] = o1;
+        x.r[s + 1][0] = o0;
+        x.r[s + 1][1] = o1;
       }
     }
   }
 
-  // the global form: the lanes' warp-stage messages of block k from and to
-  // the scratch
+  // the lanes' warp-stage messages of block k from and to the scratch
   PT_HD PT_INLINE void move_state(int k, bool load) const {
     PT_FOR_LANES(t) {
-      BpLane<kB>& x = ln[i_];
+      BpLane& x = ln[i_];
 #pragma unroll
       for (int s = 0; s < kBpWarpStages; ++s) {
         if (s >= Sw) continue;
@@ -352,33 +777,33 @@ struct BpCodeword {
           const int r = row(i_, k, j);
           if (r < 0) continue;
           if (load) {
-            x.l[0][s][j] = M::ld(lat.L(s)[r]);
-            x.r[0][s][j] = M::ld(lat.R(s)[r]);
+            x.l[s][j] = M::ld(L(s)[r]);
+            x.r[s][j] = M::ld(R(s)[r]);
           } else {
-            lat.L(s)[r] = M::st(x.l[0][s][j]);
-            lat.R(s)[r] = M::st(x.r[0][s][j]);
+            L(s)[r] = M::st(x.l[s][j]);
+            R(s)[r] = M::st(x.r[s][j]);
           }
         }
       }
     }
   }
 
-  // l_Sw of block k into its lanes' slot kk (the top of the warp stages)
-  PT_HD PT_INLINE void load_top(int k, int kk) const {
+  // l_Sw of block k into its lanes (the top of the warp stages)
+  PT_HD PT_INLINE void load_top(int k) const {
     PT_FOR_LANES(t) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int r = row(i_, k, j);
-        const float v = r < 0 ? 0.0f : M::ld(lat.L(Sw)[r]);
+        const float v = r < 0 ? 0.0f : M::ld(L(Sw)[r]);
         // constant indices only, so the lane's arrays stay in registers
 #pragma unroll
         for (int s = 1; s <= kBpWarpStages; ++s)
-          if (s == Sw) ln[i_].l[kk][s][j] = v;
+          if (s == Sw) ln[i_].l[s][j] = v;
       }
     }
   }
-  // r_Sw of block k from its lanes' slot kk
-  PT_HD PT_INLINE void store_top(int k, int kk) const {
+  // r_Sw of block k from its lanes
+  PT_HD PT_INLINE void store_top(int k) const {
     PT_FOR_LANES(t) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
@@ -386,54 +811,35 @@ struct BpCodeword {
         float v = 0.0f;
 #pragma unroll
         for (int s = 1; s <= kBpWarpStages; ++s)
-          if (s == Sw) v = ln[i_].r[kk][s][j];
-        if (r >= 0) lat.R(Sw)[r] = M::st(v);
+          if (s == Sw) v = ln[i_].r[s][j];
+        if (r >= 0) R(Sw)[r] = M::st(v);
       }
     }
   }
 
-  // both passes of the warp stages, for every block of each warp; reads
-  // l_Sw, writes r_Sw. Resident blocks run stage by stage side by side,
-  // so their chains overlap; the global form runs one block at a time
-  // through slot 0.
+  // both passes of the warp stages, for every block of each warp, one
+  // block at a time; reads l_Sw, writes r_Sw
   PT_HD PT_INLINE void warp_sweep() const {
-    if constexpr (kRes) {
-#pragma unroll
-      for (int k = 0; k < kB; ++k) load_top(k, k);
+    for (int k = 0; k < nb; ++k) {
+      move_state(k, true);
+      load_top(k);
 #pragma unroll
       for (int s = kBpWarpStages - 1; s >= 0; --s)
-#pragma unroll
-        for (int k = 0; k < kB; ++k)
-          if (s < Sw) warp_stage(k, s, true);
+        if (s < Sw) warp_stage(s, true);
 #pragma unroll
       for (int s = 0; s < kBpWarpStages; ++s)
-#pragma unroll
-        for (int k = 0; k < kB; ++k)
-          if (s < Sw) warp_stage(k, s, false);
-#pragma unroll
-      for (int k = 0; k < kB; ++k) store_top(k, k);
-    } else {
-      for (int k = 0; k < nb; ++k) {
-        move_state(k, true);
-        load_top(k, 0);
-#pragma unroll
-        for (int s = kBpWarpStages - 1; s >= 0; --s)
-          if (s < Sw) warp_stage(0, s, true);
-#pragma unroll
-        for (int s = 0; s < kBpWarpStages; ++s)
-          if (s < Sw) warp_stage(0, s, false);
-        store_top(k, 0);
-        move_state(k, false);
-      }
+        if (s < Sw) warp_stage(s, false);
+      store_top(k);
+      move_state(k, false);
     }
   }
 
   // ---- the CTA stages ----
   // stage s, one element per row pair
   PT_HD PT_INLINE void cta_single(int s, bool left) const {
-    const T* l1 = lat.L(s + 1);
-    const T* r0 = lat.R(s);
-    T* dst = left ? lat.L(s) : lat.R(s + 1);
+    const T* l1 = L(s + 1);
+    const T* r0 = R(s);
+    T* dst = left ? L(s) : R(s + 1);
     PT_FOR_LANES(t) {
       for (int j = t.tid(i_); j < n / 2; j += t.size()) {
         const int u = bp_upper(j, s), v = u + (1 << s);
@@ -470,16 +876,8 @@ struct BpCodeword {
 
   // l_0 + r_0 of row j of lane i's k-th block
   PT_HD PT_INLINE float total0(int i, int k, int j) const {
-    if constexpr (kRes) {
-      return M::rnd(ln[i].l[k][0][j] + ln[i].r[k][0][j]);
-    } else {
-      const int r = row(i, k, j);
-      return M::rnd(M::ld(lat.L(0)[r]) + M::ld(lat.R(0)[r]));
-    }
-  }
-  PT_HD PT_INLINE float prior0(int i, int k, int j) const {
-    if constexpr (kRes) return ln[i].r[k][0][j];
-    else return M::ld(lat.R(0)[row(i, k, j)]);
+    const int r = row(i, k, j);
+    return M::rnd(M::ld(L(0)[r]) + M::ld(R(0)[r]));
   }
 
   // lane i's predicates in block k, as bits of ln[i].bits: 0, the even
@@ -490,7 +888,7 @@ struct BpCodeword {
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int r = row(i, k, j);
-      u[j] = r >= 0 && !(prior0(i, k, j) > 0.0f) && total0(i, k, j) <= 0.0f;
+      u[j] = r >= 0 && !(M::ld(R(0)[r]) > 0.0f) && total0(i, k, j) <= 0.0f;
       x[j] = r >= 0 && channel_total(r) <= 0.0f;
     }
     ln[i].bits = (uint32_t)(u[0] != u[1]) | (uint32_t)u[1] << 1
@@ -501,11 +899,9 @@ struct BpCodeword {
   PT_HD PT_INLINE bool converged() const {
     const int S = A.S;
     t.sync();
-    const int nblk = kRes ? kB : nb;
     // the words of every block: the info side through the XOR butterfly's
     // stages 0..5 (shifts and masks within a word), the channel side
-#pragma unroll
-    for (int k = 0; k < nblk; ++k) {
+    for (int k = 0; k < nb; ++k) {
       PT_FOR_LANES(t) compute_bits(i_, k);
       PT_FOR_LANES(t) {
         uint32_t e = t.ballot(ln, i_, 0), o = t.ballot(ln, i_, 1);
@@ -548,34 +944,19 @@ struct BpCodeword {
 
   // l_S + r_S of row r (the channel-side total)
   PT_HD PT_INLINE float channel_total(int r) const {
-    return M::rnd(M::ld(lat.L(A.S)[r]) + M::ld(lat.R(A.S)[r]));
+    return M::rnd(M::ld(L(A.S)[r]) + M::ld(R(A.S)[r]));
   }
 
   PT_HD PT_INLINE void run() {
     const int S = A.S;
     const float sign = A.negate ? -1.0f : 1.0f;
-    // lattice stages lat.lo..S: l_S the channel, the rest 0 (r_0 the prior
-    // where the global form keeps it)
+    // the lattice: l_S the channel, r_0 the prior, the rest 0
     PT_FOR_LANES(t) {
       for (int i = t.tid(i_); i < n; i += t.size()) {
-        for (int s = lat.lo; s < S; ++s) lat.L(s)[i] = M::st(0.0f);
-        lat.L(S)[i] = M::st(M::rnd(sign * A.llr[i * A.llr_rs
-                                                + col * A.llr_cs]));
-        for (int s = lat.lo; s <= S; ++s)
-          lat.R(s)[i] = M::st(s == 0 ? M::rnd(A.prior[i]) : 0.0f);
-      }
-      if (kRes) {
-        BpLane<kB>& x = ln[i_];
-#pragma unroll
-        for (int k = 0; k < kB; ++k)
-#pragma unroll
-          for (int s = 0; s <= kBpWarpStages; ++s)
-#pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              const int r = row(i_, k, j);
-              x.l[k][s][j] = 0.0f;
-              x.r[k][s][j] = s == 0 && r >= 0 ? M::rnd(A.prior[r]) : 0.0f;
-            }
+        for (int s = 0; s < S; ++s) L(s)[i] = M::st(0.0f);
+        L(S)[i] = M::st(M::rnd(sign * A.llr[i * A.llr_rs + col * A.llr_cs]));
+        for (int s = 0; s <= S; ++s)
+          R(s)[i] = M::st(s == 0 ? M::rnd(A.prior[i]) : 0.0f);
       }
     }
     t.sync();
@@ -592,10 +973,8 @@ struct BpCodeword {
     if (!done)
       for (; left > 0; --left) sweep();
 
-    const int nblk = kRes ? kB : nb;
     PT_FOR_LANES(t) {
-#pragma unroll
-      for (int k = 0; k < nblk; ++k)
+      for (int k = 0; k < nb; ++k)
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           const int r = row(i_, k, j);
@@ -609,6 +988,26 @@ struct BpCodeword {
   }
 };
 
+// decode column col by the global form: lat, its whole lattice
+// (2 (S + 1) n messages); words: 4 per block of scratch
+template <bool kBf16, class Team>
+PT_HD PT_INLINE void bp_global_column(const Team& t, const BpArgs& A,
+                                      int col, typename BpMsg<kBf16>::T* lat,
+                                      uint32_t* words, BpLane* lanes) {
+  using M = BpMsg<kBf16>;
+  const int n = 1 << A.S;
+  const int blocks = bp_blocks(A.S);
+  const int warps = (t.size() + 31) / 32;
+  const float msf = M::rnd(A.msf);
+  const BpOps<kBf16> ops{M::rnd(A.llr_max), msf, A.exact,
+                         !A.exact && msf != 1.0f};
+  BpCodeword<Team, kBf16> cw{t, A, lanes, lat,
+                             lat + (long long)(A.S + 1) * n, words, col, n,
+                             bp_warp_stages(A.S), blocks, warps,
+                             blocks / warps, ops};
+  cw.run();
+}
+
 #undef PT_FOR_LANES
 
 // the CTA on the host: one thread runs the T lanes in turn; a shuffle reads
@@ -621,7 +1020,10 @@ struct BpHostTeam {
   PT_HD void sync() const {}
   PT_HD void warp_sync() const {}
   PT_HD int partner(int i, int m) const { return i ^ m; }
-  PT_HD float peer(float, float other, int) const { return other; }
+  template <class V>
+  PT_HD V peer(V, V other, int, unsigned = 0xffffffffu) const {
+    return other;
+  }
   // bit q of the bits of lane i's warp
   template <class Lane>
   PT_HD uint32_t ballot(const Lane* x, int i, int q) const {
@@ -638,29 +1040,5 @@ struct BpHostTeam {
     return ok;
   }
 };
-
-// decode column col. lat: the shared form's stages Sw..S (kRes), or the
-// whole global lattice (2 (S + 1) n messages); words: 4 per block of
-// scratch. kBf16: the bf16 lattice (msf and llr_max rounded to bf16, as
-// the JAX package casts them).
-template <int kB, bool kRes, bool kBf16, class Team>
-PT_HD PT_INLINE void bp_column(const Team& t, const BpArgs& A, int col,
-                               typename BpMsg<kBf16>::T* lat,
-                               uint32_t* words, BpLane<kB>* lanes) {
-  using M = BpMsg<kBf16>;
-  const int n = 1 << A.S;
-  const int Sw = bp_warp_stages(A.S);
-  const int blocks = bp_blocks(A.S);
-  const int warps = (t.size() + 31) / 32;
-  const int lo = kRes ? Sw : 0;
-  const long long stages = A.S - lo + 1;
-  const BpLattice<typename M::T> l{lat, lat + stages * n, lo, n};
-  const float msf = M::rnd(A.msf);
-  const BpOps<kBf16> ops{M::rnd(A.llr_max), msf, A.exact,
-                         !A.exact && msf != 1.0f};
-  BpCodeword<Team, kB, kRes, kBf16> cw{t, A, lanes, l, words, col, n, Sw,
-                                       blocks, warps, blocks / warps, ops};
-  cw.run();
-}
 
 }  // namespace polar_torch

@@ -20,22 +20,26 @@ other outputs are the same with it or without it.
   ``kernel.bp``, counts its launches in the tracing counter ``launch.bp``
   (the bf16 instance's also in ``form.bp.bf16``) and reports each launch's
   work to a running ``profiling.flop_estimate``. While tracing is on it
-  asks for the sweeps output and the convergence flag and feeds the
-  device counters ``sweeps.bp`` (sweeps summed over the codewords) and,
-  with early stop, ``converged.bp`` (codewords whose check passed), which
-  stay on the card until ``tracing.summary()``; off, it asks for neither.
+  also counts the launches of the tiled schedule (``form.bp.tiled``) and
+  the CTA barriers a sweep of each launch's plan (``syncs.bp``), asks for
+  the sweeps output and the convergence flag and feeds the device counters
+  ``sweeps.bp`` (sweeps summed over the codewords) and, with early stop,
+  ``converged.bp`` (codewords whose check passed), which stay on the card
+  until ``tracing.summary()``; off, it does none of these.
 * ``bp_decode_plain`` mirrors the JAX package's XLA engine
   (``PolarBPDecoder._run``): whole-batch tensor ops, a converged lane frozen
   by a select, the loop left when every lane has converged.
-* ``bp_decode_host`` runs the kernel's schedule built for the CPU with g++,
-  one thread running the CTA's lanes in turn, so the tests can check the
-  CUDA source's logic.
+* ``bp_decode_host`` runs the kernel's schedules built for the CPU with
+  g++, one thread running the CTA's lanes in turn, so the tests can check
+  the CUDA source's logic.
 
-The kernel runs one CTA per codeword. Stages 0..4 exchange inside a warp
-(shuffles, no CTA barrier) and keep their messages in registers; stages
-5..S sit in shared memory up to n = 2048 and run one at a time between
-barriers (``launch_plan``: 49,408 B at n = 1024); from n = 4096 the
-lattice sits in a global scratch (``csrc/bp.cuh`` explains the schedule).
+The kernel runs one CTA per codeword. Up to n = 2048 it takes the tiled
+schedule: the stages in groups of three, a thread owning the 8 rows that
+differ in its group's bits, so that the group's stages run in its
+registers; only the levels between groups sit in shared memory
+(``launch_plan``: 128 threads, 6 barriers a sweep and 33,408 B at
+n = 1024). From n = 4096 the lattice sits in a global scratch, under the
+warp-stage schedule (``csrc/bp.cuh`` explains both).
 
 In scaled min-sum the ``l_v``/``r_v`` outputs round ``msf * minsum + v``
 once, as XLA fuses them on the CPU (``ops/fg.scaled_minsum_add`` here,
@@ -112,10 +116,8 @@ def bp_decode(llr, prior, *, num_iter: int, check_every: int,
                 stream = torch.cuda.current_stream(llr.device).cuda_stream
                 res = _native_call(lib.bp_launch, llr, prior, lattice,
                                    (ctypes.c_void_p, stream), **kw)
-                launched = int(llr.shape[1] > 0)    # an empty batch: none
-                tracing.count("launch.bp", launched, ops=1)
-                tracing.count("form.bp.bf16",
-                              launched * (msg_dtype == torch.bfloat16))
+                _count_launch("cuda", llr.shape[0], int(llr.shape[1] > 0),
+                              lattice, msg_dtype)
             # an estimate counts every sweep and check: early stop is data
             # that it cannot read without a sync; the bf16 lattice does the
             # same work
@@ -132,32 +134,50 @@ def bp_decode(llr, prior, *, num_iter: int, check_every: int,
         return res
 
 
-def bp_decode_host(llr, prior, *, lattice: str = "auto",
-                   warp_blocks: int = 0, **kw):
-    """The kernel's schedule built for the CPU (g++), with the card's launch
-    plan, or with ``warp_blocks`` (1 or 2) resident blocks per warp in the
-    shared form, so that tests reach the two-block form (the card's at
-    n = 2048) at small n; CPU tensors only. The main path never calls it."""
+def _count_launch(route, n, launched, lattice, msg_dtype):
+    """Count a launch (``launched`` 1, or 0 for an empty batch) of the
+    ``route`` build at block length ``n``: ``launch.bp`` and
+    ``form.bp.bf16`` always; ``form.bp.tiled`` and ``syncs.bp`` (the CTA
+    barriers a sweep of the launch's plan) only while tracing is on."""
+    bf16 = msg_dtype == torch.bfloat16
+    tracing.count("launch.bp", launched, ops=1)
+    tracing.count("form.bp.bf16", launched * bf16)
+    if tracing.on():
+        shared = resolve_lattice(n, lattice) == "shared"
+        tracing.count("form.bp.tiled", launched * shared)
+        tracing.count("syncs.bp",
+                      launched * _plan(route, n.bit_length() - 1, shared,
+                                       bf16)[1])
+
+
+def bp_decode_host(llr, prior, *, lattice: str = "auto", **kw):
+    """The kernel's schedules built for the CPU (g++), with the card's
+    launch plan; CPU tensors only. The main path never calls it."""
     if llr.device.type != "cpu":
         raise ValueError("bp_decode_host takes CPU tensors")
-    if int(warp_blocks) not in (0, 1, 2):
-        raise ValueError("warp_blocks must be 0 (the card's plan), 1 or 2")
     return _native_call(_build.load("bp", "host").bp_host, llr, prior,
-                        lattice, (ctypes.c_int, int(warp_blocks)), **kw)
+                        lattice, None, **kw)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(route: str, S: int, shared: bool, bf16: bool):
+    fn = _build.load("bp", route).bp_plan_of
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = None
+    out = (ctypes.c_int * 3)()
+    fn(S, int(shared), int(bf16), out)
+    return tuple(out)
 
 
 def launch_plan(n: int, lattice: str = "auto", msg_dtype=torch.float32):
-    """(threads per CTA, resident blocks per warp, dynamic shared memory
-    bytes) of the kernel's launch at block length ``n`` with ``msg_dtype``
+    """(threads per CTA, CTA barriers a sweep, dynamic shared memory bytes)
+    of the kernel's launch at block length ``n`` with ``msg_dtype``
     messages (from the host build, which shares the plan's code with the
     kernel)."""
-    fn = _build.load("bp", "host").bp_plan_of
-    fn.restype = None
-    out = (ctypes.c_int * 3)()
-    fn(ctypes.c_int(n.bit_length() - 1),
-       ctypes.c_int(int(resolve_lattice(n, lattice) == "shared")),
-       ctypes.c_int(int(msg_is_bf16(msg_dtype))), out)
-    return tuple(out)
+    return _plan("host", n.bit_length() - 1,
+                 resolve_lattice(n, lattice) == "shared",
+                 msg_is_bf16(msg_dtype))
 
 
 def bf16_round_host(x):
@@ -217,8 +237,7 @@ def _native_call(fn, llr, prior, lattice, last, *, num_iter, check_every,
                  early_stop, mode, msf, llr_max, return_done=False,
                  negate=False, msg_dtype=torch.float32, sweeps=None):
     """Call ``bp_launch`` or ``bp_host``; ``last`` is the (ctypes type,
-    value) of the entry point's last argument: the stream, or the host's
-    ``warp_blocks``."""
+    value) of ``bp_launch``'s stream, None for ``bp_host``."""
     _check(llr, prior, num_iter, check_every, early_stop, mode, return_done,
            msg_dtype, sweeps)
     n, bs = llr.shape
@@ -236,8 +255,9 @@ def _native_call(fn, llr, prior, lattice, last, *, num_iter, check_every,
     if where == "global":
         scratch = torch.empty(bs * 2 * n.bit_length() * n,
                               dtype=msg_dtype, device=dev)
+    tail = [] if last is None else [last]
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES + [last[0]]
+        fn.argtypes = _ARGTYPES + [kind for kind, _ in tail]
         fn.restype = ctypes.c_int
     args = [llr.data_ptr(), llr.stride(0), llr.stride(1), prior.data_ptr(),
             out.data_ptr(), out.stride(0), out.stride(1),
@@ -247,7 +267,7 @@ def _native_call(fn, llr, prior, lattice, last, *, num_iter, check_every,
             n.bit_length() - 1, bs, int(num_iter), int(check_every),
             int(bool(early_stop)), int(F_FUNCTIONS[mode] is f_exact),
             int(bool(negate)), float(msf), float(llr_max),
-            int(msg_is_bf16(msg_dtype)), last[1]]
+            int(msg_is_bf16(msg_dtype))] + [value for _, value in tail]
     rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"bp_decode: native call failed with code {rc}")

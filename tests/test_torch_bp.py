@@ -36,9 +36,9 @@ EXACT_AGREEMENT = 0.99
 
 def _fixture(n, k, ebno_db=2.0, bs=256, seed=0):
     """(frozen, logits [bs, n], u [bs, k]) of random codewords of the 5G
-    k-of-n code (below n = 32, the RM-style construction), QPSK-equivalent
-    BPSK over AWGN at ``ebno_db``."""
-    frozen = (generate_5g_ranking(k, n)[0] if n >= 32
+    k-of-n code (outside the 5G table's n = 32..1024, the RM-style
+    construction), QPSK-equivalent BPSK over AWGN at ``ebno_db``."""
+    frozen = (generate_5g_ranking(k, n)[0] if 32 <= n <= 1024
               else get_kern_frozen_bits(n, k)[2])
     rng = np.random.default_rng(seed)
     u = rng.integers(0, 2, size=(bs, k)).astype(np.float32)
@@ -193,29 +193,38 @@ def test_from_numpy_state_builds_bp_decoder():
 # ----------------------------------------------------------------------
 @pytest.mark.parametrize("lattice", ["shared", "global"])
 @pytest.mark.parametrize(
-    "n,msf,early_stop,num_iter,check_every,warp_blocks", [
-        (64, 0.9375, True, 21, 2, 0),
-        (256, 1.0, True, 12, 1, 0),
-        (256, 0.9375, False, 9, 2, 0),
-        (1024, 0.9375, True, 20, 2, 0),
-        # S = 3..5: warp stages only; S = 6..8: one to three CTA stages;
-        # odd sweep counts, check_every 1..3; two resident 64-row blocks a
-        # warp (the card's form at n = 2048)
-        (8, 0.9375, True, 9, 1, 0),
-        (16, 1.0, True, 7, 2, 0),
-        (32, 0.9375, False, 5, 1, 0),
-        (64, 0.9375, True, 11, 3, 0),
-        (128, 0.9375, True, 13, 2, 0),
-        (128, 1.0, True, 10, 3, 2),
-        (256, 0.9375, True, 15, 1, 2),
+    "n,msf,early_stop,num_iter,check_every", [
+        (64, 0.9375, True, 21, 2),
+        (256, 1.0, True, 12, 1),
+        (256, 0.9375, False, 9, 2),
+        (1024, 0.9375, True, 20, 2),
+        # the tiled form's groups of three stages: S = 3, 6, 9 end on a
+        # whole group; S = 4, 7, 10 on a group of one stage, S = 5, 8, 11
+        # on one of two; S = 1, 2 have fewer rows than a thread owns. Odd
+        # sweep counts, check_every 1..3
+        (8, 0.9375, True, 9, 1),
+        (16, 1.0, True, 7, 2),
+        (32, 0.9375, False, 5, 1),
+        (64, 0.9375, True, 11, 3),
+        (128, 0.9375, True, 13, 2),
+        (128, 1.0, True, 10, 3),
+        (256, 0.9375, True, 15, 1),
+        (2, 0.9375, True, 7, 2),
+        (2, 1.0, False, 3, 1),
+        (4, 0.9375, True, 9, 3),
+        (4, 1.0, True, 5, 1),
+        (8, 1.0, False, 4, 2),
+        (16, 0.9375, True, 13, 3),
+        (512, 0.9375, True, 11, 2),
+        (2048, 0.9375, True, 13, 3),
+        (2048, 1.0, False, 5, 1),
     ])
 def test_host_build_equals_plain(lattice, n, msf, early_stop, num_iter,
-                                 check_every, warp_blocks):
+                                 check_every):
     """Min-sum: bit-equal LLRs and flags. The host build reads the logits
     through a transposed view and negates them on load, with the card's
-    launch plan or, in the shared form, warp_blocks resident blocks a
-    warp."""
-    bs = 32 if n == 1024 else 96
+    launch plan."""
+    bs = 32 if n == 1024 else 16 if n == 2048 else 96
     frozen, logits, _ = _fixture(n, n // 2, bs=bs, seed=n)
     prior = torch.from_numpy(_prior(frozen, n))
     kw = dict(num_iter=num_iter, check_every=check_every,
@@ -223,8 +232,7 @@ def test_host_build_equals_plain(lattice, n, msf, early_stop, num_iter,
               llr_max=LLR_MAX, return_done=early_stop)
     want = bp_decode_plain(torch.from_numpy(-logits.T), prior, **kw)
     got = bp_decode_host(torch.from_numpy(logits).t(), prior,
-                         lattice=lattice, warp_blocks=warp_blocks,
-                         negate=True, **kw)
+                         lattice=lattice, negate=True, **kw)
     if early_stop:
         assert got[1].dtype == torch.int32
         np.testing.assert_array_equal(got[1].numpy(), want[1].numpy())
@@ -252,17 +260,21 @@ def test_host_build_global_lattice_at_n4096():
     np.testing.assert_array_equal(got[1].numpy(), want[1].numpy())
 
 
+@pytest.mark.parametrize("n,ebno_db,num_iter,check_every", [
+    (256, 2.5, 12, 2), (16, 2.5, 9, 3), (2048, 5.5, 7, 1)])
 @pytest.mark.parametrize("lattice", ["shared", "global"])
-def test_host_build_exact_mode_decisions(lattice):
+def test_host_build_exact_mode_decisions(lattice, n, ebno_db, num_iter,
+                                         check_every):
     """Exact mode rounds differently in expf/log1pf and torch.logaddexp:
     hard decisions must agree on every block the plain version marks
-    converged, and on EXACT_AGREEMENT of all blocks."""
-    n = 256
-    frozen, logits, _ = _fixture(n, n // 2, ebno_db=2.5, bs=256, seed=9)
+    converged, and on EXACT_AGREEMENT of all blocks (n = 2048: the RM-style
+    construction, which BP needs more signal to decode)."""
+    frozen, logits, _ = _fixture(n, n // 2, ebno_db=ebno_db,
+                                 bs=64 if n == 2048 else 256, seed=9)
     prior = torch.from_numpy(_prior(frozen, n))
     llr = torch.from_numpy(np.ascontiguousarray(-logits.T))
-    kw = dict(num_iter=12, check_every=2, early_stop=True, mode="exact",
-              msf=0.9375, llr_max=LLR_MAX, return_done=True)
+    kw = dict(num_iter=num_iter, check_every=check_every, early_stop=True,
+              mode="exact", msf=0.9375, llr_max=LLR_MAX, return_done=True)
     got, _ = bp_decode_host(llr, prior, lattice=lattice, **kw)
     want, done = bp_decode_plain(llr, prior, **kw)
     info = prior.numpy() == 0
@@ -288,25 +300,42 @@ def test_wrapper_runs_plain_version_on_cpu():
 
 
 def test_launch_plan():
-    """(threads, resident 64-row blocks a warp, shared bytes): one block a
-    warp up to n = 1024, two at n = 2048, the global form's 512 threads
-    looping over its blocks."""
-    assert launch_plan(8) == (32, 1, 4 * 2 * 1 * 8 + 16)
-    assert launch_plan(1024) == (512, 1, 49408)
-    assert launch_plan(512) == (256, 1, 4 * 2 * 5 * 512 + 128)
-    assert launch_plan(2048) == (512, 2, 115200)
-    assert launch_plan(1024, "global") == (512, 1, 256)
-    assert launch_plan(4096) == (512, 4, 1024)
-    with pytest.raises(ValueError):
-        bp_decode_host(torch.zeros(8, 4), torch.zeros(8), num_iter=2,
-                       check_every=1, early_stop=False, mode="minsum",
-                       msf=1.0, llr_max=LLR_MAX, warp_blocks=3)
+    """(threads, CTA barriers a sweep, shared bytes): the tiled form a
+    thread per 8 rows (all rows below n = 8), a barrier between two groups
+    of three stages in each pass, its padded levels between groups and l_S
+    with a byte a row and a byte a thread for the check; the global form's
+    512 threads looping over its blocks, a barrier a CTA stage."""
+    assert launch_plan(8) == (1, 0, 48)
+    assert launch_plan(1024) == (128, 6, 33408)
+    assert launch_plan(512) == (64, 4, 5 * 576 * 4 + 512 + 64)
+    assert launch_plan(2048) == (256, 6, 66816)
+    assert launch_plan(1024, "global") == (512, 10, 256)
+    assert launch_plan(4096) == (512, 14, 1024)
+    for s in range(1, 12):
+        threads, syncs, smem = launch_plan(1 << s)
+        assert threads == 1 << max(s - 3, 0)
+        assert syncs == 2 * ((s + 2) // 3 - 1)
+        assert smem % 16 == 0 and smem <= 227 * 1024
+
+
+def test_bp_times_needs_the_card(monkeypatch):
+    """The tool that times checkouts' BP kernels at the benchmark cell's
+    shape refuses to run without a card, as the entry points do."""
+    import os
+    import sys
+    from polar_torch.utils import bp_times
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bp_times.main([os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__)))])
 
 
 def test_lattice_choice_and_bad_inputs():
-    # stages 5..S of lmsg and rmsg, and four check words per 64 rows
-    assert launch_plan(1024, "shared")[2] == 49152 + 256
-    assert launch_plan(2048, "shared")[2] == 114688 + 512
+    # l and r at levels 3, 6, 9 and l_S, 16 bytes of padding after every
+    # 128; a byte a row and a byte a thread
+    assert launch_plan(1024, "shared")[2] == 7 * 1152 * 4 + 1024 + 128
+    assert launch_plan(2048, "shared")[2] == 7 * 2304 * 4 + 2048 + 256
     assert resolve_lattice(2048) == "shared"
     assert resolve_lattice(1024, "global") == "global"
     with pytest.raises(ValueError):

@@ -112,31 +112,35 @@ def test_plain_equals_jax_bf16_engine(n, mode, early_stop, num_iter,
 # ----------------------------------------------------------------------
 # the host build of the kernel's bf16 instance against the plain version
 # ----------------------------------------------------------------------
-@pytest.mark.parametrize("lattice,warp_blocks", [("shared", 1),
-                                                 ("shared", 2),
-                                                 ("global", 0)])
+@pytest.mark.parametrize("lattice", ["shared", "global"])
 @pytest.mark.parametrize("n,msf,early_stop,num_iter,check_every", [
     (64, 0.9375, True, 21, 2),
     (128, 1.0, True, 10, 3),
     (256, 0.9375, False, 9, 2),
+    # the tiled form's degenerate groups (see test_torch_bp.py)
+    (2, 0.9375, True, 7, 2),
+    (4, 1.0, True, 9, 3),
+    (8, 0.9375, False, 5, 1),
+    (16, 0.9375, True, 11, 2),
+    (2048, 0.9375, True, 9, 3),
 ])
-def test_host_build_equals_plain_minsum(lattice, warp_blocks, n, msf,
-                                        early_stop, num_iter, check_every):
-    """Min-sum: every LLR and flag bit-equal, with the lattice shared (one
-    or two resident blocks a warp) and global."""
-    frozen, logits, _ = _fixture(n, n // 2, bs=64, seed=n + 1)
+def test_host_build_equals_plain_minsum(lattice, n, msf, early_stop,
+                                        num_iter, check_every):
+    """Min-sum: every LLR and flag bit-equal, with the lattice shared (the
+    tiled form) and global."""
+    frozen, logits, _ = _fixture(n, n // 2, bs=16 if n == 2048 else 64,
+                                 seed=n + 1)
     prior = torch.from_numpy(_prior(frozen, n))
     kw = dict(num_iter=num_iter, check_every=check_every,
               early_stop=early_stop, mode="minsum", msf=msf,
               llr_max=LLR_MAX, return_done=early_stop, msg_dtype=BF16)
     want = bp_decode_plain(torch.from_numpy(-logits.T), prior, **kw)
     got = bp_decode_host(torch.from_numpy(logits).t(), prior,
-                         lattice=lattice, warp_blocks=warp_blocks,
-                         negate=True, **kw)
+                         lattice=lattice, negate=True, **kw)
     if early_stop:
         np.testing.assert_array_equal(got[1].numpy(), want[1].numpy())
         got, want = got[0], want[0]
-    assert got.dtype == torch.float32 and got.shape == (n, 64)
+    assert got.dtype == torch.float32 and got.shape == (n, logits.shape[0])
     np.testing.assert_array_equal(got.numpy().view(np.int32),
                                   want.numpy().view(np.int32))
 
@@ -258,10 +262,13 @@ def test_wrapper_state_and_plan():
     with pytest.raises(ValueError, match="msg_dtype"):
         from_numpy_state(dict(state, msg_dtype="float16"), device="cpu")
 
-    # 16-bit messages at stages 5..S and four check words per 64 rows
-    assert launch_plan(1024, msg_dtype=BF16) == (512, 1, 24576 + 256)
-    assert launch_plan(2048, msg_dtype=BF16) == (512, 2, 57344 + 512)
-    assert launch_plan(1024, "global", msg_dtype=BF16) == (512, 1, 256)
+    # 16-bit messages at levels 3, 6, 9 and S (16 bytes of padding after
+    # every 128), a byte a row and a byte a thread
+    assert launch_plan(1024, msg_dtype=BF16) == (128, 6,
+                                                 7 * 1152 * 2 + 1152)
+    assert launch_plan(2048, msg_dtype=BF16) == (256, 6,
+                                                 7 * 2304 * 2 + 2304)
+    assert launch_plan(1024, "global", msg_dtype=BF16) == (512, 10, 256)
     with pytest.raises(ValueError, match="msg_dtype"):
         bp_decode_plain(torch.zeros(8, 4), torch.zeros(8),
                         **dict(kw, msg_dtype=torch.float16))

@@ -12,9 +12,12 @@ import torch
 
 import _torch_parity  # noqa: F401 (caps torch's threads under xdist)
 from polar_torch.models.polar.bp import PolarBPDecoder
-from polar_torch.models.polar.construction import generate_5g_ranking
+from polar_torch.models.polar.construction import (generate_5g_ranking,
+                                                   get_kern_frozen_bits)
+from polar_torch.models.polar import cuda_bp
 from polar_torch.models.polar.cuda_bp import (bp_decode, bp_decode_host,
-                                              bp_decode_plain)
+                                              bp_decode_plain, launch_plan,
+                                              resolve_lattice)
 from polar_torch.models.polar.encode import PolarEncoder
 from polar_torch.models.systems import SystemAWGNModel
 from polar_torch.sim import sim_ber
@@ -25,10 +28,12 @@ LLR_MAX = 30.0
 
 def _fixture(n, bs, ebno_db, seed):
     """(frozen, prior [n], true LLRs [n, bs]) of random codewords of the 5G
-    (n, n/2) code, BPSK over AWGN at ``ebno_db``: a point where some
+    (n, n/2) code (outside the 5G table's n = 32..1024, the RM-style
+    construction), BPSK over AWGN at ``ebno_db``: a point where some
     codewords converge early, some late and some never."""
     k = n // 2
-    frozen, _ = generate_5g_ranking(k, n)
+    frozen = (generate_5g_ranking(k, n)[0] if 32 <= n <= 1024
+              else get_kern_frozen_bits(n, k)[2])
     rng = np.random.default_rng(seed)
     u = torch.from_numpy(rng.integers(0, 2, (bs, k)).astype(np.float32))
     c = PolarEncoder(frozen, n, device="cpu")(u).numpy()
@@ -57,6 +62,14 @@ CASES = [  # n, num_iter, check_every, early_stop, ebno_db
     (256, 20, 2, True, 1.5),
     (256, 13, 1, True, 1.0),
     (256, 12, 2, False, 1.5),
+    # the tiled form's degenerate groups: S = 1, 2 (fewer rows than a
+    # thread owns), 3 (one whole group), 4 (a group of one stage on top),
+    # 11 (three groups and one of two stages)
+    (2, 7, 2, True, -6.0),
+    (4, 9, 3, True, -3.0),
+    (8, 11, 1, True, 0.0),
+    (16, 13, 2, True, 0.5),
+    (2048, 9, 3, True, 5.0),
 ]
 
 
@@ -67,14 +80,15 @@ CASES = [  # n, num_iter, check_every, early_stop, ebno_db
                          ids=["f32", "bf16"])
 def test_plain_and_host_build_count_alike(case, msg_dtype):
     n, num_iter, check_every, early_stop, ebno = case
-    _, prior, llr = _fixture(n, 96, ebno, seed=n + num_iter)
+    bs = 32 if n == 2048 else 96
+    _, prior, llr = _fixture(n, bs, ebno, seed=n + num_iter)
     kw = _kw(num_iter, check_every, early_stop, msg_dtype)
     want = bp_decode_plain(llr, prior, return_done=early_stop, **kw)
-    sp = torch.full((96,), -1, dtype=torch.int32)
+    sp = torch.full((bs,), -1, dtype=torch.int32)
     got_p = bp_decode_plain(llr, prior, return_done=early_stop, sweeps=sp,
                             **kw)
     for lattice in ("shared", "global"):
-        sh = torch.full((96,), -1, dtype=torch.int32)
+        sh = torch.full((bs,), -1, dtype=torch.int32)
         got_h = bp_decode_host(llr, prior, lattice=lattice,
                                return_done=early_stop, sweeps=sh, **kw)
         assert torch.equal(sh, sp), lattice
@@ -162,6 +176,38 @@ def test_device_counters_only_in_a_traced_summary():
             bp_decode(llr, prior, **_kw(5, 2, False))
     assert tracing.summary()["device_counters"] == {
         "sweeps.bp": {"sum": 5 * 48, "items": 48}}
+
+
+@pytest.mark.parametrize("n,lattice,msg_dtype", [
+    (1024, "auto", torch.float32), (2048, "auto", torch.bfloat16),
+    (8, "auto", torch.float32), (1024, "global", torch.float32)],
+    ids=["n1024_f32", "n2048_bf16", "n8_f32", "n1024_global"])
+def test_launch_counters_only_in_a_traced_summary(n, lattice, msg_dtype):
+    """Each launch adds ``form.bp.tiled`` (1 for the tiled schedule) and
+    ``syncs.bp`` (its plan's CTA barriers a sweep) once, only while tracing
+    is on; ``launch.bp`` and ``form.bp.bf16`` count on or off. The card's
+    launch path (``bp_decode``) makes this call after every launch with
+    the card build's plan; here the host build's, which shares its code."""
+    names = ("launch.bp", "form.bp.bf16", "form.bp.tiled", "syncs.bp")
+    bf16 = int(msg_dtype == torch.bfloat16)
+    before = {k: tracing.counter(k) for k in names}
+    cuda_bp._count_launch("host", n, 1, lattice, msg_dtype)    # untraced
+    assert {k: tracing.counter(k) - before[k] for k in names} == {
+        "launch.bp": 1, "form.bp.bf16": bf16, "form.bp.tiled": 0,
+        "syncs.bp": 0}
+    with tracing.enabled():
+        with tracing.batch():
+            with tracing.span("kernel.bp"):
+                cuda_bp._count_launch("host", n, 1, lattice, msg_dtype)
+                cuda_bp._count_launch("host", n, 0, lattice, msg_dtype)
+    span = tracing.summary()["spans"]["kernel.bp"]
+    tiled = int(resolve_lattice(n, lattice) == "shared")
+    syncs = launch_plan(n, lattice, msg_dtype)[1]
+    assert syncs == (2 * ((n.bit_length() + 1) // 3 - 1) if tiled
+                     else 2 * (n.bit_length() - 1 - 5))
+    got = {k: span.get(k, 0) for k in names}
+    assert got == {"launch.bp": 1, "form.bp.bf16": bf16,
+                   "form.bp.tiled": tiled, "syncs.bp": syncs}
 
 
 def test_count_on_device_is_off_untraced_and_charges_no_span():

@@ -325,43 +325,63 @@ def _bp_inputs(n, bs, ebno_db, seed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,lattice,msf,early_stop,num_iter,check_every", [
-    (64, "auto", 1.0, True, 21, 1),
-    (256, "auto", 0.9375, True, 21, 2),
-    (1024, "shared", 0.9375, True, 20, 2),
-    (1024, "global", 0.9375, True, 20, 2),
-    (1024, "auto", 0.9375, False, 20, 1),
-    (2048, "auto", 0.9375, True, 13, 2),
-    (4096, "auto", 0.9375, True, 9, 2),
-    # two to six CTA stages after the five warp stages (S = 7, 9, 10, 11),
-    # two resident blocks a warp at n = 2048; check_every 1 and 3 with odd
-    # sweep counts
-    (128, "auto", 0.9375, True, 11, 3),
-    (512, "auto", 1.0, True, 13, 1),
-    (1024, "auto", 0.9375, True, 21, 3),
-    (2048, "auto", 0.9375, True, 15, 3),
-])
+@pytest.mark.parametrize(
+    "n,lattice,msf,early_stop,num_iter,check_every,extra", [
+        (64, "auto", 1.0, True, 21, 1, {}),
+        (256, "auto", 0.9375, True, 21, 2, {}),
+        (1024, "shared", 0.9375, True, 20, 2, {}),
+        (1024, "global", 0.9375, True, 20, 2, {}),
+        (1024, "auto", 0.9375, False, 20, 1, {}),
+        (2048, "auto", 0.9375, True, 13, 2, {}),
+        (4096, "auto", 0.9375, True, 9, 2, {}),
+        # the tiled form's groups: S = 7 and 10 end on a group of one
+        # stage, S = 9 on a whole group, S = 11 on a group of two;
+        # check_every 1 and 3 with odd sweep counts
+        (128, "auto", 0.9375, True, 11, 3, {}),
+        (512, "auto", 1.0, True, 13, 1, {}),
+        (1024, "auto", 0.9375, True, 21, 3, {}),
+        (2048, "auto", 0.9375, True, 15, 3, {}),
+        # the benchmark cell's shape; the bf16 lattice; exact mode
+        (1024, "auto", 0.9375, True, 20, 2, dict(bs=65536)),
+        (1024, "auto", 0.9375, True, 20, 2, dict(msg_dtype="bf16")),
+        (2048, "auto", 0.9375, True, 13, 3, dict(msg_dtype="bf16")),
+        (256, "auto", 0.9375, True, 20, 2, dict(mode="exact")),
+    ])
 def test_bp_kernel_equals_plain_on_card(cuda, n, lattice, msf, early_stop,
-                                        num_iter, check_every):
-    """Min-sum: every LLR and flag bit-equal to the plain version on the
-    same CUDA inputs (the kernel reads the logits through a transposed
-    view and negates them on load)."""
-    from polar_torch.models.polar.cuda_bp import bp_decode, bp_decode_plain
-    bs = 256 if n >= 2048 else 2048
+                                        num_iter, check_every, extra):
+    """Every LLR, flag and per-codeword sweep count bit-equal to the plain
+    version on the same CUDA inputs (the kernel reads the logits through a
+    transposed view and negates them on load)."""
+    import ctypes
+    from polar_torch import _build
+    from polar_torch.models.polar.cuda_bp import (_native_call, bp_decode,
+                                                  bp_decode_plain)
+    bs = extra.get("bs", 256 if n >= 2048 else 2048)
     prior, logits = _bp_inputs(n, bs, 2.0, n)
     prior, logits = prior.to(cuda), logits.to(cuda)
     kw = dict(num_iter=num_iter, check_every=check_every,
-              early_stop=early_stop, mode="minsum", msf=msf,
-              llr_max=LLR_MAX, return_done=early_stop)
+              early_stop=early_stop, mode=extra.get("mode", "minsum"),
+              msf=msf, llr_max=LLR_MAX, return_done=early_stop,
+              msg_dtype=(torch.bfloat16 if extra.get("msg_dtype") == "bf16"
+                         else torch.float32))
     before = tracing.counter("launch.bp")
     got = bp_decode(logits.t(), prior, negate=True, lattice=lattice, **kw)
     torch.cuda.synchronize()
     assert tracing.counter("launch.bp") == before + 1
-    want = bp_decode_plain(-logits.t(), prior, **kw)
+    sw = torch.full((bs,), -1, dtype=torch.int32, device=cuda)
+    stream = (ctypes.c_void_p, torch.cuda.current_stream(cuda).cuda_stream)
+    got_sw = _native_call(_build.load("bp", "cuda").bp_launch, logits.t(),
+                          prior, lattice, stream, negate=True, sweeps=sw,
+                          **kw)
+    want_sw = torch.empty(bs, dtype=torch.int32, device=cuda)
+    want = bp_decode_plain(-logits.t(), prior, sweeps=want_sw, **kw)
+    assert torch.equal(sw, want_sw)
     if early_stop:
-        assert torch.equal(got[1], want[1])
-        got, want = got[0], want[0]
+        assert torch.equal(got[1], want[1]) and torch.equal(got_sw[1],
+                                                            want[1])
+        got, got_sw, want = got[0], got_sw[0], want[0]
     assert got.device == logits.device and torch.equal(got, want)
+    assert torch.equal(got_sw, want)
 
 
 @pytest.mark.gpu
@@ -379,6 +399,7 @@ def test_bp_kernel_sweeps_on_card(cuda, n, lattice, msg_dtype, ebno_db):
     table, on which BP needs more signal)."""
     import ctypes
     from polar_torch import _build
+    from polar_torch.models.polar import cuda_bp
     from polar_torch.models.polar.cuda_bp import (_native_call, bp_decode,
                                                   bp_decode_plain)
     bs = 512 if n >= 2048 else 2048
@@ -398,7 +419,13 @@ def test_bp_kernel_sweeps_on_card(cuda, n, lattice, msg_dtype, ebno_db):
     with tracing.enabled():
         with tracing.batch():
             on = bp_decode(llr, prior, lattice=lattice, **kw)
-    c = tracing.summary()["device_counters"]
+    s = tracing.summary()
+    c = s["device_counters"]
+    # the launch's form and its plan's barriers a sweep, counted traced
+    span = s["spans"]["kernel.bp"]
+    shared = cuda_bp.resolve_lattice(n, lattice) == "shared"
+    assert span.get("form.bp.tiled", 0) == int(shared)
+    assert span["syncs.bp"] == cuda_bp.launch_plan(n, lattice, msg_dtype)[1]
     assert torch.equal(sw, want_sw) and torch.equal(got_done, done)
     assert 0 < done.sum() < bs
     for x in (got, off, on):
