@@ -38,6 +38,9 @@ subtree, its codeword to int8),
 ``sweep.rise`` (the pointer updates and partial-sum combines after a
 subtree, and the combines after a node), ``sweep.backtrack`` (the survivor
 labels) and ``sweep.transform`` (the codewords stacked and transformed).
+The SC sweep counts, once a decode, the f and g rows it computes here above
+stage b in the tracing counter ``rows.sc.top`` (1024 for the 5G-ranked
+(1024, 512) code at b = 9, 0 at b = log2(n)).
 """
 
 import numpy as np
@@ -467,11 +470,13 @@ def sc_sweep_hybrid(llr_ch, frozen_mask, mode: str = "minsum",
     # partial sums of super-stage t, each waiting for its g-read / combine
     lbs = [None] * max(top - 1, 0)
     u0s = [None] * top
+    top_rows = 0                # f and g rows computed above stage b
 
     def descend(j0: int, sg_nd: int, stop: int):
         """Descend from the unit's g-entry to super-stage ``stop``, storing
         the super-stages above the unit's root ``sg_nd``; the value at
         ``stop`` (None when the g-entry lies below it)."""
+        nonlocal top_rows
         if j0 == 0:
             cur, d = llr, top
         else:
@@ -481,11 +486,13 @@ def sc_sweep_hybrid(llr_ch, frozen_mask, mode: str = "minsum",
             a = llr if d + 1 == top else lbs[d]
             h = 1 << (b + d)
             cur = g_op(a[:h], a[h:], u0s[d])
+            top_rows += h
             if d > sg_nd:
                 lbs[d - 1] = cur
         for sg in range(d, stop, -1):
             h = 1 << (b + sg - 1)
             cur = f(cur[:h], cur[h:], llr_max)
+            top_rows += h
             if sg - 1 > sg_nd:
                 lbs[sg - 2] = cur
         return cur
@@ -519,6 +526,7 @@ def sc_sweep_hybrid(llr_ch, frozen_mask, mode: str = "minsum",
                 node = torch.cat([u0s[sg] ^ node, node], dim=0)
             if r < top:
                 u0s[r] = node
+    tracing.count("rows.sc.top", top_rows)
     with tracing.span("sweep.transform"):
         cw = torch.stack(cws, dim=0)              # [m, 2^b, bs]
         return polar_transform(cw, axis=1).reshape(n, bs)
