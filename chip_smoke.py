@@ -13,8 +13,9 @@ BP's two-pass serving path and BP-20 with bf16 messages (phase 9), the
 then the entry points a user runs, each in its own process: the headline
 benchmark and the four walkthroughs (phase 14); then the probe kernels of
 ``benchmarks/probe_r4.py`` through their entry point (phase 15), which no
-path of the system runs; last the SCL sweep's closing transform
-(``butterfly_rows``, phase 16).
+path of the system runs; then the SCL sweep's closing transform
+(``butterfly_rows``, phase 16); last the plain chain's QPSK transmitter
+(``qpsk_front``, phase 17).
 Phases (any failure exits non-zero and prints no result):
 
 1. the card: CUDA must be available; prints the card's name and power
@@ -199,7 +200,17 @@ Phases (any failure exits non-zero and prints no result):
     transform gives; then its ms a launch (CUDA events over 50 launches)
     and alone (profiler) at those shapes beside its bound, its plain
     version's time and the parent's torch transform's (the int8 cast, the
-    stack and ``polar_transform`` on [m, w, L, bs]).
+    stack and ``polar_transform`` on [m, w, L, bs]);
+17. the QPSK transmitter (``qpsk_front``, ``csrc/qpsk_front.cu``): each
+    instance's registers and spills from ``-Xptxas -v``; against its plain
+    version at every width n = 2..4096 (random frozen sets, a batch no
+    tile divides), 0 elements differing; the k=512 n=1024 chain's kernel
+    path against the composed chain at bs 65536 and 8192 (bits, codewords
+    and LLRs bit for bit, the generator left alike); then its ms a launch
+    (CUDA events over 50 launches) and alone (profiler) beside its bound
+    (``kernel_work.qpsk_front_work``), and the kernel path's whole front
+    end beside the composed chain's and the plain version's. Phase 4's
+    main path must launch it once a step.
 
 The line before the card's line is one JSON object ``{"kernels": [...]}``
 with each kernel form's launches on its path (``scl_subtree`` static
@@ -216,9 +227,10 @@ plain version's time and its bound at the path's shape; then one entry a
 probe (``probe <name>``: launches on phase 15's path, elements checked
 and differing over both draws, times at the script's shapes; for
 ``gather`` and ``reduce`` also ``library_device_ms``, the in-turn medians
-``turns_ms`` and ``library_turns_ms``) and one for ``butterfly_rows``
+``turns_ms`` and ``library_turns_ms``), one for ``butterfly_rows``
 (phase 16's launches, elements checked and differing, and its times at
-each shape). The last line is
+each shape) and one for ``qpsk_front`` (phase 4's launches, phase 17's
+elements, registers, spills and times). The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 
@@ -1399,15 +1411,24 @@ BUTTERFLY_SHAPES = (("scl8", (1, 1024, 8 * 8192), "int32"),
                     ("plain_b8", (4, 256, 8 * 2048), "int8"))
 BUTTERFLY_REPS = 50
 
+# phase 17: the QPSK transmitter's timed batches on the k=512 n=1024 code
+# (the card-paced cells' bp20 and SC, and scl8's), its launches timed a
+# shape, and the widths checked against the plain version on a batch no
+# tile divides
+QPSK_FRONT_SHAPES = (("wide", 65536), ("scl8", 8192))
+QPSK_FRONT_REPS = 50
+QPSK_FRONT_CHECK_BS = 1031
+
 
 SCL_TURN_ROUNDS = 3      # P C C P rounds of the kernel-alone timing
 SCL_TURN_REPS = 5        # decodes per profiled reading
 
 
-def scl_ptxas_report(src):
-    """``nvcc -Xptxas -v`` on the SCL subtree source ``src`` (built into a
-    temporary file with the package's flags): each kernel's registers,
-    stack frame and spill bytes, by ``<kernel><L[, pc]>``."""
+def ptxas_report(src, pattern, name_of):
+    """``nvcc -Xptxas -v`` on the kernel source ``src`` (built into a
+    temporary file with the package's flags): the registers, stack frame
+    and spill bytes of each kernel whose mangled name ``pattern`` matches,
+    by ``name_of(match)``."""
     from polar_torch import _build
     with tempfile.TemporaryDirectory() as tmp:
         run = subprocess.run(
@@ -1419,10 +1440,9 @@ def scl_ptxas_report(src):
     info, name = {}, None
     for line in (run.stdout + run.stderr).splitlines():
         m = re.search(r"(?:entry function|Function properties for) '?"
-                      r"(_Z\w*(scl_subtree_kernel|scl_cw_kernel)ILi(\d+)E"
-                      r"(Lb(\d)E)?\w*)", line)
+                      + pattern, line)
         if m:
-            name = f"{m[2]}<{m[3]}{', pc' if m[5] == '1' else ''}>"
+            name = name_of(m)
             info.setdefault(name, {})
             continue
         if name is None:
@@ -1436,6 +1456,15 @@ def scl_ptxas_report(src):
         if m:
             info[name]["registers"] = int(m[1])
     return info
+
+
+def scl_ptxas_report(src):
+    """``ptxas_report`` of the SCL subtree source ``src``, by
+    ``<kernel><L[, pc]>``."""
+    return ptxas_report(
+        src, r"(_Z\w*(scl_subtree_kernel|scl_cw_kernel)ILi(\d+)E"
+             r"(Lb(\d)E)?\w*)",
+        lambda m: f"{m[2]}<{m[3]}{', pc' if m[5] == '1' else ''}>")
 
 
 def scl_sass_counts(lib):
@@ -1738,6 +1767,126 @@ def butterfly_phase(dev, card, main_launches):
                    for k, v in t.items()}, library_ms=None)
 
 
+def qpsk_front_phase(dev, card, main_launches):
+    """Phase 17: the QPSK transmitter (``qpsk_front``,
+    ``csrc/qpsk_front.cu``): its registers and spills (``-Xptxas -v``);
+    against its plain version at every width n = 2..4096 on random frozen
+    sets; the main chain's kernel path against its composed chain at the
+    timed batches, bit for bit in bits, codewords and LLRs, with the
+    generator left alike; then the kernel's ms a launch (CUDA events over
+    back-to-back launches) and alone (profiler) beside its bound, the
+    kernel path's whole front end (draws included) beside the composed
+    chain's and the plain version's. Returns its ``kernels`` entry, whose
+    ``launches`` is ``main_launches``, the main path's count from phase
+    4."""
+    import numpy as np
+    import torch
+    from polar_torch import generate_5g_ranking
+    from polar_torch.models.polar.cuda_front import (
+        qpsk_front, qpsk_front_plain, transmit_plan)
+    from polar_torch.models.polar.encode import PolarEncoder
+    from polar_torch.models.systems import SystemAWGNModel
+    from polar_torch.ops.channels import normal_parts
+    from polar_torch.ops.ebno import ebnodb2no
+    from polar_torch.ops.mapping import Constellation
+    from polar_torch.utils.kernel_work import bound_ms, qpsk_front_work
+    from polar_torch.utils.profiling import cuda_ms
+
+    regs = ptxas_report(os.path.join(ROOT, "polar_torch", "csrc",
+                                     "qpsk_front.cu"),
+                        r"(_Z\w*qpsk_front_kernelILi(\d+)E\w*)",
+                        lambda m: f"qpsk_front_kernel<{m[2]}>")
+    for name in sorted(regs, key=lambda x: int(x.split("<")[1][:-1])):
+        log(f"phase 17: {name} (-Xptxas -v): {regs[name]}")
+    m_main = N.bit_length() - 1
+    if not regs.get(f"qpsk_front_kernel<{m_main}>"):
+        raise AssertionError(f"phase 17: no -Xptxas -v line of "
+                             f"qpsk_front_kernel<{m_main}>: {regs}")
+
+    bits_of = lambda x: x.contiguous().view(torch.int32)    # noqa: E731
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    checked = bad = 0
+    for m in range(1, 13):
+        n = 1 << m
+        k = int(rng.integers(1, n + 1))
+        frozen = np.sort(rng.choice(n, n - k, replace=False))
+        table, a = transmit_plan(PolarEncoder(frozen, n, device=dev),
+                                 Constellation(2, device=dev), dev)
+        bs = QPSK_FRONT_CHECK_BS
+        bits = torch.randint(0, 2, (bs, k), generator=gen,
+                             device=dev).float()
+        xr, xi = normal_parts(gen, (bs, n // 2))
+        no = ebnodb2no(0.5, 2, k / n)
+        got = qpsk_front(bits, xr, xi, table, a, no)
+        want = qpsk_front_plain(bits, xr, xi, table, a, no)
+        checked += 2 * bs * n
+        bad += sum(int((bits_of(x) != bits_of(y)).sum().item())
+                   for x, y in zip(got, want))
+    log(f"phase 17: qpsk_front against qpsk_front_plain at n = 2..4096: "
+        f"{bad} of {checked} elements differ")
+    if bad:
+        raise AssertionError(f"phase 17: qpsk_front differs from its plain "
+                             f"version in {bad} elements")
+
+    enc = PolarEncoder(generate_5g_ranking(K, N)[0], N, device=dev)
+    model = SystemAWGNModel(N, K, enc, None)
+    composed = SystemAWGNModel(N, K, enc, None)
+    composed._transmit = None           # the chain as it ran before
+    if model._transmit is None:
+        raise AssertionError("phase 17: the plain QPSK chain on the card "
+                             "does not take the kernel")
+    table, a = model._transmit
+    no = ebnodb2no(EBNO_MAIN_DB, 2, K / N)
+    times = {}
+    for name, bs in QPSK_FRONT_SHAPES:
+        g_kernel = torch.Generator(dev).manual_seed(SEED + bs)
+        g_composed = torch.Generator(dev).manual_seed(SEED + bs)
+        got = model.front(g_kernel, bs, EBNO_MAIN_DB)
+        want = composed.front(g_composed, bs, EBNO_MAIN_DB)
+        torch.cuda.synchronize()
+        same = (all(torch.equal(bits_of(x), bits_of(y))
+                    for x, y in zip(got, want))
+                and torch.equal(g_kernel.get_state(), g_composed.get_state()))
+        if not same:
+            raise AssertionError(f"phase 17: {name}: the kernel path's front "
+                                 f"end differs from the composed chain's")
+        bits = got[0]
+        xr, xi = normal_parts(g_kernel, (bs, N // 2))
+        del got, want
+
+        def launch():
+            return qpsk_front(bits, xr, xi, table, a, no)
+        ms = cuda_ms(launch, QPSK_FRONT_REPS)
+        alone = kernel_device_ms(launch, 20, "qpsk_front_kernel")
+        front_ms = cuda_ms(lambda: model.front(g_kernel, bs, EBNO_MAIN_DB),
+                           10)
+        composed_ms = cuda_ms(
+            lambda: composed.front(g_kernel, bs, EBNO_MAIN_DB), 10)
+        plain_ms = cuda_ms(
+            lambda: qpsk_front_plain(bits, xr, xi, table, a, no), 3)
+        bound, kind = bound_ms(*qpsk_front_work(bs, K, N))
+        times[name] = dict(ms=ms, device_ms=alone, front_ms=front_ms,
+                           composed_front_ms=composed_ms, plain_ms=plain_ms,
+                           bound_ms=bound, bound_by=kind)
+        log(f"phase 17: qpsk_front ({bs}, {N}, {K}): {ms:.4f} ms a launch, "
+            f"the kernel alone {alone:.4f} ms; bound {bound:.4f} ms ({kind}; "
+            f"{bound / alone:.1%} of it); the kernel path's front end "
+            f"{front_ms:.3f} ms against the composed chain's "
+            f"{composed_ms:.3f} ms; plain {plain_ms:.3f} ms; codewords and "
+            f"LLRs equal to the composed chain's [{card}]")
+    return dict(name="qpsk_front", route="cuda",
+                source="polar_torch/csrc/qpsk_front.cu", replaces=None,
+                launches=main_launches, mismatch_elements=bad,
+                checked_elements=checked,
+                registers={k: v.get("registers") for k, v in regs.items()},
+                spill_bytes={k: v.get("spill_stores", 0)
+                             + v.get("spill_loads", 0)
+                             for k, v in regs.items()},
+                **{f"{k}_{name}": v for name, t in times.items()
+                   for k, v in t.items()}, library_ms=None)
+
+
 def bec_link_phase(dev, gen, card, encoder, frozen, reset_counts, counts):
     """Phase 11: ``SystemBECModel`` with the CLI's SC and SCL-8 decoders on
     the k=512 n=1024 code through ``sim_ber``, each BLER against its
@@ -1853,7 +2002,7 @@ def main(argv=None):
     # ---- phase 2: build every kernel of the paths, compilers in parallel
     t0 = time.perf_counter()
     kernels_built = ("scl_subtree", "sc_subtree", "bp", "probes",
-                     "butterfly")
+                     "butterfly", "qpsk_front")
     libs = _build.build([(name, "cuda") for name in kernels_built])
     for name in kernels_built:
         _build.load(name, "cuda")
@@ -2286,6 +2435,10 @@ def main(argv=None):
         raise AssertionError(f"the main path's decodes launched "
                              f"butterfly_rows {main_counts['butterfly_rows']}"
                              f" times, scl_subtree {launches}")
+    if main_counts["qpsk_front"] != launches:
+        raise AssertionError(f"the main path's fronts launched qpsk_front "
+                             f"{main_counts['qpsk_front']} times, "
+                             f"scl_subtree {launches}")
     if main_counts["scl_subtree traced"] or main_counts["scl_subtree wide"]:
         raise AssertionError(f"the fast main path left the static L=8 "
                              f"form: {main_counts}")
@@ -2712,6 +2865,9 @@ def main(argv=None):
     butterfly_entry = butterfly_phase(dev, card,
                                       main_counts["butterfly_rows"])
 
+    # ---- phase 17: the QPSK transmitter ----
+    qpsk_front_entry = qpsk_front_phase(dev, card, main_counts["qpsk_front"])
+
     def entry(name, source, replaces, launches, c, times, **extra):
         return dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=launches,
@@ -2757,6 +2913,7 @@ def main(argv=None):
                   for k, v in bp16_times[False].items()}),
               msg_dtype="bfloat16"),
         butterfly_entry,
+        qpsk_front_entry,
         *probe_entries,
     ]
     print(json.dumps({"kernels": kernels}))

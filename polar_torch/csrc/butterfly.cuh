@@ -54,6 +54,27 @@ PT_HD PT_INLINE uint32_t bfly_word_mask(int s) {
                 : 0x0000ffffu;
 }
 
+// the stages of span 2^s < per inside a word that holds per rows (row i
+// at bit i; the bits from per up are 0)
+PT_HD PT_INLINE uint32_t bfly_word_stages(uint32_t w, int per) {
+#pragma unroll
+  for (int s = 0; s < 5; ++s)
+    if ((1 << s) < per) w ^= (w >> (1 << s)) & bfly_word_mask(s);
+  return w;
+}
+
+// the stages between K words of 32 rows each (word k: rows 32 k .. 32 k +
+// 31), spans 32 .. 16 K
+template <int K>
+PT_HD PT_INLINE void bfly_words_stages(uint32_t (&word)[K]) {
+#pragma unroll
+  for (int h = 1; h < K; h <<= 1) {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (!(k & h)) word[k] ^= word[k + h];
+  }
+}
+
 // bit 0 of an element; each is read and each output written once, so the
 // card streams them (evict first)
 template <typename T>
@@ -89,18 +110,8 @@ PT_HD PT_INLINE void bfly_slice(const T* x, long long x_row_stride, int R,
     word[k] = acc;
   }
 #pragma unroll
-  for (int s = 0; s < 5; ++s)
-    if ((1 << s) < per) {
-#pragma unroll
-      for (int k = 0; k < K; ++k)
-        word[k] ^= (word[k] >> (1 << s)) & bfly_word_mask(s);
-    }
-#pragma unroll
-  for (int h = 1; h < K; h <<= 1) {
-#pragma unroll
-    for (int k = 0; k < K; ++k)
-      if (!(k & h)) word[k] ^= word[k + h];
-  }
+  for (int k = 0; k < K; ++k) word[k] = bfly_word_stages(word[k], per);
+  bfly_words_stages<K>(word);
 }
 
 // slice q's words after the transform across the Q slices of a column:

@@ -70,6 +70,10 @@ class DenseKernelEncoder(PolarEncoder):
         c = self.scatter_info(u).to(torch.float32)
         return int_mod_2(torch.matmul(c, self._g)).to(self.dtype)
 
+    def transmit_table(self):
+        """None: the dense generator is no polar transform."""
+        return None
+
     def info_bits(self, c):
         """``u = c G^-1 mod 2`` of codewords ``c[..., n]`` (f32, all n
         positions)."""

@@ -42,6 +42,14 @@ class PolarEncoder:
             raise ValueError(f"last dim must be of length k={self.k}")
         return polar_transform(self.scatter_info(u)).to(self.dtype)
 
+    def transmit_table(self):
+        """The scatter's gather table as int16 [n] on the encoder's device
+        (position p carries ``u[..., table[p]]``, frozen where it is k):
+        this encoder is a plain scatter then the transform, which the QPSK
+        transmitter kernel (``cuda_front``) computes from this table.
+        Encoders that do more or other work answer None."""
+        return self._scatter_idx.to(torch.int16)
+
     def parity_check(self, c):
         """True where ``c[..., n]`` is a codeword of this code (a test
         aid). ``G`` is an involution over GF(2), so ``u = c G``, and ``c``
@@ -103,6 +111,11 @@ class Polar5GEncoder(PolarEncoder):
             self._pc_mat = torch.from_numpy(
                 pc.pc_parity_matrix(is_data, is_pc)).to(dev)
             self._pc_idx = torch.from_numpy(self.pc_pos).to(dev)
+
+    def transmit_table(self):
+        """None: CRC, PC bits and rate matching lie outside the plain
+        scatter and transform."""
+        return None
 
     def _init_rate_match(self, k_target: int, n_target: int):
         """CRC choice, mother-code size, frozen set and the combined

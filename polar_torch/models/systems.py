@@ -8,11 +8,14 @@ it; it is informational.
 
 ``step`` runs the front end in the span ``chain.front`` and the decoder in
 ``chain.decode`` (``utils.tracing``); ``front`` marks ``front.source``,
-``front.encode``, ``front.map``, ``front.channel`` and ``front.demap``."""
+``front.encode``, ``front.map``, ``front.channel`` and ``front.demap``, or,
+where ``SystemAWGNModel`` takes the QPSK transmitter kernel,
+``front.source`` and ``front.transmit``."""
 
 import torch
 
-from polar_torch.ops.channels import AWGN, BinaryErasureChannel
+from polar_torch.models.polar.cuda_front import qpsk_front, transmit_plan
+from polar_torch.ops.channels import AWGN, BinaryErasureChannel, normal_parts
 from polar_torch.ops.ebno import ebnodb2no
 from polar_torch.ops.mapping import Constellation, Demapper, Mapper
 from polar_torch.ops.source import binary_source
@@ -23,7 +26,14 @@ class SystemAWGNModel:
     """Gray-QAM (QPSK by default) over AWGN with exact demapping.
 
     ``step(generator, batch_size, ebno_db)`` runs one Monte-Carlo batch on
-    the generator's device, which must be the encoder's and decoder's."""
+    the generator's device, which must be the encoder's and decoder's.
+
+    Where ``cuda_front.transmit_plan`` finds the chain a plain polar code
+    over QPSK on a card, everything between the draws and the LLRs is one
+    kernel launch (``cuda_front.qpsk_front``), with the same draws and the
+    same ``(bits, codewords, llr)`` bit for bit; elsewhere (the CPU, other
+    constellations, the 5G and dense-G encoders) the composed chain runs.
+    The choice is made once, when the model is built."""
 
     def __init__(self, n: int, k: int, encoder, decoder,
                  cw_estimates: bool = False, n_bits_per_sym: int = 2):
@@ -40,6 +50,11 @@ class SystemAWGNModel:
         self.encoder = encoder
         self.decoder = decoder
         self.requires_host = getattr(decoder, "requires_host", False)
+        # a model sized unlike its encoder keeps the composed chain, whose
+        # encoder raises on it
+        plan = transmit_plan(encoder, self.constell, self.device)
+        self._transmit = (plan if plan and (encoder.n, encoder.k) == (n, k)
+                          else None)
 
     def front(self, generator: torch.Generator, batch_size: int, ebno_db):
         """Source -> encode -> map -> AWGN -> demap. Returns
@@ -47,6 +62,12 @@ class SystemAWGNModel:
         no = ebnodb2no(ebno_db, self.n_bits_per_sym, self.coderate)
         with tracing.span("front.source"):
             bits = binary_source(generator, (batch_size, self.k))
+        if self._transmit is not None and no.numel() == 1:
+            with tracing.span("front.transmit"):
+                xr, xi = normal_parts(generator, (batch_size, self.n // 2))
+                codewords, llr = qpsk_front(bits, xr, xi, *self._transmit,
+                                            no)
+            return bits, codewords, llr
         with tracing.span("front.encode"):
             codewords = self.encoder(bits)
         with tracing.span("front.map"):

@@ -14,13 +14,26 @@ from polar_torch.utils import tracing
 from polar_torch.utils.numerics import expand_to_rank
 
 
-def complex_normal(generator: torch.Generator, shape, var=1.0):
-    """CN(0, var) samples on the generator's device; each real dimension
-    has variance ``var / 2``."""
-    std = (torch.as_tensor(var, dtype=torch.float32) / 2.0).sqrt()
+def normal_parts(generator: torch.Generator, shape):
+    """The standard normal draws of ``complex_normal``'s real and imaginary
+    parts, in its order, on the generator's device."""
     dev = generator.device
     xr = torch.randn(tuple(shape), generator=generator, device=dev)
     xi = torch.randn(tuple(shape), generator=generator, device=dev)
+    return xr, xi
+
+
+def normal_std(var=1.0):
+    """The f32 standard deviation ``sqrt(var / 2)`` of each real dimension
+    of CN(0, var), on the host."""
+    return (torch.as_tensor(var, dtype=torch.float32) / 2.0).sqrt()
+
+
+def complex_normal(generator: torch.Generator, shape, var=1.0):
+    """CN(0, var) samples on the generator's device; each real dimension
+    has variance ``var / 2``."""
+    std = normal_std(var)
+    xr, xi = normal_parts(generator, shape)
     return torch.complex(std * xr, std * xi)
 
 

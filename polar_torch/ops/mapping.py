@@ -136,6 +136,10 @@ class SymbolLogits2LLRs:
         return exp1.amax(dim=-2) - exp0.amax(dim=-2)
 
 
+# Gray QPSK's exact LLR is this gain times Re(y) (resp. Im(y)) over No
+QPSK_LLR_GAIN = -4.0 * float(np.sqrt(0.5))
+
+
 class Demapper:
     """``__call__((y, no)) -> llr[..., n_sym * n_bits_per_sym]``."""
 
@@ -152,8 +156,8 @@ class Demapper:
             # a = 1/sqrt(2), bit 0 on the real axis (label 1 -> -a), so the
             # LLR is -4a Re(y)/No (resp. Im(y)); the cross terms cancel, and
             # max-log gives the same value
-            scale = torch.tensor(-4.0 * float(np.sqrt(0.5)),
-                                 dtype=torch.float32, device=y.device) / no
+            scale = torch.tensor(QPSK_LLR_GAIN, dtype=torch.float32,
+                                 device=y.device) / no
             tracing.count("h2d")
             llr = torch.stack([scale * y.real, scale * y.imag], dim=-1)
             return llr.reshape(y.shape[:-1] + (2 * y.shape[-1],))

@@ -6,10 +6,11 @@ move and the f32 operations it must at least do, from its arguments.
 runs while it counts, since a kernel called through ``ctypes`` is no
 dispatcher op that it could see. Each wrapper reports its launches through
 ``report``, which costs nothing while no estimate runs. ``launch_counts``
-and ``reset_launch_counts`` read and clear the decoder kernels' launch
-counts, which the wrappers keep in ``utils.tracing``'s registry (the
-probes' are read in ``polar_torch.probes``); ``bound_ms`` turns a count
-into the least time on the card.
+and ``reset_launch_counts`` read and clear the chain kernels' launch
+counts (the front end's and the decoders'), which the wrappers keep in
+``utils.tracing``'s registry (the probes' are read in
+``polar_torch.probes``); ``bound_ms`` turns a count into the least time on
+the card.
 """
 
 from polar_torch.utils import tracing
@@ -163,6 +164,18 @@ def butterfly_work(x):
     return x.numel() * (x.element_size() + 1), m * C * b * (w // 2)
 
 
+def qpsk_front_work(bs, k, n):
+    """(bytes, operations) one ``qpsk_front`` call on ``bs`` codewords of a
+    (n, k) code must at least move and do: the f32 info bits and the two
+    f32 noise draws read once, the f32 codewords and LLRs written once,
+    the int16 table (4 k + 12 n bytes a codeword); per codeword the
+    transform's log2(n) stages of one XOR for every pair of positions, and
+    per position the noise's two products, its sum with the point and the
+    LLR's product."""
+    return (bs * (4 * k + 12 * n) + 2 * n,
+            bs * (OPS_XOR * (n // 2) * (n.bit_length() - 1) + 4 * n))
+
+
 def bound_ms(n_bytes, n_ops):
     """(least time in ms, "bytes" or "operations") of a call that moves
     ``n_bytes`` and does ``n_ops`` f32 operations, on the card's
@@ -180,7 +193,8 @@ LAUNCH_COUNTERS = {"scl_subtree": "launch.scl_subtree",
                    "sc_subtree": "launch.sc_subtree",
                    "bp": "launch.bp",
                    "bp bf16": "form.bp.bf16",
-                   "butterfly_rows": "launch.butterfly_rows"}
+                   "butterfly_rows": "launch.butterfly_rows",
+                   "qpsk_front": "launch.qpsk_front"}
 
 
 def launch_counts():

@@ -148,7 +148,8 @@ def test_launch_counts_read_and_reset_every_wrapper():
                 ("launch.sc_subtree", "sc_subtree"),
                 ("launch.bp", "bp"),
                 ("form.bp.bf16", "bp bf16"),
-                ("launch.butterfly_rows", "butterfly_rows")]
+                ("launch.butterfly_rows", "butterfly_rows"),
+                ("launch.qpsk_front", "qpsk_front")]
     reset_launch_counts()
     for i, (name, _) in enumerate(counters):
         tracing.count(name, i + 1)

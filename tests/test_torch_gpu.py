@@ -10,7 +10,9 @@ against the CPU;
 the headline benchmark (``python -m polar_torch.bench``) at a small size;
 the probe kernels (``polar_torch.probes``) against their plain versions;
 the SCL sweep's closing transform (``butterfly_rows``) against its plain
-version, and once a decode on the three main SCL chains.
+version, and once a decode on the three main SCL chains; the QPSK
+transmitter (``qpsk_front``) against its plain version and the composed
+front end, and not on the 5G chain.
 Every test here needs a CUDA card and skips without one.
 
 The file imports no JAX, so it also runs where JAX is not installed:
@@ -992,3 +994,92 @@ def test_quad_kernel_on_card(cuda, case):
         tuple(x.cpu().numpy() for x in outs[0][:2]),
         want[2].cpu().numpy(), outs[0][2].cpu().numpy())
     assert mode == "exact" or share == 1.0
+
+
+def _front_model(n, k, device, seed=0):
+    """A plain chain's ``SystemAWGNModel`` (no decoder): the 5G-ranked code
+    up to n = 1024, a random frozen set beyond."""
+    from polar_torch.models.polar.encode import PolarEncoder
+    from polar_torch.models.systems import SystemAWGNModel
+    if n <= 1024:
+        frozen = generate_5g_ranking(k, n)[0]
+    else:
+        rng = np.random.default_rng(seed)
+        frozen = np.sort(rng.choice(n, n - k, replace=False))
+    return SystemAWGNModel(n, k, PolarEncoder(frozen, n, device=device),
+                           None)
+
+
+def _f32_bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k,bs", [(1024, 512, 65536), (32, 16, 4099),
+                                    (128, 64, 4099), (4096, 2048, 1031)])
+def test_qpsk_front_path_equals_composed_chain_on_card(cuda, n, k, bs):
+    """The kernel path's ``(bits, codewords, llr)`` equal the composed
+    chain's bit for bit on the same seed (at the benchmark cells' shape and
+    at n = 32, 128, 4096 on ragged batches), one launch a front, and the
+    generator left where the composed chain leaves it."""
+    model = _front_model(n, k, cuda, seed=n)
+    composed = _front_model(n, k, cuda, seed=n)
+    composed._transmit = None
+    assert model._transmit is not None
+    seed = 3000000017 + n
+    gen = torch.Generator(cuda).manual_seed(seed)
+    before = tracing.counter("launch.qpsk_front")
+    got = model.front(gen, bs, 2.0)
+    torch.cuda.synchronize()
+    assert tracing.counter("launch.qpsk_front") == before + 1
+    want_gen = torch.Generator(cuda).manual_seed(seed)
+    want = composed.front(want_gen, bs, 2.0)
+    assert tracing.counter("launch.qpsk_front") == before + 1
+    for x, y in zip(got, want):
+        assert x.shape == y.shape and x.dtype == y.dtype == torch.float32
+        assert torch.equal(_f32_bits(x), _f32_bits(y))
+    assert torch.equal(gen.get_state(), want_gen.get_state())
+    assert torch.equal(torch.randn(4, generator=gen, device=cuda),
+                       torch.randn(4, generator=want_gen, device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [2, 4, 8, 16, 32, 64, 256, 1024, 2048, 4096])
+def test_qpsk_front_kernel_equals_plain_on_card(cuda, n):
+    """The wrapper on CUDA tensors against its plain version on the same
+    tensors, random frozen sets, a batch no tile divides."""
+    from polar_torch.models.polar.cuda_front import (
+        qpsk_front, qpsk_front_plain, transmit_plan)
+    from polar_torch.models.polar.encode import PolarEncoder
+    from polar_torch.ops.ebno import ebnodb2no
+    from polar_torch.ops.mapping import Constellation
+    rng = np.random.default_rng(n)
+    k = int(rng.integers(1, n + 1))
+    frozen = np.sort(rng.choice(n, n - k, replace=False))
+    table, a = transmit_plan(PolarEncoder(frozen, n, device=cuda),
+                             Constellation(2, device=cuda), cuda)
+    gen = torch.Generator(cuda).manual_seed(n)
+    bs = 1031
+    bits = torch.randint(0, 2, (bs, k), generator=gen,
+                         device=cuda).float()
+    xr, xi = (torch.randn((bs, n // 2), generator=gen, device=cuda)
+              for _ in range(2))
+    no = ebnodb2no(0.5, 2, k / n)
+    got = qpsk_front(bits, xr, xi, table, a, no)
+    want = qpsk_front_plain(bits, xr, xi, table, a, no)
+    for x, y in zip(got, want):
+        assert torch.equal(_f32_bits(x), _f32_bits(y))
+
+
+@pytest.mark.gpu
+def test_qpsk_front_not_launched_on_the_uci_chain(cuda):
+    """The 5G encoder keeps the composed chain: no launch."""
+    from polar_torch.models.polar.encode import Polar5GEncoder
+    from polar_torch.models.systems import SystemAWGNModel
+    model = SystemAWGNModel(864, 19, Polar5GEncoder(19, 864, device=cuda),
+                            None)
+    assert model._transmit is None
+    before = tracing.counter("launch.qpsk_front")
+    model.front(torch.Generator(cuda).manual_seed(5), 1024, 4.5)
+    torch.cuda.synchronize()
+    assert tracing.counter("launch.qpsk_front") == before

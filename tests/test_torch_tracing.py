@@ -24,6 +24,8 @@ PARENTS = {
     "front.source": "chain.front", "front.encode": "chain.front",
     "front.map": "chain.front", "front.channel": "chain.front",
     "front.demap": "chain.front",
+    # the QPSK transmitter kernel's path on a card (cuda_front)
+    "front.transmit": "chain.front", "kernel.qpsk_front": "front.transmit",
     "encode.crc": "front.encode", "encode.polar": "front.encode",
     "encode.rate_match": "front.encode",
     "decode.rate_recover": "chain.decode", "decode.polar": "chain.decode",
